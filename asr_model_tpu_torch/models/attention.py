@@ -1,0 +1,96 @@
+"""Multi-head attention with per-component norms and signal-adaptive
+rotary.
+
+* q and kv projections each behind an ``n_type`` norm; heads split as
+  (B, H, T, hd).
+* q and k are scaled by hd^-0.25 before the rotary, and ``sdpa``
+  applies the usual 1/sqrt(hd) on top (the reference's double scaling).
+* rotary on q conditioned on the query source and on k conditioned on
+  the kv source, then the per-head norm ``head_norm`` on both.
+* self-attention when ``xa`` is None, cross-attention over ``xa``
+  otherwise, or over a precomputed K/V (``cached_kv``).
+
+Every ``sdpa`` call runs the flash kernel on a CUDA tensor
+(``ops/cuda/attention.py``) and the plain masked softmax on a CPU one.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from asr_model_tpu_torch.models.registry import get_norm
+from asr_model_tpu_torch.models.rotary import Rotary
+from asr_model_tpu_torch.models.tlayers import Dense
+from asr_model_tpu_torch.ops.cuda import attention as K
+
+
+def split_heads(x: torch.Tensor, head: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, head, d // head).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, hd = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * hd)
+
+
+def sdpa(q, k, v, causal: bool = False, kv_valid=None):
+    """Scaled dot-product attention over (B, H, T, hd) with the 1/sqrt(hd)
+    scale; ``kv_valid`` (B, Tk) bool.  Masked logits are -1e30 (a fully
+    masked row averages V), the causal mask aligned bottom-right."""
+    return K.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=causal, kv_valid=kv_valid,
+                             scale=1.0 / math.sqrt(q.shape[-1]))
+
+
+class Attention(nn.Module):
+    def __init__(self, dims: int, head: int, n_type: str, device=None,
+                 dtype=None):
+        super().__init__()
+        self.dims, self.head = dims, head
+        kw = dict(device=device, dtype=dtype)
+        self.q_norm = get_norm(n_type, dims, **kw)
+        self.q_proj = Dense(dims, dims, **kw)
+        self.kv_norm = get_norm(n_type, dims, **kw)
+        self.kv_proj = Dense(dims, 2 * dims, **kw)
+        self.out_proj = Dense(dims, dims, **kw)
+        self.head_norm = get_norm(n_type, dims // head, **kw)
+        self.rot = Rotary(dims, head, **kw)
+
+    @property
+    def scale(self) -> float:
+        return (self.dims // self.head) ** -0.25
+
+    def _q(self, x):
+        return split_heads(self.q_proj(self.q_norm(x)), self.head)
+
+    def _kv(self, x):
+        k, v = torch.chunk(self.kv_proj(self.kv_norm(x)), 2, dim=-1)
+        return split_heads(k, self.head), split_heads(v, self.head)
+
+    def precompute_kv(self, xa):
+        """Fully processed cross-attention K/V of a fixed source (kv
+        projection, scale, rotary conditioned on the source, head norm);
+        v stays raw."""
+        k, v = self._kv(xa)
+        k = self.rot(k * self.scale, cond=xa, causal=False)
+        return self.head_norm(k), v
+
+    def forward(self, x, xa=None, causal: bool = False, kv_valid=None,
+                cached_kv=None):
+        if cached_kv is not None:
+            kn, v = cached_kv
+            q = self.rot(self._q(x) * self.scale, cond=x, causal=False)
+            a = sdpa(self.head_norm(q), kn, v, causal=False,
+                     kv_valid=kv_valid)
+            return self.out_proj(merge_heads(a))
+        kv_src = xa if xa is not None else x
+        k, v = self._kv(kv_src)
+        q = self.rot(self._q(x) * self.scale, cond=x, causal=causal)
+        k = self.rot(k * self.scale, cond=kv_src, causal=causal)
+        a = sdpa(self.head_norm(q), self.head_norm(k), v, causal=causal,
+                 kv_valid=kv_valid)
+        return self.out_proj(merge_heads(a))

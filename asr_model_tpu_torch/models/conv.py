@@ -1,0 +1,135 @@
+"""Convolutional audio feature encoder, eval.
+
+ConvLite: pointwise -> GLU -> depthwise (k=15) -> BatchNorm -> SiLU ->
+pointwise, residual.  AudioEncoder: a per-modality stem (``conv1`` for
+multi-channel spectrograms, ``conv2`` for mono tracks) then ``layer`` x
+[act, weight-norm conv k3, LayerNorm, ConvLite, act, depthwise conv k3,
+act], then + sinusoids.  Activations are channel-last (B, T, C); the
+convolutions are plain PyTorch (the JAX package leaves them to XLA).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from asr_model_tpu_torch.config import THETA
+from asr_model_tpu_torch.models.norms import BatchNorm1d, LayerNorm
+from asr_model_tpu_torch.models.registry import get_activation
+from asr_model_tpu_torch.models.tlayers import Conv1d, param, uniform_
+from asr_model_tpu_torch.ops.audio import sinusoids
+
+
+class WeightNormConv1d(nn.Module):
+    """Conv1d under weight norm (dim 0): w = g * v / ||v|| with the norm
+    over (in, k) per output channel; ``v`` (out, in, k)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: int = 3, device=None, dtype=None):
+        super().__init__()
+        self.in_features, self.kernel_size = in_features, kernel_size
+        kw = dict(device=device, dtype=dtype)
+        self.v = param(features, in_features, kernel_size, **kw)
+        self.g = param(features, **kw)
+        self.b = param(features, **kw)
+
+    def reset_parameters(self, gen):
+        fan_in = self.in_features * self.kernel_size
+        uniform_(self.v, fan_in, gen)
+        with torch.no_grad():
+            self.g.copy_(torch.sqrt(torch.sum(self.v * self.v, dim=(1, 2))))
+        uniform_(self.b, fan_in, gen)
+
+    def forward(self, x):
+        vn = torch.sqrt(torch.sum(self.v * self.v, dim=(1, 2), keepdim=True))
+        w = self.g[:, None, None] * self.v / torch.clamp(vn, min=1e-12)
+        y = F.conv1d(x.transpose(-1, -2), w, self.b,
+                     padding=self.kernel_size // 2)
+        return y.transpose(-1, -2)
+
+
+def glu(x):
+    a, b = torch.chunk(x, 2, dim=-1)
+    return a * torch.sigmoid(b)
+
+
+class ConvLite(nn.Module):
+    def __init__(self, dims: int, kernel_size: int = 15, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.point1 = Conv1d(dims, 2 * dims, 1, **kw)
+        self.depth = Conv1d(dims, dims, kernel_size, groups=dims, **kw)
+        self.bn = BatchNorm1d(dims, **kw)
+        self.point2 = Conv1d(dims, dims, 1, **kw)
+
+    def forward(self, x):
+        y = glu(self.point1(x))
+        y = F.silu(self.bn(self.depth(y)))
+        return x + self.point2(y)
+
+
+class AudioEncoder(nn.Module):
+    """Per-modality feature encoder: (B, C, T) in (C = mels for a
+    spectrogram, 1 for pitch / waveform), (B, T, dims) out."""
+
+    def __init__(self, mels: int, dims: int, head: int, layer: int,
+                 act: str, theta: float = THETA, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.act = get_activation(act)
+        self.theta = theta
+        self.layer = layer
+        self.conv1 = Conv1d(mels, dims, 3, **kw)
+        self.conv2 = Conv1d(1, dims, 3, **kw)
+        for i in range(layer):
+            self.add_module(f"enc{i}_wn", WeightNormConv1d(dims, dims, 3,
+                                                           **kw))
+            self.add_module(f"enc{i}_ln", LayerNorm(dims, **kw))
+            self.add_module(f"enc{i}_convlite", ConvLite(dims, 15, **kw))
+            self.add_module(f"enc{i}_dw", Conv1d(dims, dims, 3, groups=dims,
+                                                 **kw))
+
+    def stem(self, x):
+        x = x if x.dim() == 3 else x[None]
+        x = x.transpose(-1, -2)                       # (B, T, C)
+        return self.conv1(x) if x.shape[-1] > 1 else self.conv2(x)
+
+    def stack(self, x):
+        act = self.act
+        for i in range(self.layer):
+            x = act(x)
+            x = getattr(self, f"enc{i}_wn")(x)
+            x = getattr(self, f"enc{i}_ln")(x)
+            x = getattr(self, f"enc{i}_convlite")(x)
+            x = act(x)
+            x = getattr(self, f"enc{i}_dw")(x)
+            x = act(x)
+        pe = sinusoids(x.shape[1], x.shape[-1], self.theta, device=x.device)
+        return x + pe.to(x.dtype)
+
+    def forward(self, xa: dict) -> dict:
+        """Encode the a/b/c slots: identical slot tensors once, and every
+        stem output of one time length through one batched stack pass
+        (every op of the stack is row-local in eval)."""
+        keys = [k for k in ("a", "b", "c") if xa.get(k) is not None]
+        out = {k: v for k, v in xa.items() if k not in keys}
+        groups: dict = {}
+        for k in keys:
+            groups.setdefault(id(xa[k]), []).append(k)
+        by_t: dict = {}
+        for g in groups.values():
+            t = xa[g[0]]
+            t = t if t.dim() == 3 else t[None]
+            by_t.setdefault(t.shape[-1], []).append((g, t))
+        for gs in by_t.values():
+            stems = [self.stem(t) for _g, t in gs]
+            enc = self.stack(torch.cat(stems, dim=0))
+            ofs = 0
+            for (g, _t), s in zip(gs, stems):
+                e = enc[ofs:ofs + s.shape[0]]
+                ofs += s.shape[0]
+                for k in g:
+                    out[k] = e
+        return out

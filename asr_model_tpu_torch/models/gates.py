@@ -1,0 +1,90 @@
+"""Gating and routing: the modality ``Router``, the ``TGate`` mixture of
+sigmoid gates inside the residual MLP, and the MSheath jump-policy
+network ``MPNet``.  Eval forms, through the plain stacked path."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from asr_model_tpu_torch.models.tlayers import Dense, param
+
+
+def _topk_hard(scores: torch.Tensor, num: int) -> torch.Tensor:
+    """softmax of the top-``num`` values scattered to their indices,
+    zeros elsewhere.  Ties go to the first occurrence, in rank order, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order):
+    each rank is an argmax (first maximum) over what earlier ranks left."""
+    masked = scores
+    vals, hots = [], []
+    for _ in range(num):
+        idx = torch.argmax(masked, dim=-1, keepdim=True)
+        vals.append(torch.gather(scores, -1, idx))
+        hot = F.one_hot(idx[..., 0], scores.shape[-1]).to(torch.bool)
+        hots.append(hot)
+        masked = masked.masked_fill(hot, float("-inf"))
+    soft = torch.softmax(torch.cat(vals, dim=-1), dim=-1)
+    return sum(soft[..., i:i + 1] * hots[i].to(scores.dtype)
+               for i in range(num))
+
+
+class Router(nn.Module):
+    """Stack the inputs on a trailing axis, weight them by
+    sigmoid(alpha) * top2-hard(top) + (1 - sigmoid(alpha)) * softmax(soft)
+    and sum.  The weights are shaped by the stacked width (dims *
+    n_modalities); the bias bound uses dims * num_types."""
+
+    def __init__(self, dims: int, num_types: int, n_mod: int, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.top = Dense(dims * n_mod, num_types,
+                         bias_fan_in=dims * num_types, **kw)
+        self.soft = Dense(dims * n_mod, num_types,
+                          bias_fan_in=dims * num_types, **kw)
+        self.alpha = param(1, **kw)
+
+    def reset_parameters(self, gen):
+        with torch.no_grad():
+            self.alpha.fill_(1.0)
+
+    def forward(self, *modalities):
+        stack = torch.stack(modalities, dim=-1)              # (b, c, d, n)
+        flat = stack.reshape(*stack.shape[:-2], -1)
+        top = self.top(flat)
+        soft = torch.softmax(self.soft(flat), dim=-1)
+        alpha = torch.sigmoid(self.alpha)
+        weights = alpha * _topk_hard(top, 2) + (1 - alpha) * soft
+        return torch.sum(stack * weights[..., None, :], dim=-1)
+
+
+class TGate(nn.Module):
+    """Softmax-weighted mixture of ``num_types`` sigmoid gates."""
+
+    def __init__(self, dims: int, num_types: int = 3, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.num_types = num_types
+        for i in range(num_types):
+            self.add_module(f"ga{i}", Dense(dims, dims, **kw))
+        self.cs = Dense(dims, num_types, **kw)
+
+    def forward(self, x):
+        ga = torch.stack([torch.sigmoid(getattr(self, f"ga{i}")(x))
+                          for i in range(self.num_types)], dim=-1)
+        types = torch.softmax(self.cs(x), dim=-1)
+        return torch.sum(ga * types[..., None, :], dim=-1)
+
+
+class MPNet(nn.Module):
+    """Jump-policy network: pooled state -> softmax over {0..jump}."""
+
+    def __init__(self, dims: int, jump: int = 2, device=None, dtype=None):
+        super().__init__()
+        self.fc1 = Dense(dims, 128, device=device, dtype=dtype)
+        self.fc2 = Dense(128, jump + 1, device=device, dtype=dtype)
+
+    def forward(self, pooled):
+        return torch.softmax(self.fc2(F.silu(self.fc1(pooled))), dim=-1)

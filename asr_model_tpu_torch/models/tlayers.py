@@ -1,0 +1,106 @@
+"""Layers with torch-default initialisation, channel-last at their
+boundaries.
+
+Init bounds (the reference relies on torch defaults): Dense and Conv
+kernels U(+-1/sqrt(fan_in)) with fan_in the product of every kernel
+axis but the output one, biases U(+-1/sqrt(fan_in)) of the declared
+input width, embeddings N(0, 1).  Every module draws from an explicit
+``torch.Generator`` in ``reset_parameters(gen)``; parameter names are
+the flax tree's with torch layouts (``weights.from_jax_params`` maps
+them).  Forward only: the port is eval-only.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def uniform_(t: torch.Tensor, fan_in: int, gen) -> torch.Tensor:
+    bound = 1.0 / math.sqrt(max(int(fan_in), 1))
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=gen)
+
+
+def normal_(t: torch.Tensor, gen) -> torch.Tensor:
+    with torch.no_grad():
+        return t.normal_(0.0, 1.0, generator=gen)
+
+
+def param(*shape, device=None, dtype=None) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class Dense(nn.Module):
+    """y = x W^T + b; ``weight`` (out, in).  ``bias_fan_in`` overrides
+    the bias bound's width where the reference declares one input width
+    and feeds another (the modality router)."""
+
+    def __init__(self, in_features: int, features: int, use_bias=True,
+                 bias_fan_in: int | None = None, device=None, dtype=None):
+        super().__init__()
+        self.in_features, self.features = in_features, features
+        self.bias_fan_in = bias_fan_in or in_features
+        self.weight = param(features, in_features, device=device,
+                            dtype=dtype)
+        self.bias = (param(features, device=device, dtype=dtype)
+                     if use_bias else None)
+
+    def reset_parameters(self, gen):
+        uniform_(self.weight, self.in_features, gen)
+        if self.bias is not None:
+            uniform_(self.bias, self.bias_fan_in, gen)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class Conv1d(nn.Module):
+    """Stride-1 'SAME' 1-D convolution over channel-last (..., T, C)
+    input; ``weight`` (out, in / groups, k), k odd.  groups == C is the
+    depthwise case."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int,
+                 groups: int = 1, device=None, dtype=None):
+        super().__init__()
+        assert kernel_size % 2 == 1, "SAME padding needs an odd kernel"
+        self.in_features, self.features = in_features, features
+        self.kernel_size, self.groups = kernel_size, groups
+        self.weight = param(features, in_features // groups, kernel_size,
+                            device=device, dtype=dtype)
+        self.bias = param(features, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen):
+        fan_in = (self.in_features // self.groups) * self.kernel_size
+        uniform_(self.weight, fan_in, gen)
+        uniform_(self.bias, fan_in, gen)
+
+    def forward(self, x):
+        y = F.conv1d(x.transpose(-1, -2), self.weight, self.bias,
+                     padding=self.kernel_size // 2, groups=self.groups)
+        return y.transpose(-1, -2)
+
+
+class Embed(nn.Module):
+    def __init__(self, num: int, features: int, device=None, dtype=None):
+        super().__init__()
+        self.weight = param(num, features, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen):
+        normal_(self.weight, gen)
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
+
+
+def reset_all(module: nn.Module, gen) -> None:
+    """Initialise every module of the tree in registration order; each
+    ``reset_parameters(gen)`` sets its own direct parameters only."""
+    for m in module.modules():
+        fn = getattr(m, "reset_parameters", None)
+        if fn is not None:
+            fn(gen)

@@ -1,0 +1,151 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``*.cu`` under ``asr_model_tpu_torch/csrc/`` is compiled for
+``sm_90a`` by ``nvcc`` (one process per source, all started together)
+and linked into one shared library with a plain C interface, loaded
+with ``ctypes``.  The build happens at first use, from the package's
+sources only, into ``asr_model_tpu_torch/_build/<hash>/`` where the
+hash covers the sources and the flags, so an edited kernel is rebuilt
+and an unchanged one is loaded as it is.
+
+Nothing here runs at import time: a machine without ``nvcc`` or a card
+imports the package and runs the plain PyTorch versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+LIB_NAME = "libasr_kernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(CFLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels (if this source hash has no library yet) and
+    return the library's path."""
+    out_dir = BUILD / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *CFLAGS, "-Xptxas", "-v", "-c", str(src),
+                   "-o", obj]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        objs, failed = [], []
+        for src, obj, p in procs:
+            log, _ = p.communicate()
+            if verbose or p.returncode:
+                print(f"[nvcc {src.name}]\n{log}", flush=True)
+            if p.returncode:
+                failed.append(src.name)
+            objs.append(obj)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}")
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp_lib, *objs],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib)      # atomic: concurrent builds agree
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+            _lib.asr_cuda_error_string.restype = ctypes.c_char_p
+            _lib.asr_cuda_error_string.argtypes = [ctypes.c_int]
+        return _lib
+
+
+_fns: dict = {}
+
+
+def function(name: str, argtypes):
+    """A C entry point of the library with its argument types set."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _fns[name] = fn
+    return fn
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = library().asr_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+
+def ptr(t) -> int | None:
+    """Device pointer of a tensor (None for an absent optional input)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(dtype) -> int:
+    import torch
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")

@@ -1,0 +1,119 @@
+"""Package rules of the PyTorch port: it imports nothing of JAX or of the
+JAX package, its entry points run on the CUDA device unless the caller
+asks for the CPU, and a kernel wrapper given a CPU tensor takes its
+plain version without counting a launch."""
+
+import ast
+import math
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from asr_model_tpu_torch.config import Dimensions
+from asr_model_tpu_torch.models.model import Model
+from asr_model_tpu_torch.ops import cuda as kernels
+from asr_model_tpu_torch.ops.cuda import abby, attention, build, mel, sheath
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "asr_model_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN and top != "asr_model_tpu_torch"
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    files = sorted((ROOT / "asr_model_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    bad = [(str(f.relative_to(ROOT)), n) for f in files
+           for n in _imports(f) if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_every_kernel_source_is_built():
+    names = {p.name for p in build.sources()}
+    assert names == {"abby.cu", "flash_attention.cu", "mel.cu", "sheath.cu"}
+    assert "-gencode" in build.CFLAGS and \
+        "arch=compute_90a,code=sm_90a" in build.CFLAGS
+    assert len(build.source_hash()) == 16
+
+
+TINY = Dimensions(tokens=32, mels=8, dims=16, head=2, layer=4)
+
+
+def test_model_needs_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        assert Model(TINY).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Model(TINY)
+    m = Model(TINY, device="cpu")
+    rng = np.random.RandomState(0)
+    out = m(torch.from_numpy(rng.randint(3, 32, size=(2, 5))),
+            spectrogram=torch.from_numpy(rng.randn(2, 8, 12).astype(np.float32)),
+            pitch=torch.from_numpy(rng.rand(2, 1, 12).astype(np.float32)),
+            waveform=torch.from_numpy(rng.randn(2, 1, 12).astype(np.float32)))
+    assert out["logits"].shape == (2, 5, 32)
+    assert torch.isfinite(out["logits"]).all()
+
+
+def _cpu_calls():
+    rng = np.random.RandomState(1)
+    t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    d = 16
+    return {
+        "mel_spectrogram": lambda: mel.mel_spectrogram(t(2, 1600), n_mels=8),
+        "flash_attention": lambda: attention.flash_attention(
+            t(1, 2, 3, 8), t(1, 2, 5, 8), t(1, 2, 5, 8)),
+        "fused_abby": lambda: abby.fused_abby(
+            t(4, d), t(d, d), t(d), t(3, d), t(3), 3, 1e-4, 1.0, 0.75),
+        "fused_sheath_scan": lambda: sheath.fused_sheath_scan(
+            t(6, d), 2, None, t(d), torch.tensor(1, dtype=torch.int32),
+            torch.tensor([0.1, 0.05, 0.01]),
+            {"ln_scale": t(4, d), "ln_bias": t(4, d), "gate_w": t(4, d),
+             "gate_b": t(4), "mkey": t(4, 8, d), "mval": t(4, 8),
+             "vmlp1_w": t(4, d, d // 2), "vmlp1_b": t(4, d // 2),
+             "vmlp2_w": t(4, d // 2), "vmlp2_b": t(4), "vcat_w": t(4, 2),
+             "vcat_b": t(4), "adapt_w": t(2, d, d), "adapt_b": t(2, d),
+             "memgate_w": t(d), "memgate_b": t(1)}, 4, 0.3),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(kernels.WRAPPERS))
+def test_wrapper_on_cpu_tensor_calls_plain_and_counts_no_launch(name):
+    kernels.reset_counts()
+    out = _cpu_calls()[name]()
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.device.type == "cpu"
+    assert torch.isfinite(first.float()).all()
+    assert kernels.counts()[name] == {"launches": 0, "plain_calls": 1}
+
+
+def test_wrapper_refuses_other_devices():
+    """No silent fallback: a tensor on a device that is neither the CPU
+    nor CUDA is an error, not a plain-version call."""
+    q = torch.empty(1, 1, 2, 8, device="meta")
+    kernels.reset_counts()
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, q, q)
+    assert kernels.counts()["flash_attention"]["plain_calls"] == 0
+
+
+def test_mel_wrapper_shapes_on_cpu():
+    a = torch.zeros(1600)
+    assert mel.mel_spectrogram(a[None], n_mels=8).shape == (1, 8, 11)
+    assert math.isclose(float(mel.mel_spectrogram(a[None], n_mels=8).sum()),
+                        0.0)
