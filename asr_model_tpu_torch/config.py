@@ -1,10 +1,10 @@
 """Model configuration: the port's own copy of the model half of
-``asr_model_tpu/config.py`` (``Dimensions``, ``ModelConfig``, the
-rotary/sinusoid base and the special token ids)."""
+``asr_model_tpu/config.py`` (``Dimensions``, the ``ModelConfig`` options
+the port reads, the rotary/sinusoid base and the special token ids)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 THETA = 30000.0
 PAD_ID = 0
@@ -28,20 +28,12 @@ class Dimensions:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    dims: Dimensions = field(default_factory=Dimensions)
+    """The options of ``asr_model_tpu``'s ModelConfig that this slice
+    reads; every other option is at its reference default (no chained
+    blocks, no streaming, no MoE, ...) and comes with the slice that
+    implements it."""
+
     ctx: int = 2048              # decoder context cap (learned positions)
     theta: float = THETA         # sinusoid / rotary base
-    dropout: float = 0.1         # train-only; the port is eval-only
-    # only the last block reaches the output (the reference's quirk);
-    # the port implements this default configuration
-    chained_blocks: bool = False
-    causal_all: bool = False
-    streaming: bool = False
-    encoder_norm: bool = False
-    encoder_transformer: bool = False
     num_types: int = 3           # router / tgate modality count
-    msheath_mini_hc: bool = False
     msheath_mem: int = 64        # v_gate memory slots
-    pitch_token_bins: int = 256
-    pitch_token_vocab: int = 1024
-    moe_experts: int = 0

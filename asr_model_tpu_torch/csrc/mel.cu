@@ -10,9 +10,13 @@
 // -sin bases (n_fft, F), power re^2 + im^2, and the (F, n_mels) HTK
 // filterbank: out (B, n_mels, T), T = 1 + N / hop.
 //
-// What bounds it: the DFT products, 4 * n_fft * F operations per frame
-// (2.1 MFLOP; 16.8 GFLOP for 8 x 10 s) against 8 kB of samples per
-// frame -- operations, in f32.  Design: one block per (32-frame tile,
+// What bounds it: the function needs a real FFT, the power and the
+// filterbank, about 0.16 MFLOP per frame (1.3 GFLOP for 8 x 10 s) against
+// the audio read once and the mel written once -- operations, in f32.
+// This kernel does the DFT products instead, 4 * n_fft * F operations per
+// frame (2.1 MFLOP; 16.8 GFLOP for 8 x 10 s), about 13x the FFT's, so it
+// cannot come near that bound; a shared-memory FFT is the way there.
+// Design: one block per (32-frame tile,
 // utterance).  Frames are read straight from the waveform with the
 // hop-strided addressing the TPU kernel could not express (it framed the
 // signal in HBM first), 32 samples of 32 frames at a time into shared

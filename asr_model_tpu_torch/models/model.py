@@ -45,14 +45,7 @@ class Model(nn.Module):
                  cfg: Optional[ModelConfig] = None, device=None,
                  dtype=torch.float32, seed: int = 0):
         super().__init__()
-        cfg = cfg or ModelConfig(dims=dims)
-        if cfg.chained_blocks or cfg.streaming or cfg.causal_all \
-                or cfg.encoder_norm or cfg.encoder_transformer \
-                or cfg.moe_experts or cfg.msheath_mini_hc:
-            raise NotImplementedError(
-                "the port implements the reference configuration: "
-                "chained_blocks, causal_all, streaming, encoder_norm, "
-                "encoder_transformer, moe_experts and msheath_mini_hc off")
+        cfg = cfg or ModelConfig()
         dev = resolve_device(device)
         self.dims, self.cfg = dims, cfg
         kw = dict(device=dev, dtype=dtype)

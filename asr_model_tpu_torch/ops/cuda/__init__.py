@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels, one module per TPU kernel they replace
 (``asr_model_tpu/ops/pallas/``).  Each module holds the wrapper (which
-launches the CUDA kernel on a CUDA tensor and counts its launches in
-``<wrapper>.launches``), the plain PyTorch version of the same function
+launches the CUDA kernels on a CUDA tensor and counts each kernel
+launch in ``<wrapper>.launches``), the plain PyTorch version of the same function
 (taken for CPU tensors; calls counted in ``<plain>.calls``), and a
 source note on what the kernel replaces and what bounds it."""
 

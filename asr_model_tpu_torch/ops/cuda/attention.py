@@ -84,7 +84,7 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
                    B.ptr(kv_valid), out.data_ptr(), b, h, tq, tk, hd,
                    float(scale), int(bool(causal)), B.stream_of(q))
     B.check(rc, "asr_flash_attention")
-    flash_attention.launches += 1
+    flash_attention.launches += 1 if b * h * tq else 0
     return out
 
 

@@ -158,7 +158,8 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
         jstat.data_ptr(), n, batch, c, d, d2, m_keys, L, float(thresh),
         B.stream_of(x2))
     B.check(rc, "asr_fused_sheath_scan")
-    fused_sheath_scan.launches += 1
+    # sheath_init, then rows, mem, ctl and jump per step, sheath_finish
+    fused_sheath_scan.launches += 2 + 4 * L
     return out, actions, jstat
 
 
