@@ -28,7 +28,7 @@ class Dimensions:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The options of ``asr_model_tpu``'s ModelConfig that this slice
+    """The options of ``asr_model_tpu``'s ModelConfig that the port
     reads; every other option is at its reference default (no chained
     blocks, no streaming, no MoE, ...) and comes with the slice that
     implements it."""
@@ -37,3 +37,10 @@ class ModelConfig:
     theta: float = THETA         # sinusoid / rotary base
     num_types: int = 3           # router / tgate modality count
     msheath_mem: int = 64        # v_gate memory slots
+    # whole-call decode kernels, the counterparts of the JAX package's
+    # PALLAS_XATTN / PALLAS_MLP / PALLAS_ROUTER switches (all off by
+    # default, as there); behind each, the JAX package's gate decides
+    # which calls take the kernel
+    fused_attention: bool = False    # ops/cuda/xattn.py
+    fused_mlp: bool = False          # ops/cuda/mlp.py
+    fused_router: bool = False       # ops/cuda/router.py

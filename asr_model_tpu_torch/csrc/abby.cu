@@ -1,7 +1,9 @@
 // Eval-mode AbbyNormal, whole program per row, for Hopper (sm_90a).
 //
 // Replaces asr_model_tpu/ops/pallas/abby_kernel.py:fused_abby (the
-// Pallas kernel that fuses the router MLP and the normalising tail).
+// Pallas kernel that fuses the router MLP and the normalising tail), and
+// with asr_fused_abby_tail (the tail launch alone, on the caller's f32
+// logits) that file's fused_abby_tail.
 //
 // Per row x (D values): h = silu(x W1^T + b1) rounded to the storage
 // type; logits = h W2^T + b2 (3 values); cv = unbiased std / (mean|x| +
@@ -36,42 +38,8 @@ abby_router(const T* __restrict__ x, const T* __restrict__ w1,
             const T* __restrict__ b1, const T* __restrict__ w2,
             float* __restrict__ plog, int N, int D) {
   extern __shared__ float smem[];
-  float* xs = smem;                          // [16][D]
-  float* wt = xs + GEMM_ROWS * D;            // gemm weight tile
-  float* hs = wt + GEMM_WT_FLOATS;           // [16][64] h slice
-
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int r0 = blockIdx.x * GEMM_ROWS;
-  const int n0 = blockIdx.y * GEMM_NT;
-
-  for (int e = t; e < GEMM_ROWS * D; e += blockDim.x) {
-    const int r = e / D, j = e % D;
-    xs[e] = (r0 + r < N) ? to_f32(x[(size_t)(r0 + r) * D + j]) : 0.0f;
-  }
-  __syncthreads();
-
-  // h = silu(x W1^T + b1) for columns n0 .. n0 + 63, rounded to the
-  // storage type as the reference rounds it before the second product
-  float acc[4];
-  gemm_rows16<T, false>(xs, D, D, w1, D, n0, D, wt, acc);
-  const int c = t % GEMM_NT, n = n0 + c;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float h = n < D ? siluf_(acc[i] + to_f32(b1[n])) : 0.0f;
-    hs[(4 * (t / GEMM_NT) + i) * GEMM_NT + c] = to_f32(from_f32<T>(h));
-  }
-  __syncthreads();
-
-  // partial logits of the slice: 16 rows x 3, one warp per dot product
-  for (int o = warp; o < GEMM_ROWS * 3; o += blockDim.x / 32) {
-    const int r = o / 3, k = o % 3;
-    float s = 0.0f;
-    for (int j = lane; j < GEMM_NT; j += 32)
-      if (n0 + j < D) s += hs[r * GEMM_NT + j] * to_f32(w2[(size_t)k * D + n0 + j]);
-    s = warp_sum(s);
-    if (lane == 0 && r0 + r < N)
-      plog[((size_t)blockIdx.y * N + r0 + r) * 3 + k] = s;
-  }
+  abby_router_tile<T>(x, w1, b1, w2, plog, N, D, blockIdx.x * GEMM_ROWS,
+                      blockIdx.y, smem);
 }
 
 template <typename T>
@@ -86,11 +54,7 @@ abby_tail(const T* __restrict__ x, const T* __restrict__ b2,
   float* xr = smem + warp * D;
   for (int j = lane; j < D; j += 32) xr[j] = to_f32(x[(size_t)r * D + j]);
   float lg[3];
-  for (int c = 0; c < 3; ++c) {
-    float s = 0.0f;
-    for (int sl = 0; sl < slices; ++sl) s += plog[((size_t)sl * N + r) * 3 + c];
-    lg[c] = s + to_f32(b2[c]);
-  }
+  abby_logits<T>(plog, N, slices, r, b2, lg);
   __syncwarp();
   const int choice = abby_choice(xr, D, lg, lane);
   for (int j = lane; j < D; j += 32)
@@ -103,8 +67,7 @@ static int launch_abby(const void* x, const void* w1, const void* b1,
                        const void* w2, const void* b2, void* out, void* plog,
                        int N, int D, int size, float alpha, float k,
                        float beta, cudaStream_t st) {
-  const size_t smem_r =
-      sizeof(float) * (GEMM_ROWS * D + GEMM_WT_FLOATS + GEMM_ROWS * GEMM_NT);
+  const size_t smem_r = sizeof(float) * abby_router_smem_floats(D);
   cudaFuncSetAttribute(abby_router<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem_r);
@@ -135,6 +98,40 @@ ASR_API int asr_fused_abby(int dtype, const void* x, const void* w1,
                               alpha, k, beta, st);
   return launch_abby<__nv_bfloat16>(x, w1, b1, w2, b2, out, plog, N, D, size,
                                     alpha, k, beta, st);
+}
+
+// The tail alone (replaces abby_kernel.py:fused_abby_tail): x, out (N, D)
+// of one dtype, logits (N, 3) f32 from the caller's router, no bias.
+// D <= ABBY_TAIL_MAX_D (one row per warp in shared memory).
+constexpr int ABBY_TAIL_MAX_D = 4096;
+
+template <typename T>
+static int launch_abby_tail(const void* x, const void* logits, void* out,
+                            int N, int D, int size, float alpha, float k,
+                            float beta, cudaStream_t st) {
+  const size_t smem = sizeof(float) * ABBY_WARPS * D;
+  cudaFuncSetAttribute(abby_tail<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const int grid = (N + ABBY_WARPS - 1) / ABBY_WARPS;
+  abby_tail<T><<<grid, 32 * ABBY_WARPS, smem, st>>>(
+      (const T*)x, (const T*)nullptr, (const float*)logits, (T*)out, N, D,
+      1, size, alpha, k, beta);
+  return (int)cudaGetLastError();
+}
+
+ASR_API int asr_fused_abby_tail(int dtype, const void* x, const void* logits,
+                                void* out, int N, int D, int size,
+                                float alpha, float k, float beta,
+                                void* stream) {
+  if (D < 2 || D > ABBY_TAIL_MAX_D) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == ASR_F32)
+    return launch_abby_tail<float>(x, logits, out, N, D, size, alpha, k,
+                                   beta, st);
+  return launch_abby_tail<__nv_bfloat16>(x, logits, out, N, D, size, alpha,
+                                         k, beta, st);
 }
 
 ASR_API const char* asr_cuda_error_string(int code) {

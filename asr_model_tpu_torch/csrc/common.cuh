@@ -107,3 +107,64 @@ __device__ void gemm_rows16(const float* A, int lda, int K, const TW* w,
     __syncthreads();
   }
 }
+
+// ---------------------------------------------------------------------
+// Row products with an epilogue: out = epi(a W^T + bias) rounded to the
+// storage type, for a (N, K) x W (Nout, K) in torch (out, in) layout.
+// One block per (16-row tile, 64-column slice): the tile's rows go to
+// shared memory once (f32 of the storage values) and W streams through
+// gemm_rows16.  Shared floats: linear_rows_smem_floats(K).
+enum LinearEpilogue { LIN_NONE = 0, LIN_GELU = 1 };
+
+__host__ __device__ constexpr int linear_rows_smem_floats(int K) {
+  return GEMM_ROWS * K + GEMM_WT_FLOATS;
+}
+
+// torch's exact GELU: 0.5 x (1 + erf(x / sqrt(2)))
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
+}
+
+template <typename T, int EPI>
+__global__ void __launch_bounds__(256)
+linear_rows(const T* __restrict__ a, const T* __restrict__ w,
+            const T* __restrict__ bias, T* __restrict__ out, int N, int K,
+            int Nout) {
+  extern __shared__ float smem[];
+  float* as = smem;                          // [16][K]
+  float* wt = as + GEMM_ROWS * K;
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * GEMM_ROWS, n0 = blockIdx.y * GEMM_NT;
+  for (int e = t; e < GEMM_ROWS * K; e += blockDim.x) {
+    const int r = e / K, j = e % K;
+    as[e] = (r0 + r < N) ? to_f32(a[(size_t)(r0 + r) * K + j]) : 0.0f;
+  }
+  __syncthreads();
+  float acc[4];
+  gemm_rows16<T, false>(as, K, K, w, K, n0, Nout, wt, acc);
+  const int n = n0 + t % GEMM_NT;
+  if (n >= Nout) return;
+  const float b = to_f32(bias[n]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 4 * (t / GEMM_NT) + i;
+    if (r >= N) continue;
+    float v = acc[i] + b;
+    if (EPI == LIN_GELU) v = gelu_erf(v);
+    out[(size_t)r * Nout + n] = from_f32<T>(v);
+  }
+}
+
+template <typename T, int EPI>
+static void launch_linear_rows(const void* a, const void* w, const void* bias,
+                               void* out, int N, int K, int Nout,
+                               cudaStream_t st) {
+  const size_t smem = sizeof(float) * linear_rows_smem_floats(K);
+  cudaFuncSetAttribute(linear_rows<T, EPI>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const dim3 grid((N + GEMM_ROWS - 1) / GEMM_ROWS,
+                  (Nout + GEMM_NT - 1) / GEMM_NT);
+  linear_rows<T, EPI><<<grid, 256, smem, st>>>(
+      (const T*)a, (const T*)w, (const T*)bias, (T*)out, N, K, Nout);
+}

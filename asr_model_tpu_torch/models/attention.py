@@ -12,6 +12,9 @@ rotary.
 
 Every ``sdpa`` call runs the flash kernel on a CUDA tensor
 (``ops/cuda/attention.py``) and the plain masked softmax on a CPU one.
+With ``fused``, a whole call goes to ``ops/cuda/xattn.py`` instead
+wherever the JAX package's PALLAS_XATTN gate would route it
+(``Attention._fused_ok``).
 """
 
 from __future__ import annotations
@@ -21,10 +24,18 @@ import math
 import torch
 import torch.nn as nn
 
+from asr_model_tpu_torch.models.norms import AbbyNormal
 from asr_model_tpu_torch.models.registry import get_norm
 from asr_model_tpu_torch.models.rotary import Rotary
 from asr_model_tpu_torch.models.tlayers import Dense
 from asr_model_tpu_torch.ops.cuda import attention as K
+from asr_model_tpu_torch.ops.cuda import xattn as X
+from asr_model_tpu_torch.ops.cuda.abby import window_size
+
+# the JAX gate's bounds on the K/V elements of a batch row: the cached
+# call holds processed K/V tiles, the full one its whole kv-side chain
+KV_LIMIT_CACHED = 4096 * 512
+KV_LIMIT_FULL = 256 * 512
 
 
 def split_heads(x: torch.Tensor, head: int) -> torch.Tensor:
@@ -47,10 +58,10 @@ def sdpa(q, k, v, causal: bool = False, kv_valid=None):
 
 
 class Attention(nn.Module):
-    def __init__(self, dims: int, head: int, n_type: str, device=None,
-                 dtype=None):
+    def __init__(self, dims: int, head: int, n_type: str,
+                 fused: bool = False, device=None, dtype=None):
         super().__init__()
-        self.dims, self.head = dims, head
+        self.dims, self.head, self.fused = dims, head, fused
         kw = dict(device=device, dtype=dtype)
         self.q_norm = get_norm(n_type, dims, **kw)
         self.q_proj = Dense(dims, dims, **kw)
@@ -74,20 +85,71 @@ class Attention(nn.Module):
     def precompute_kv(self, xa):
         """Fully processed cross-attention K/V of a fixed source (kv
         projection, scale, rotary conditioned on the source, head norm);
-        v stays raw."""
+        v stays raw.  Both come back contiguous, so the decode steps that
+        read them copy nothing."""
         k, v = self._kv(xa)
         k = self.rot(k * self.scale, cond=xa, causal=False)
-        return self.head_norm(k), v
+        return self.head_norm(k).contiguous(), v.contiguous()
+
+    # ---- the whole-call kernels (ops/cuda/xattn.py)
+
+    def _fused_ok(self, x, kv_elems_per_row: int, kv_limit: int) -> bool:
+        """The JAX package's PALLAS_XATTN gate (``Attention.
+        _fused_call_eligible``): AbbyNormal norms, lane-aligned width and
+        head width, decode-prefix sizes, bounded K/V per batch row."""
+        return (self.fused and isinstance(self.q_norm, AbbyNormal)
+                and self.dims % 128 == 0
+                and (self.dims // self.head) % 128 == 0
+                and x.dtype in (torch.bfloat16, torch.float32)
+                and x.numel() <= 400_000 and kv_elems_per_row <= kv_limit)
+
+    @staticmethod
+    def _norm_w(mod, dt):
+        return {"n_w1": mod.router_in.weight.to(dt),
+                "n_b1": mod.router_in.bias.to(dt),
+                "n_w2": mod.router_out.weight.to(dt),
+                "n_b2": mod.router_out.bias.to(dt)}
+
+    @staticmethod
+    def _proj_w(mod, dt):
+        return {"proj_w": mod.weight.to(dt), "proj_b": mod.bias.to(dt)}
+
+    def fused_kw(self, dt, full: bool):
+        """The whole-call kernels' weights (in dtype ``dt``) and options;
+        ``full`` adds the kv side's."""
+        kw = dict(wq=self._norm_w(self.q_norm, dt)
+                  | self._proj_w(self.q_proj, dt))
+        if full:
+            kw["wkv"] = (self._norm_w(self.kv_norm, dt)
+                         | self._proj_w(self.kv_proj, dt))
+        return kw | dict(wh=self._norm_w(self.head_norm, dt),
+                         wo=self._proj_w(self.out_proj, dt), head=self.head,
+                         size_d=window_size(self.dims),
+                         size_h=window_size(self.dims // self.head),
+                         alpha=self.q_norm.alpha, k=self.q_norm.k,
+                         beta=self.q_norm.beta)
 
     def forward(self, x, xa=None, causal: bool = False, kv_valid=None,
                 cached_kv=None):
         if cached_kv is not None:
             kn, v = cached_kv
+            if self._fused_ok(x, kn.shape[1] * kn.shape[2] * kn.shape[3],
+                              KV_LIMIT_CACHED):
+                return X.fused_attn_cached(
+                    x.contiguous(), kn.to(x.dtype).contiguous(),
+                    v.to(x.dtype).contiguous(), kv_valid,
+                    self.rot.freqs(False, torch.float32, x.device),
+                    **self.fused_kw(x.dtype, full=False))
             q = self.rot(self._q(x) * self.scale, cond=x, causal=False)
             a = sdpa(self.head_norm(q), kn, v, causal=False,
                      kv_valid=kv_valid)
             return self.out_proj(merge_heads(a))
         kv_src = xa if xa is not None else x
+        if self._fused_ok(x, kv_src.shape[1] * self.dims, KV_LIMIT_FULL):
+            return X.fused_attn_full(
+                x.contiguous(), kv_src.to(x.dtype).contiguous(), kv_valid,
+                self.rot.freqs(causal, torch.float32, x.device),
+                causal=causal, **self.fused_kw(x.dtype, full=True))
         k, v = self._kv(kv_src)
         q = self.rot(self._q(x) * self.scale, cond=x, causal=causal)
         k = self.rot(k * self.scale, cond=kv_src, causal=causal)

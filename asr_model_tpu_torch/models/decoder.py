@@ -6,7 +6,11 @@ Residual (per call):
          xa += sinusoids; xa, _ = MSheath(ln(xa));
          x += attn(ln(x), xa=router(xa x (layer-1)))
   return x + ln(mlp_out(gelu(mlp_in(tgate(ln(x))))))
-with one ``ln`` shared by every position.
+with one ``ln`` shared by every position.  With ``fused_mlp`` the last
+line is one call of ``ops/cuda/mlp.py`` wherever the JAX package's
+PALLAS_MLP gate would route it (``Residual._mlp_fused_ok``); the fields
+``fused_attention`` and ``fused_router`` go to the block's Attention and
+Router.
 
 Processor (chained=False, the reference's configuration): only the last
 block reaches the output, so it is the only block built.  Per call:
@@ -30,23 +34,31 @@ import torch.nn as nn
 from asr_model_tpu_torch.config import THETA
 from asr_model_tpu_torch.models.attention import Attention
 from asr_model_tpu_torch.models.gates import Router, TGate
+from asr_model_tpu_torch.models.norms import AbbyNormal
 from asr_model_tpu_torch.models.registry import get_activation, get_norm
 from asr_model_tpu_torch.models.sheath import MSheath
 from asr_model_tpu_torch.models.tlayers import Dense, Embed, param
 from asr_model_tpu_torch.ops.audio import sinusoids
+from asr_model_tpu_torch.ops.cuda import mlp as M
+from asr_model_tpu_torch.ops.cuda.abby import window_size
 
 
 class Residual(nn.Module):
     def __init__(self, dims: int, head: int, layer: int, act: str,
                  n_type: str, num_types: int = 3, mem: int = 64,
-                 theta: float = THETA, device=None, dtype=None):
+                 theta: float = THETA, fused_attention: bool = False,
+                 fused_mlp: bool = False, fused_router: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.dims, self.layer, self.theta = dims, layer, theta
+        self.act_name, self.fused_mlp = act, fused_mlp
         self.act = get_activation(act)
         self.ln = get_norm(n_type, dims, **kw)
-        self.attn = Attention(dims, head, n_type, **kw)
-        self.router = Router(dims, num_types, layer - 1, **kw)
+        self.attn = Attention(dims, head, n_type, fused=fused_attention,
+                              **kw)
+        self.router = Router(dims, num_types, layer - 1, fused=fused_router,
+                             **kw)
         self.jump = MSheath(dims, head, layer, mem=mem, **kw)
         self.tgate = TGate(dims, num_types, **kw)
         self.mlp_in = Dense(dims, dims * num_types, **kw)
@@ -60,6 +72,34 @@ class Residual(nn.Module):
     def mlp(self, x):
         h = self.tgate(self.ln(x))
         return self.ln(self.mlp_out(self.act(self.mlp_in(h))))
+
+    def _mlp_fused_ok(self, x) -> bool:
+        """The JAX package's PALLAS_MLP gate (``Residual.
+        _mlp_fused_eligible``): AbbyNormal ``ln``, exact-erf GELU,
+        lane-aligned width, decode-prefix sizes."""
+        return (self.fused_mlp and self.act_name == "gelu"
+                and isinstance(self.ln, AbbyNormal)
+                and x.dtype in (torch.bfloat16, torch.float32)
+                and self.dims % 128 == 0 and x.numel() <= 400_000)
+
+    def mlp_fused_args(self, x2):
+        """``fused_mlp_residual``'s arguments for the rows x2 (N, D)."""
+        dt, ln, tg = x2.dtype, self.ln, self.tgate
+        w = lambda t: t.to(dt)
+        gates = [(w(getattr(tg, f"ga{i}").weight),
+                  w(getattr(tg, f"ga{i}").bias)) for i in range(tg.num_types)]
+        return (x2, (w(ln.router_in.weight), w(ln.router_in.bias),
+                     w(ln.router_out.weight), w(ln.router_out.bias)),
+                w(tg.cs.weight), w(tg.cs.bias), gates, w(self.mlp_in.weight),
+                w(self.mlp_in.bias), w(self.mlp_out.weight),
+                w(self.mlp_out.bias), window_size(self.dims), ln.alpha, ln.k,
+                ln.beta)
+
+    def _mlp_residual_fused(self, x):
+        """x + mlp(x) in one ``fused_mlp_residual`` call."""
+        out = M.fused_mlp_residual(*self.mlp_fused_args(
+            x.reshape(-1, self.dims).contiguous()))
+        return out.reshape(x.shape)
 
     def precompute_cross(self, xa, xa_valid=None):
         """The per-utterance half of the cross branch: +PE, MSheath,
@@ -80,6 +120,8 @@ class Residual(nn.Module):
             xa, _ = self.jump(self.ln(self._pe(xa)), valid=xa_valid)
             x = x + self.attn(self.ln(x), xa=self.router(*[xa] * n_router),
                               kv_valid=xa_valid)
+        if self._mlp_fused_ok(x):
+            return self._mlp_residual_fused(x)
         return x + self.mlp(x)
 
 
@@ -118,8 +160,9 @@ def run_block(blk: Residual, x, xa_kv: Dict, text_valid=None):
 class Processor(nn.Module):
     def __init__(self, tokens: int, dims: int, head: int, layer: int,
                  act: str, n_type: str, ctx: int = 2048, num_types: int = 3,
-                 mem: int = 64, theta: float = THETA, device=None,
-                 dtype=None):
+                 mem: int = 64, theta: float = THETA,
+                 fused_attention: bool = False, fused_mlp: bool = False,
+                 fused_router: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.ln = get_norm(n_type, dims, **kw)
@@ -127,8 +170,10 @@ class Processor(nn.Module):
         self.position = param(ctx, dims, **kw)
         self.blend = param((), **kw)
         self.last = f"block{layer - 1}"
-        self.add_module(self.last, Residual(dims, head, layer, act, n_type,
-                                            num_types, mem, theta, **kw))
+        self.add_module(self.last, Residual(
+            dims, head, layer, act, n_type, num_types, mem, theta,
+            fused_attention=fused_attention, fused_mlp=fused_mlp,
+            fused_router=fused_router, **kw))
 
     def reset_parameters(self, gen):
         with torch.no_grad():

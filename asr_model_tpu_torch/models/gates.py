@@ -1,6 +1,9 @@
 """Gating and routing: the modality ``Router``, the ``TGate`` mixture of
 sigmoid gates inside the residual MLP, and the MSheath jump-policy
-network ``MPNet``.  Eval forms, through the plain stacked path."""
+network ``MPNet``.  Eval forms, through the plain stacked path; with
+``fused``, a Router call over one tensor repeated goes to
+``ops/cuda/router.py`` wherever the JAX package's PALLAS_ROUTER gate
+would route it."""
 
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from asr_model_tpu_torch.models.tlayers import Dense, param
+from asr_model_tpu_torch.ops.cuda import router as K
 
 
 def _topk_hard(scores: torch.Tensor, num: int) -> torch.Tensor:
@@ -35,10 +39,11 @@ class Router(nn.Module):
     and sum.  The weights are shaped by the stacked width (dims *
     n_modalities); the bias bound uses dims * num_types."""
 
-    def __init__(self, dims: int, num_types: int, n_mod: int, device=None,
-                 dtype=None):
+    def __init__(self, dims: int, num_types: int, n_mod: int,
+                 fused: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.dims, self.fused = dims, fused
         self.top = Dense(dims * n_mod, num_types,
                          bias_fan_in=dims * num_types, **kw)
         self.soft = Dense(dims * n_mod, num_types,
@@ -49,7 +54,29 @@ class Router(nn.Module):
         with torch.no_grad():
             self.alpha.fill_(1.0)
 
+    def _fused_ok(self, modalities) -> bool:
+        """The JAX package's PALLAS_ROUTER gate (``Router.
+        _fused_eligible``): every modality the same tensor, lane-aligned
+        width equal to ``dims``, decode-prefix sizes."""
+        x = modalities[0]
+        return (self.fused and all(m is x for m in modalities[1:])
+                and x.dtype in (torch.bfloat16, torch.float32)
+                and x.shape[-1] % 128 == 0 and x.numel() <= 400_000
+                and x.shape[-1] == self.dims)
+
+    def fused_args(self, x2, n_mod: int):
+        """``fused_router_same``'s arguments for the rows x2 (N, D)."""
+        dt = x2.dtype
+        return (x2, self.top.weight.to(dt), self.top.bias.to(dt),
+                self.soft.weight.to(dt), self.soft.bias.to(dt),
+                self.alpha.to(dt), n_mod)
+
     def forward(self, *modalities):
+        if self._fused_ok(modalities):
+            x = modalities[0]
+            out = K.fused_router_same(*self.fused_args(
+                x.reshape(-1, self.dims).contiguous(), len(modalities)))
+            return out.reshape(x.shape)
         stack = torch.stack(modalities, dim=-1)              # (b, c, d, n)
         flat = stack.reshape(*stack.shape[:-2], -1)
         top = self.top(flat)

@@ -52,7 +52,9 @@ class Model(nn.Module):
         self.processor = Processor(
             dims.tokens, dims.dims, dims.head, dims.layer, dims.act,
             dims.n_type, ctx=cfg.ctx, num_types=cfg.num_types,
-            mem=cfg.msheath_mem, theta=cfg.theta, **kw)
+            mem=cfg.msheath_mem, theta=cfg.theta,
+            fused_attention=cfg.fused_attention, fused_mlp=cfg.fused_mlp,
+            fused_router=cfg.fused_router, **kw)
         self.enc = AudioEncoder(dims.mels, dims.dims, dims.head, dims.layer,
                                 dims.act, theta=cfg.theta, **kw)
         gen = torch.Generator(device=dev).manual_seed(seed)

@@ -1,11 +1,21 @@
 """Hand-written Hopper kernels, one module per TPU kernel they replace
 (``asr_model_tpu/ops/pallas/``).  Each module holds the wrapper (which
-launches the CUDA kernels on a CUDA tensor and counts each kernel
-launch in ``<wrapper>.launches``), the plain PyTorch version of the same function
-(taken for CPU tensors; calls counted in ``<plain>.calls``), and a
-source note on what the kernel replaces and what bounds it."""
+launches the CUDA kernels on a CUDA tensor and counts each kernel launch
+in ``<wrapper>.launches``), the plain PyTorch version of the same
+function (taken for CPU tensors; calls counted in ``<plain>.calls``),
+and a source note on what the kernel replaces and what bounds it.
 
-from asr_model_tpu_torch.ops.cuda import abby, attention, mel, sheath
+Two decode paths use them.  The default one runs ``mel_spectrogram``,
+``flash_attention``, ``fused_abby`` and ``fused_sheath_scan``; with the
+``ModelConfig`` fields ``fused_attention``, ``fused_mlp`` and
+``fused_router`` on, the decode step's whole attention calls, residual
+MLPs and routers go to ``fused_attn_cached`` / ``fused_attn_full``,
+``fused_mlp_residual`` and ``fused_router_same`` as well.
+``fused_abby_tail`` has no caller on either path (as in the JAX
+package); it serves direct callers."""
+
+from asr_model_tpu_torch.ops.cuda import (abby, attention, mel, mlp, router,
+                                          sheath, xattn)
 
 WRAPPERS = {
     "mel_spectrogram": (mel.mel_spectrogram, mel.mel_spectrogram_plain),
@@ -13,7 +23,19 @@ WRAPPERS = {
                         attention.attention_plain),
     "fused_abby": (abby.fused_abby, abby.abby_plain),
     "fused_sheath_scan": (sheath.fused_sheath_scan, sheath.sheath_scan_plain),
+    "fused_attn_cached": (xattn.fused_attn_cached, xattn.attn_cached_plain),
+    "fused_attn_full": (xattn.fused_attn_full, xattn.attn_full_plain),
+    "fused_mlp_residual": (mlp.fused_mlp_residual, mlp.mlp_residual_plain),
+    "fused_router_same": (router.fused_router_same, router.router_same_plain),
+    "fused_abby_tail": (abby.fused_abby_tail, abby.abby_tail_plain),
 }
+
+# the wrappers the default decode path launches; the fused path adds
+# FUSED_ONLY
+DEFAULT_PATH = ("mel_spectrogram", "flash_attention", "fused_abby",
+                "fused_sheath_scan")
+FUSED_ONLY = ("fused_attn_cached", "fused_attn_full", "fused_mlp_residual",
+              "fused_router_same")
 
 
 def reset_counts() -> None:

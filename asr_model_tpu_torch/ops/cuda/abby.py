@@ -1,7 +1,9 @@
 """Eval-mode AbbyNormal, router MLP included: the CUDA kernel
 ``csrc/abby.cu`` and its plain PyTorch version.
 
-Replaces ``asr_model_tpu/ops/pallas/abby_kernel.py:fused_abby``.  Every
+Replaces ``asr_model_tpu/ops/pallas/abby_kernel.py:fused_abby``, and with
+``fused_abby_tail`` (the tail launch alone, on the caller's logits) that
+file's ``fused_abby_tail``.  Every
 eval AbbyNormal call of the port on a CUDA tensor goes through the
 kernel, at every row count (the TPU's size gate is gone).  The router
 product (2 * N * D * D operations) bounds it; the kernel keeps each
@@ -48,16 +50,24 @@ def abby_tail(x, logits, size: int, alpha: float, k: float, beta: float):
     return x / torch.exp(beta * torch.log(mix * alpha + k))
 
 
-def abby_plain(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
-               beta: float):
-    """x2 (N, D); w1 (D, D) and w2 (3, D) in torch (out, in) layout."""
-    abby_plain.calls += 1
+def abby_values(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
+                beta: float):
+    """The eval AbbyNormal of x2 (N, D) as f32 (f64 for f64) values, not
+    rounded: the fused kernels' shared helper.  w1 (D, D) and w2 (3, D)
+    in torch (out, in) layout."""
     ct = torch.promote_types(x2.dtype, torch.float32)
     xf = x2.to(ct)
     h = F.silu(xf @ w1.to(ct).t() + b1.to(ct))
     h = h.to(x2.dtype).to(ct)             # rounded as the kernel rounds it
     logits = h @ w2.to(ct).t() + b2.to(ct)
-    return abby_tail(xf, logits, size, alpha, k, beta).to(x2.dtype)
+    return abby_tail(xf, logits, size, alpha, k, beta)
+
+
+def abby_plain(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
+               beta: float):
+    """x2 (N, D); w1 (D, D) and w2 (3, D) in torch (out, in) layout."""
+    abby_plain.calls += 1
+    return abby_values(x2, w1, b1, w2, b2, size, alpha, k, beta).to(x2.dtype)
 
 
 abby_plain.calls = 0
@@ -105,3 +115,53 @@ def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
 
 
 fused_abby.launches = 0
+
+
+# ------------------------------------------------ the tail on its own
+
+TAIL_MAX_D = 4096       # one row per warp in shared memory (abby.cu)
+
+
+def abby_tail_plain(x2, logits, size: int, alpha: float, k: float,
+                    beta: float):
+    """The tail alone: x2 (N, D), logits (N, 3) from the caller's router."""
+    abby_tail_plain.calls += 1
+    ct = torch.promote_types(x2.dtype, torch.float32)
+    return abby_tail(x2.to(ct), logits.to(ct), size, alpha, k,
+                     beta).to(x2.dtype)
+
+
+abby_tail_plain.calls = 0
+
+
+def fused_abby_tail(x2, logits, size: int, alpha: float, k: float,
+                    beta: float):
+    """Replaces ``abby_kernel.py:fused_abby_tail``: the eval AbbyNormal
+    tail of x2 (N, D) on precomputed router logits (N, 3).  The kernel is
+    ``abby.cu``'s second launch run alone (one slice of f32 logits, no
+    bias), on CUDA tensors (f32 or bf16, D <= 4096); the plain version
+    on CPU tensors."""
+    if x2.device.type == "cpu":
+        return abby_tail_plain(x2, logits, size, alpha, k, beta)
+    if x2.device.type != "cuda":
+        raise ValueError(f"fused_abby_tail: unsupported device {x2.device}")
+    n, d = x2.shape
+    if not (x2.dim() == 2 and 2 <= d <= TAIL_MAX_D and x2.is_contiguous()
+            and logits.shape == (n, 3) and logits.device == x2.device):
+        raise ValueError(
+            f"fused_abby_tail kernel takes contiguous (N, D<={TAIL_MAX_D}) x "
+            f"and (N, 3) logits on its device; got x {tuple(x2.shape)}, "
+            f"logits {tuple(logits.shape)} on {logits.device}")
+    code = B.dtype_code(x2.dtype)
+    lg = logits.to(torch.float32).contiguous()
+    out = torch.empty_like(x2)
+    rc = B.function("asr_fused_abby_tail",
+                    [B.I, B.P, B.P, B.P, B.I, B.I, B.I, B.F, B.F, B.F, B.P])(
+        code, x2.data_ptr(), lg.data_ptr(), out.data_ptr(), n, d, int(size),
+        float(alpha), float(k), float(beta), B.stream_of(x2))
+    B.check(rc, "asr_fused_abby_tail")
+    fused_abby_tail.launches += 1 if n else 0
+    return out
+
+
+fused_abby_tail.launches = 0

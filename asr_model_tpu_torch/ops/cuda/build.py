@@ -149,3 +149,24 @@ def dtype_code(dtype) -> int:
     if dtype == torch.bfloat16:
         return 1
     raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+
+
+PP = ctypes.POINTER(ctypes.c_void_p)
+
+
+def ptr_array(ptrs):
+    """A C array of device pointers (None for an absent entry)."""
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def workspace(device, nbytes):
+    """One device allocation carved into 256-byte-aligned pieces of the
+    given sizes: (the buffer, which the caller keeps until its launches
+    are enqueued, and the pieces' pointers)."""
+    import torch
+    offs, total = [], 0
+    for n in nbytes:
+        offs.append(total)
+        total += -(-int(n) // 256) * 256
+    buf = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
+    return buf, [buf.data_ptr() + o for o in offs]

@@ -1,0 +1,108 @@
+"""The residual-MLP tail of a decoder block, ``x + ln(W_out gelu(W_in
+tgate(ln(x))))`` with one shared AbbyNormal ``ln``: the CUDA kernels
+``csrc/mlp.cu`` and their plain PyTorch version.
+
+Replaces ``asr_model_tpu/ops/pallas/mlp_kernel.py:fused_mlp_residual``.
+The GELU is torch's exact erf form (the Pallas kernel built erf from a
+rational approximation, within 1.5e-7 of it).  Products take operands
+rounded to the storage type (h0, h1, h2, h3, where the Pallas kernel
+rounds) with f32 sums.  About 11 D^2 multiply-adds a row against ~5 MB
+of bf16 weights at D = 512: the weights stream through shared tiles, and
+each product needs whole rows of its input, so a call is six launches
+(two router products, the gates, W_in, W_out, the tail), each split over
+(16-row tile, 64-column slice) blocks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from asr_model_tpu_torch.ops.cuda import build as B
+from asr_model_tpu_torch.ops.cuda.abby import abby_values
+
+LAUNCHES = 6                     # a call's kernel launches (mlp.cu)
+MAX_D, MAX_TYPES = 1024, 4
+
+
+def mlp_residual_plain(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
+                       out_b, size_d: int, alpha: float, k: float,
+                       beta: float):
+    """x2 (N, D); ln_w = (w1 (D, D), b1 (D,), w2 (3, D), b2 (3,)), the
+    shared AbbyNormal; cs_w (nt, D), cs_b (nt,); gates [(w (D, D), b
+    (D,)), ...] per TGate gate; in_w (3D, D), out_w (D, 3D) -- torch
+    (out, in) layouts."""
+    mlp_residual_plain.calls += 1
+    dt = x2.dtype
+    ct = torch.promote_types(dt, torch.float32)
+    r = lambda t: t.to(dt).to(ct)          # rounded to the storage type
+    h0 = r(abby_values(x2, *ln_w, size_d, alpha, k, beta))
+    types = torch.softmax(h0 @ cs_w.to(ct).t() + cs_b.to(ct), dim=-1)
+    h1 = torch.zeros_like(h0)
+    for i, (gw, gb) in enumerate(gates):
+        h1 = h1 + torch.sigmoid(h0 @ gw.to(ct).t() + gb.to(ct)) \
+            * types[:, i:i + 1]
+    h2 = r(h1) @ in_w.to(ct).t() + in_b.to(ct)
+    h2 = 0.5 * h2 * (1.0 + torch.erf(h2 * 0.7071067811865476))
+    h3 = r(h2) @ out_w.to(ct).t() + out_b.to(ct)
+    h4 = abby_values(h3.to(dt), *ln_w, size_d, alpha, k, beta)
+    return (x2.to(ct) + h4).to(dt)
+
+
+mlp_residual_plain.calls = 0
+
+
+def fused_mlp_residual(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
+                       out_b, size_d: int, alpha: float, k: float,
+                       beta: float):
+    """``x2 + mlp(x2)`` over the rows of x2 (N, D): the kernels on CUDA
+    tensors (f32 or bf16, weights of x2's dtype, D <= 1024, at most 4
+    gates), the plain version on CPU tensors.  Arguments as in
+    ``mlp_residual_plain``."""
+    args = (x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w, out_b, size_d,
+            alpha, k, beta)
+    if x2.device.type == "cpu":
+        return mlp_residual_plain(*args)
+    if x2.device.type != "cuda":
+        raise ValueError(f"fused_mlp_residual: unsupported device "
+                         f"{x2.device}")
+    n, d = x2.shape
+    nt, hid = len(gates), in_w.shape[0]
+    weights = [*ln_w, cs_w, cs_b, *[t for g in gates for t in g], in_w,
+               in_b, out_w, out_b]
+    ok = (x2.dim() == 2 and 2 <= d <= MAX_D and 1 <= nt <= MAX_TYPES
+          and hid <= 3 * MAX_D and ln_w[0].shape == (d, d)
+          and ln_w[2].shape == (3, d) and cs_w.shape == (nt, d)
+          and all(g[0].shape == (d, d) and g[1].shape == (d,) for g in gates)
+          and in_w.shape == (hid, d) and out_w.shape == (d, hid)
+          and all(t.dtype == x2.dtype and t.is_contiguous()
+                  and t.device == x2.device for t in [x2, *weights]))
+    if not ok:
+        raise ValueError(
+            "fused_mlp_residual kernels take contiguous (N, D<=1024) x and "
+            "torch-layout weights of its dtype and device, at most 4 gates; "
+            f"got x {tuple(x2.shape)} {x2.dtype}, in_w {tuple(in_w.shape)}, "
+            f"{nt} gates")
+    code = B.dtype_code(x2.dtype)
+    es = x2.element_size()
+    plog = -(-d // 64) * n * 3 * 4
+    work, (p1, p2, h1, h2, h3) = B.workspace(
+        x2.device, [plog, plog, n * d * es, n * hid * es, n * d * es])
+    out = torch.empty_like(x2)
+    fn = B.function("asr_fused_mlp_residual",
+                    [B.I, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.PP, B.PP, B.I,
+                     B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.I,
+                     B.I, B.I, B.I, B.F, B.F, B.F, B.P])
+    rc = fn(code, x2.data_ptr(), *(t.data_ptr() for t in ln_w),
+            cs_w.data_ptr(), cs_b.data_ptr(),
+            B.ptr_array([g[0].data_ptr() for g in gates]),
+            B.ptr_array([g[1].data_ptr() for g in gates]), nt,
+            in_w.data_ptr(), in_b.data_ptr(), out_w.data_ptr(),
+            out_b.data_ptr(), out.data_ptr(), p1, p2, h1, h2, h3, n, d, hid,
+            int(size_d), float(alpha), float(k), float(beta),
+            B.stream_of(x2))
+    B.check(rc, "asr_fused_mlp_residual")
+    fused_mlp_residual.launches += LAUNCHES if n else 0
+    return out
+
+
+fused_mlp_residual.launches = 0

@@ -1,0 +1,252 @@
+"""Whole attention calls of the decode step: the CUDA kernels
+``csrc/xattn.cu`` and their plain PyTorch versions.
+
+Replaces ``asr_model_tpu/ops/pallas/xattn_kernel.py:fused_attn_cached``
+(cross-attention against a precomputed, processed K/V cache) and
+``fused_attn_full`` (the kv side computed from ``xa`` in the call; xa = x
+for self-attention).  A call is q_norm -> q_proj -> * hd^-0.25 -> rotary
+(lane pairs, magnitude ||x row||) -> per-head head_norm, the same for k
+from xa in a full call (v raw), masked softmax attention (masked logits
+-1e30, causal mask aligned bottom-right), out_proj.  Products take
+operands rounded to the storage type with f32 sums, rounded where the
+Pallas kernel rounds.  The kernels split a call over (16-row tile, head,
+batch) blocks that stream K/V, in the launches the row-wide
+dependencies force: three a cached call (norm router, q side +
+attention, out_proj), four a full one (the kv side besides).  Head width
+128, D = 128 * heads <= 1024.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from asr_model_tpu_torch.ops.cuda import build as B
+from asr_model_tpu_torch.ops.cuda.abby import abby_values
+
+NEG_INF = -1e30
+HEAD_DIM, MAX_D = 128, 1024
+LAUNCHES_CACHED, LAUNCHES_FULL = 3, 4
+NORM_KEYS = ("n_w1", "n_b1", "n_w2", "n_b2")
+PROJ_KEYS = ("proj_w", "proj_b")
+
+
+# ---------------------------------------------------------- plain versions
+
+def _rotate(q, cond, freqs, head: int):
+    """Signal-adaptive rotary on (B, T, D) values: the pair (a, b) at
+    channels (2i, 2i + 1) becomes (a m cos - b m sin, b m cos + a m sin),
+    m = ||cond row|| (0 for a zero row), angle t * freqs[i % (hd / 2)]."""
+    b_, t_, d = q.shape
+    ft = q.dtype
+    t = torch.arange(t_, dtype=ft, device=q.device)
+    ang = t[:, None] * freqs.to(ft).repeat(head)[None]     # (T, D / 2)
+    sq = (cond * cond).sum(dim=-1, keepdim=True)
+    m = torch.where(sq > 0, torch.sqrt(torch.where(sq > 0, sq,
+                                                   torch.ones_like(sq))),
+                    torch.zeros_like(sq))
+    mc, ms = m * torch.cos(ang), m * torch.sin(ang)
+    pairs = q.reshape(b_, t_, d // 2, 2)
+    a, b = pairs[..., 0], pairs[..., 1]
+    return torch.stack([a * mc + b * (-ms), b * mc + a * ms],
+                       dim=-1).reshape(b_, t_, d)
+
+
+def _heads_norm(q, wh, head: int, size_h: int, akw, dt):
+    """Per-head AbbyNormal of (B, T, D) values (rounded to dt first, as
+    the head norm's input) -> (B, H, T, hd), rounded."""
+    b_, t_, d = q.shape
+    hd = d // head
+    qh = q.to(dt).reshape(-1, hd)
+    out = abby_values(qh, *(wh[n] for n in NORM_KEYS), size_h, *akw)
+    return out.to(dt).to(q.dtype).reshape(b_, t_, head, hd).transpose(1, 2)
+
+
+def _side(x, w, freqs, head: int, size_d: int, akw, ct, kv: bool):
+    """Norm -> projection; returns (k or q scaled and rotated, v or None)
+    as (B, T, D) values."""
+    b_, t_, d = x.shape
+    n = abby_values(x.reshape(-1, d), *(w[k] for k in NORM_KEYS), size_d,
+                    *akw).to(x.dtype).to(ct)
+    p = n @ w["proj_w"].to(ct).t() + w["proj_b"].to(ct)
+    p = p.reshape(b_, t_, -1)
+    v = p[..., d:] if kv else None
+    qk = p[..., :d] * (d // head) ** -0.25
+    return _rotate(qk, x.to(ct), freqs, head), v
+
+
+def _attend_out(qhn, khn, v, kv_valid, causal: bool, wo, dt, ct):
+    """Masked softmax attention of (B, H, T, hd) heads (weights rounded
+    to dt before the V product), then out_proj; returns (B, T, D) in dt."""
+    hd = qhn.shape[-1]
+    logits = torch.einsum("bhqd,bhkd->bhqk", qhn, khn) * (1.0 / hd ** 0.5)
+    tq, tk = logits.shape[-2:]
+    if causal:
+        cm = torch.ones(tq, tk, dtype=torch.bool,
+                        device=logits.device).tril(tk - tq)
+        logits = torch.where(cm[None, None], logits, NEG_INF)
+    if kv_valid is not None:
+        logits = torch.where(kv_valid[:, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(dt).to(ct)
+    a = torch.einsum("bhqk,bhkd->bhqd", w, v.to(dt).to(ct))
+    b_, h, t_, _ = a.shape
+    o = a.transpose(1, 2).reshape(b_, t_, h * hd).to(dt).to(ct)
+    return (o @ wo["proj_w"].to(ct).t() + wo["proj_b"].to(ct)).to(dt)
+
+
+def attn_cached_plain(x, kn, v, kv_valid, freqs, wq, wh, wo, head: int,
+                      size_d: int, size_h: int, alpha: float, k: float,
+                      beta: float):
+    """x (B, T, D); kn, v (B, H, Tk, hd) the processed cache; kv_valid
+    (B, Tk) bool or None; freqs (hd / 2,) the (non-causal) ladder; wq =
+    q_norm (n_w1, n_b1, n_w2, n_b2) + q_proj (proj_w, proj_b), wh =
+    head_norm, wo = out_proj, torch (out, in) layouts."""
+    attn_cached_plain.calls += 1
+    dt = x.dtype
+    ct = torch.promote_types(dt, torch.float32)
+    akw = (alpha, k, beta)
+    q, _ = _side(x, wq, freqs, head, size_d, akw, ct, kv=False)
+    qhn = _heads_norm(q, wh, head, size_h, akw, dt)
+    return _attend_out(qhn, kn.to(dt).to(ct), v, kv_valid, False, wo, dt,
+                       ct)
+
+
+attn_cached_plain.calls = 0
+
+
+def attn_full_plain(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head: int,
+                    size_d: int, size_h: int, alpha: float, k: float,
+                    beta: float, causal: bool):
+    """As ``attn_cached_plain`` with the kv side from xa (B, Ta, D): wkv =
+    kv_norm + kv_proj (proj_w (2D, D)); freqs is the ladder of both
+    sides (``causal`` picks it)."""
+    attn_full_plain.calls += 1
+    dt = x.dtype
+    ct = torch.promote_types(dt, torch.float32)
+    akw = (alpha, k, beta)
+    q, _ = _side(x, wq, freqs, head, size_d, akw, ct, kv=False)
+    kk, v = _side(xa.to(dt), wkv, freqs, head, size_d, akw, ct, kv=True)
+    qhn = _heads_norm(q, wh, head, size_h, akw, dt)
+    khn = _heads_norm(kk, wh, head, size_h, akw, dt)
+    b_, ta, d = v.shape
+    vh = v.reshape(b_, ta, head, d // head).transpose(1, 2)
+    return _attend_out(qhn, khn, vh, kv_valid, causal, wo, dt, ct)
+
+
+attn_full_plain.calls = 0
+
+
+# ---------------------------------------------------------------- kernels
+
+def _weights(wq, wkv, wh, wo):
+    """The 18 weights in the kernels' order (csrc/xattn.cu XaWeight)."""
+    out = [wq[n] for n in NORM_KEYS + PROJ_KEYS]
+    out += ([wkv[n] for n in NORM_KEYS + PROJ_KEYS] if wkv is not None
+            else [None] * 6)
+    out += [wh[n] for n in NORM_KEYS] + [wo[n] for n in PROJ_KEYS]
+    return out
+
+
+def _check(name, x, tensors, head, weights, kv_valid, tk):
+    b_, t_, d = x.shape
+    ws = [w for w in weights if w is not None]
+    ok = (x.dim() == 3 and d == HEAD_DIM * head and d <= MAX_D
+          and all(t.dtype == x.dtype and t.is_contiguous()
+                  and t.device == x.device for t in [x, *tensors, *ws]))
+    if kv_valid is not None:
+        ok = ok and (kv_valid.shape == (b_, tk)
+                     and kv_valid.dtype == torch.bool
+                     and kv_valid.is_contiguous()
+                     and kv_valid.device == x.device)
+    if not ok:
+        raise ValueError(
+            f"{name} kernels take contiguous (B, T, D = 128 heads <= 1024) "
+            "inputs and torch-layout weights of one dtype on one device and "
+            f"a (B, Tk) bool mask; got x {tuple(x.shape)} {x.dtype}, "
+            f"{head} heads")
+
+
+def _cuda_freqs(x, freqs):
+    """The ladder as the kernels read it (f32 on x's device); raises for
+    a device that is neither the CPU nor CUDA."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused attention: unsupported device {x.device}")
+    return freqs.to(device=x.device, dtype=torch.float32).contiguous()
+
+
+def fused_attn_cached(x, kn, v, kv_valid, freqs, wq, wh, wo, head: int,
+                      size_d: int, size_h: int, alpha: float, k: float,
+                      beta: float):
+    """One cached cross-attention call (arguments as in
+    ``attn_cached_plain``): the kernels on CUDA tensors (f32 or bf16),
+    the plain version on CPU tensors.  Three launches."""
+    if x.device.type == "cpu":
+        return attn_cached_plain(x, kn, v, kv_valid, freqs, wq, wh, wo, head,
+                                 size_d, size_h, alpha, k, beta)
+    fr = _cuda_freqs(x, freqs)
+    b_, t_, d = x.shape
+    tk = kn.shape[2]
+    ws = _weights(wq, None, wh, wo)
+    _check("fused_attn_cached", x, (kn, v), head, ws, kv_valid, tk)
+    if kn.shape != (b_, head, tk, HEAD_DIM) or v.shape != kn.shape:
+        raise ValueError(f"fused_attn_cached: K/V {tuple(kn.shape)} / "
+                         f"{tuple(v.shape)} for x {tuple(x.shape)}")
+    es = x.element_size()
+    work, (plog, o) = B.workspace(           # 3 f32 logits per row, slice
+        x.device, [-(-d // 64) * b_ * t_ * 12, b_ * t_ * d * es])
+    out = torch.empty_like(x)
+    fn = B.function("asr_fused_attn_cached",
+                    [B.I, B.P, B.P, B.P, B.P, B.P, B.PP, B.P, B.P, B.P, B.I,
+                     B.I, B.I, B.I, B.I, B.I, B.I, B.F, B.F, B.F, B.P])
+    rc = fn(B.dtype_code(x.dtype), x.data_ptr(), kn.data_ptr(), v.data_ptr(),
+            B.ptr(kv_valid), fr.data_ptr(),
+            B.ptr_array([B.ptr(w) for w in ws]), out.data_ptr(), plog, o,
+            b_, t_, tk, d, head, int(size_d), int(size_h), float(alpha),
+            float(k), float(beta), B.stream_of(x))
+    B.check(rc, "asr_fused_attn_cached")
+    fused_attn_cached.launches += LAUNCHES_CACHED if b_ else 0
+    return out
+
+
+fused_attn_cached.launches = 0
+
+
+def fused_attn_full(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head: int,
+                    size_d: int, size_h: int, alpha: float, k: float,
+                    beta: float, causal: bool):
+    """One full attention call (arguments as in ``attn_full_plain``): the
+    kernels on CUDA tensors (f32 or bf16), the plain version on CPU
+    tensors.  Four launches."""
+    if x.device.type == "cpu":
+        return attn_full_plain(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head,
+                               size_d, size_h, alpha, k, beta, causal)
+    fr = _cuda_freqs(x, freqs)
+    b_, t_, d = x.shape
+    ta = xa.shape[1]
+    ws = _weights(wq, wkv, wh, wo)
+    _check("fused_attn_full", x, (xa,), head, ws, kv_valid, ta)
+    if xa.shape != (b_, ta, d):
+        raise ValueError(f"fused_attn_full: xa {tuple(xa.shape)} for x "
+                         f"{tuple(x.shape)}")
+    es = x.element_size()
+    slices = -(-d // 64)
+    work, (pq, pkv, kb, vb, o) = B.workspace(
+        x.device, [slices * b_ * t_ * 12, slices * b_ * ta * 12,
+                   b_ * ta * d * es, b_ * ta * d * es, b_ * t_ * d * es])
+    out = torch.empty_like(x)
+    fn = B.function("asr_fused_attn_full",
+                    [B.I, B.P, B.P, B.P, B.P, B.PP, B.P, B.P, B.P, B.P, B.P,
+                     B.P, B.I, B.I, B.I, B.I, B.I, B.I, B.I, B.I, B.F, B.F,
+                     B.F, B.P])
+    rc = fn(B.dtype_code(x.dtype), x.data_ptr(), xa.data_ptr(),
+            B.ptr(kv_valid), fr.data_ptr(),
+            B.ptr_array([w.data_ptr() for w in ws]), out.data_ptr(), pq, pkv,
+            kb, vb, o, b_, t_, ta, d, head, int(bool(causal)), int(size_d),
+            int(size_h), float(alpha), float(k), float(beta), B.stream_of(x))
+    B.check(rc, "asr_fused_attn_full")
+    fused_attn_full.launches += LAUNCHES_FULL if b_ else 0
+    return out
+
+
+fused_attn_full.launches = 0

@@ -6,22 +6,27 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    CUDA kernels from ``asr_model_tpu_torch/csrc`` (nvcc, sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at
-   the shapes of the main path, with the tolerance stated beside it, and
-   times kernel, plain version and (where one PyTorch call computes the
-   same function) that call.
-3. Drives the main path at the flagship config (40k vocab, 512 dims, 4
-   heads, 4 layers, bf16, seeded random weights): 8 x 10 s synthetic
-   tones -> log-mel + YIN pitch + frame-rate waveform -> AudioEncoder ->
-   per-slot re-encode and cross K/V -> greedy buffer decode of 64 tokens
-   with EOS suppressed.  Every kernel must have launched in that run and
-   no plain version may have run.  Then times 5 more runs (RTFx from
-   their median), checks the output ids, the first decode step's
-   logits on the kernel route against the plain route on the card (the
-   flagship in bf16 and in f32, argmax identical in every row), and a
-   small f32 model on the card against the same model's plain route on
-   the CPU.
-4. Prints the ``kernels`` JSON line, the card line, and as its last line
-   ``{"ok": true, "device": {...}}``.
+   the shapes of the decode paths, with the tolerance stated beside it,
+   and times kernel, plain version and (where one PyTorch call computes
+   the same function) that call.
+3. Drives the two decode paths at the flagship config (40k vocab, 512
+   dims, 4 heads, 4 layers, bf16, the same seeded random weights): 8 x
+   10 s synthetic tones -> log-mel + YIN pitch + frame-rate waveform ->
+   AudioEncoder -> per-slot re-encode and cross K/V -> greedy buffer
+   decode of 64 tokens with EOS suppressed.  The default path runs the
+   mel, flash, fused_abby and fused_sheath_scan kernels; the fused path
+   (ModelConfig fused_attention, fused_mlp, fused_router) also the
+   whole-call attention, residual-MLP and router kernels.  Each path
+   must launch exactly its kernels and run no plain version; each
+   prints its RTFx (median of 5 timed runs), decode ms per step and the
+   device kernels of one decode step at width 65 (torch.profiler).
+4. Checks the output ids, the first decode step's logits on each path's
+   kernel route against its plain route on the card (bf16 and f32,
+   argmax identical in every row), the fused path against the default
+   path (f32), and small f32 models (both paths) on the card against
+   the same models' plain route on the CPU.
+5. Prints the paths' JSON line, the ``kernels`` JSON line, the card
+   line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -39,6 +44,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SR, HOP, UTT_SEC, BATCH, NEW_TOKENS = 16000, 160, 10.0, 8, 64
+DEV = "cuda"
 BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
 F32_PEAK = 67e12          # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12         # H100 SXM device-memory bytes/s
@@ -295,7 +301,191 @@ def check_kernels(model):
     return out
 
 
-# ---------------------------------------------------------- main path
+def _pairs(tq: int, tk: int, causal: bool, valid) -> int:
+    """Visible (query, key) pairs of the masked attention, summed over the
+    batch rows of ``valid`` (B, tk); a fully masked row attends to every
+    key (the mean of V)."""
+    import torch
+    vis = torch.ones(tq, tk, dtype=torch.bool, device=valid.device)
+    if causal:
+        vis = vis.tril(tk - tq)
+    per_row = (vis[None] & valid[:, None, :]).sum(-1)
+    return int(per_row.masked_fill(per_row == 0, tk).sum())
+
+
+def _abby_ops(n: int, d: int, size: int) -> float:
+    """The eval AbbyNormal: router product, logits, tail (as counted for
+    fused_abby)."""
+    return 2.0 * n * d * d + 2.0 * n * d * 3 + n * d * (2 * size + 12)
+
+
+def _entry(name, source, replaces, entries):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                **{k: entries[0][k] for k in entries[0] if k != "shape"},
+                shape=entries[0]["shape"], shapes=entries)
+
+
+FUSED_TOL = ("tolerance 2e-2 |plain| + 5e-3 max|plain| per element: a bf16 "
+             "rounding at each stage of the chain; at most 1% of rows out, "
+             "where a near tie routes a norm the other way")
+
+
+def _fused_close(label, got, want, row):
+    import torch
+    e, bad, rows = close_rows(got, want, 2e-2, 5e-3, row)
+    check(bool(torch.isfinite(got.float()).all()) and bad <= rows // 100,
+          f"{label}: max abs err {e:.3e}, {bad}/{rows} rows out ({FUSED_TOL})")
+    return e
+
+
+def check_fused_kernels(model, audio):
+    """The fused path's kernels (and the abby tail entry) against their
+    plain versions at the fused decode's shapes, with the flagship
+    block's weights: width-65 buffers, the last bucket's prefix mask."""
+    import torch
+
+    from asr_model_tpu_torch.models.generate import prepare_cross
+    from asr_model_tpu_torch.models.model import modality_slots
+    from asr_model_tpu_torch.ops.cuda import abby, mlp, router, xattn
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(2)
+    blk = model.processor.block
+    at = blk.attn
+    D, H, T = at.dims, at.head, 1 + NEW_TOKENS
+    hd = D // H
+    N = BATCH * T
+    bf = torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=g).to(bf)
+    valid = (torch.arange(T, device=dev) < T - 1)[None].expand(
+        BATCH, T).contiguous()
+    size_d, size_h = abby.window_size(D), abby.window_size(hd)
+    out = []
+
+    def wbytes(kw):
+        return sum(nbytes(*v.values()) for k, v in kw.items()
+                   if k in ("wq", "wkv", "wh", "wo"))
+
+    def q_side_ops(n):
+        return (_abby_ops(n, D, size_d) + 2.0 * n * D * D + 6.0 * n * D
+                + _abby_ops(n * H, hd, size_h) + 2.0 * n * D * D)
+
+    # ---- fused_attn_cached: the b/c/d calls against a slot's real cache
+    mel_, f0, wav = frontend(audio)
+    kn, v = prepare_cross(model, modality_slots(f0, mel_, wav))["b"]
+    x = rnd(BATCH, T, D)
+    fr = at.rot.freqs(False, torch.float32, dev)
+    kw = at.fused_kw(bf, full=False)
+    args = (x, kn, v, None, fr)
+    got = xattn.fused_attn_cached(*args, **kw)
+    want = xattn.attn_cached_plain(*args, **kw)
+    label = "cached cross (8,65,512) x K/V (8,4,1001,128)"
+    e = _fused_close(f"fused_attn_cached {label}", got, want, D)
+    tk = kn.shape[2]
+    ops = q_side_ops(N) + BATCH * H * T * tk * (4.0 * hd + 5)
+    b_ms, b_by = bound_ms(ops, nbytes(x, kn, v, got) + wbytes(kw), BF16_PEAK)
+    out.append(_entry(
+        "fused_attn_cached", "asr_model_tpu_torch/csrc/xattn.cu",
+        "asr_model_tpu/ops/pallas/xattn_kernel.py:275", [dict(
+            shape=label, max_abs_err=e,
+            ms=cuda_ms(lambda: xattn.fused_attn_cached(*args, **kw)),
+            plain_ms=cuda_ms(lambda: xattn.attn_cached_plain(*args, **kw)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)]))
+
+    # ---- fused_attn_full: self causal (a), self (b/c/d/g), g cross
+    entries = []
+    for label, causal, cross in [
+            ("self causal (8,65,512) + kv_valid", True, False),
+            ("self (8,65,512) + kv_valid", False, False),
+            ("g cross (8,65,512) x (8,65,512) + kv_valid", False, True)]:
+        x = rnd(BATCH, T, D)
+        xa = rnd(BATCH, T, D) if cross else x
+        fr = at.rot.freqs(causal, torch.float32, dev)
+        kw = at.fused_kw(bf, full=True)
+        args = (x, xa, valid, fr)
+        got = xattn.fused_attn_full(*args, causal=causal, **kw)
+        want = xattn.attn_full_plain(*args, causal=causal, **kw)
+        e = _fused_close(f"fused_attn_full {label}", got, want, D)
+        pairs = _pairs(T, T, causal, valid)
+        ops = (q_side_ops(N) + _abby_ops(N, D, size_d) + 4.0 * N * D * D
+               + 6.0 * N * D + _abby_ops(N * H, hd, size_h)
+               + H * pairs * (4.0 * hd + 5))
+        b_ms, b_by = bound_ms(ops, nbytes(x, None if xa is x else xa, valid,
+                                          got) + wbytes(kw), BF16_PEAK)
+        entries.append(dict(
+            shape=label, max_abs_err=e,
+            ms=cuda_ms(lambda: xattn.fused_attn_full(*args, causal=causal,
+                                                     **kw)),
+            plain_ms=cuda_ms(lambda: xattn.attn_full_plain(
+                *args, causal=causal, **kw)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    out.append(_entry("fused_attn_full", "asr_model_tpu_torch/csrc/xattn.cu",
+                      "asr_model_tpu/ops/pallas/xattn_kernel.py:333",
+                      entries))
+
+    # ---- fused_mlp_residual (8*65, 512), the flagship block's MLP
+    args = blk.mlp_fused_args(rnd(N, D))
+    got = mlp.fused_mlp_residual(*args)
+    want = mlp.mlp_residual_plain(*args)
+    label = "decode (8*65, 512)"
+    e = _fused_close(f"fused_mlp_residual {label}", got, want, D)
+    nt, hid = len(args[4]), args[5].shape[0]
+    ops = (2 * _abby_ops(N, D, size_d) + 2.0 * N * D * nt * (D + 1)
+           + 4.0 * N * D * nt + 4.0 * N * D * hid + 10.0 * N * hid + N * D)
+    wb = nbytes(*args[1], args[2], args[3], *[t for gw in args[4]
+                                              for t in gw], *args[5:9])
+    b_ms, b_by = bound_ms(ops, nbytes(args[0], got) + wb, BF16_PEAK)
+    out.append(_entry(
+        "fused_mlp_residual", "asr_model_tpu_torch/csrc/mlp.cu",
+        "asr_model_tpu/ops/pallas/mlp_kernel.py:125", [dict(
+            shape=label, max_abs_err=e,
+            ms=cuda_ms(lambda: mlp.fused_mlp_residual(*args)),
+            plain_ms=cuda_ms(lambda: mlp.mlp_residual_plain(*args)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)]))
+
+    # ---- fused_router_same (8*65, 512), n_mod 3
+    args = blk.router.fused_args(rnd(N, D), blk.layer - 1)
+    got = router.fused_router_same(*args)
+    want = router.router_same_plain(*args)
+    label = "decode (8*65, 512), 3 modalities"
+    e = _fused_close(f"fused_router_same {label}", got, want, D)
+    nt, n_mod = args[1].shape[0], args[6]
+    ops = 2.0 * 2 * nt * n_mod * D + 4.0 * N * D * nt + N * D + 30.0 * N * nt
+    b_ms, b_by = bound_ms(ops, nbytes(args[0], got, *args[1:6]), F32_PEAK)
+    out.append(_entry(
+        "fused_router_same", "asr_model_tpu_torch/csrc/router.cu",
+        "asr_model_tpu/ops/pallas/router_kernel.py:97", [dict(
+            shape=label, max_abs_err=e,
+            ms=cuda_ms(lambda: router.fused_router_same(*args)),
+            plain_ms=cuda_ms(lambda: router.router_same_plain(*args)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)]))
+
+    # ---- fused_abby_tail (8*65, 512) on f32 logits (no caller on a path)
+    x = (2 * torch.randn(N, D, device=dev, generator=g)).to(bf)
+    lg = torch.randn(N, 3, device=dev, generator=g)
+    targs = (x, lg, size_d, 1e-4, 1.0, 0.75)
+    got = abby.fused_abby_tail(*targs)
+    want = abby.abby_tail_plain(*targs)
+    e, bad, rows = close_rows(got, want, 8e-3, 1e-3, D)
+    label = "(8*65, 512) + f32 logits"
+    check(bad == 0, f"fused_abby_tail {label}: max abs err {e:.3e}, "
+          f"{bad}/{rows} rows out (tolerance 8e-3 |plain| + 1e-3 max|plain|:"
+          " one bf16 rounding)")
+    b_ms, b_by = bound_ms(N * D * (2.0 * size_d + 12), nbytes(x, lg, got),
+                          F32_PEAK)
+    out.append(_entry(
+        "fused_abby_tail", "asr_model_tpu_torch/csrc/abby.cu",
+        "asr_model_tpu/ops/pallas/abby_kernel.py:142", [dict(
+            shape=label, max_abs_err=e,
+            ms=cuda_ms(lambda: abby.fused_abby_tail(*targs)),
+            plain_ms=cuda_ms(lambda: abby.abby_tail_plain(*targs)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)]))
+    return out
+
+
+# --------------------------------------------------------------- the paths
+
+FUSED_FIELDS = dict(fused_attention=True, fused_mlp=True, fused_router=True)
+
 
 def frontend(audio, dtype=None):
     """log-mel, YIN pitch and the frame-rate waveform, on the device,
@@ -320,18 +510,26 @@ def transcribe(model, audio):
                          max_new_tokens=NEW_TOKENS, suppress_eos=True)
 
 
+def flagship(fused: bool, dtype=None):
+    """The flagship model from seed 0 (the same weights on both paths),
+    bf16 unless ``dtype`` says otherwise."""
+    import torch
+    from asr_model_tpu_torch.config import Dimensions, ModelConfig
+    from asr_model_tpu_torch.models.model import Model, cast_variables
+    cfg = ModelConfig(**FUSED_FIELDS) if fused else ModelConfig()
+    m = Model(Dimensions(), cfg, device=DEV, seed=0)
+    return m if dtype == torch.float32 else cast_variables(m)
+
+
 def plain_route():
     """Point every kernel wrapper at its plain version (for comparing the
     two routes on the card); returns the undo."""
-    from asr_model_tpu_torch.ops.cuda import abby, attention, mel, sheath
-    saved = [(abby, "fused_abby", abby.fused_abby),
-             (attention, "flash_attention", attention.flash_attention),
-             (mel, "mel_spectrogram", mel.mel_spectrogram),
-             (sheath, "fused_sheath_scan", sheath.fused_sheath_scan)]
-    abby.fused_abby = abby.abby_plain
-    attention.flash_attention = attention.attention_plain
-    mel.mel_spectrogram = mel.mel_spectrogram_plain
-    sheath.fused_sheath_scan = sheath.sheath_scan_plain
+    from asr_model_tpu_torch.ops import cuda as kernels
+    saved = []
+    for wrapper, plain in kernels.WRAPPERS.values():
+        mod = sys.modules[wrapper.__module__]
+        saved.append((mod, wrapper.__name__, wrapper))
+        setattr(mod, wrapper.__name__, plain)
 
     def undo():
         for mod, name, fn in saved:
@@ -352,35 +550,81 @@ def first_step_logits(model, audio, dtype):
     return decode_step(model, ids, xa_kv, 1)
 
 
-def route_check(model, audio, dtype, tol: float, why: str) -> float:
-    """The first decode step's logits on the kernel route against the
-    plain route on the card: fails past ``tol`` of the largest logit or
-    when any row's argmax differs."""
+def compare_logits(lk, lp, tol: float, what: str) -> float:
+    """Fails past ``tol`` of the largest reference logit or when any
+    row's argmax differs."""
     import torch
+    rel = float((lk - lp).abs().max()) / float(lp.abs().max())
+    same = bool((lk.argmax(-1) == lp.argmax(-1)).all())
+    check(bool(torch.isfinite(lk).all()) and rel < tol and same,
+          f"{what}: max abs err / max|ref| = {rel:.3e} (tolerance {tol:g}); "
+          f"argmax {'identical' if same else 'DIFFERS'} in the "
+          f"{lk.shape[0]} rows")
+    return rel
+
+
+def route_check(model, audio, dtype, tol: float, why: str, label: str):
+    """The first decode step's logits on the kernel route against the
+    plain route on the card."""
     lk = first_step_logits(model, audio, dtype)
     undo = plain_route()
     try:
         lp = first_step_logits(model, audio, dtype)
     finally:
         undo()
-    rel = float((lk - lp).abs().max()) / float(lp.abs().max())
-    same = bool((lk.argmax(-1) == lp.argmax(-1)).all())
-    check(bool(torch.isfinite(lk).all()) and rel < tol and same,
-          f"first decode step logits, kernel vs plain route "
-          f"({str(dtype).replace('torch.', '')}): max abs err / max|plain| "
-          f"= {rel:.3e} (tolerance {tol:g}: {why}); argmax "
-          f"{'identical' if same else 'DIFFERS'} in the {lk.shape[0]} rows")
-    return rel
+    rel = compare_logits(lk, lp, tol, f"{label}: first decode step logits, "
+                         f"kernel vs plain route ({str(dtype)[6:]}; {why})")
+    return rel, lk
 
 
-def main_path(model):
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def step_profile(model, audio, ids):
+    """Every device kernel of one decode step at the last bucket (width
+    65, 64 live positions), PyTorch's own included, under torch.profiler:
+    (kernel launches, their device ms, copies and fills, top kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from asr_model_tpu_torch.models.generate import decode_step, prepare_cross
+    from asr_model_tpu_torch.models.model import modality_slots
+    mel, f0, wav = frontend(audio)
+    xa_kv = prepare_cross(model, modality_slots(f0, mel, wav))
+    buf = ids[:, :1 + NEW_TOKENS].contiguous()
+    decode_step(model, buf, xa_kv, NEW_TOKENS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode_step(model, buf, xa_kv, NEW_TOKENS)
+        torch.cuda.synchronize()
+    rows, copies = [], 0
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if evt.key.startswith(("Memcpy", "Memset")):
+            copies += evt.count
+        else:
+            rows.append((evt.key, evt.count, us / 1e3))
+    rows.sort(key=lambda r: -r[2])
+    return (sum(r[1] for r in rows), sum(r[2] for r in rows), copies,
+            [{"kernel": k[:60], "count": c, "ms": m} for k, c, m in rows[:8]])
+
+
+def drive_path(model, audio, label: str, expect, runs: int = 5):
+    """One decode path: a warm-up, the counted run (every kernel in
+    ``expect`` launched, no other, no plain version), ``runs`` timed runs,
+    the phase split and the launches of one decode step."""
     import torch
     from asr_model_tpu_torch.config import BOS_ID, EOS_ID, PAD_ID
     from asr_model_tpu_torch.models.generate import prepare_cross
     from asr_model_tpu_torch.models.model import modality_slots
     from asr_model_tpu_torch.ops import cuda as kernels
-    dev = torch.device("cuda")
-    audio = torch.from_numpy(tones(BATCH, UTT_SEC)).to(dev)
 
     transcribe(model, audio)                 # warm-up
     torch.cuda.synchronize()
@@ -388,27 +632,32 @@ def main_path(model):
     ids = transcribe(model, audio)
     torch.cuda.synchronize()
     counts = kernels.counts()
-    log("kernels " + json.dumps(counts))
+    log(f"{label} path kernels " + json.dumps(counts))
     for name, c in counts.items():
-        check(c["launches"] > 0, f"main path launched {name} "
-              f"{c['launches']} times")
-        check(c["plain_calls"] == 0, f"main path made no plain {name} call "
-              f"({c['plain_calls']})")
+        if name in expect:
+            check(c["launches"] > 0, f"{label} path launched {name} "
+                  f"{c['launches']} times")
+        else:
+            check(c["launches"] == 0, f"{label} path did not launch {name} "
+                  f"({c['launches']})")
+        check(c["plain_calls"] == 0, f"{label} path made no plain {name} "
+              f"call ({c['plain_calls']})")
 
     vocab = model.dims.tokens
     check(tuple(ids.shape) == (BATCH, 1 + NEW_TOKENS),
-          f"output ids shape {tuple(ids.shape)}")
+          f"{label} path output ids shape {tuple(ids.shape)}")
     check(bool((ids[:, 0] == BOS_ID).all()) and bool((ids >= 0).all())
-          and bool((ids < vocab).all()), "ids start with BOS, in vocab")
+          and bool((ids < vocab).all()), f"{label} path ids start with BOS, "
+          "in vocab")
     check(not bool((ids[:, 1:-1] == EOS_ID).any())
           and not bool((ids[:, 1:] == PAD_ID).any()),
-          "no EOS before the budget (suppressed), no PAD")
+          f"{label} path: no EOS before the budget (suppressed), no PAD")
 
     times = []                      # seconds per batch, each synchronised
-    for _ in range(5):
+    for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ids = transcribe(model, audio)
+        transcribe(model, audio)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     total = float(np.median(times))
@@ -424,46 +673,55 @@ def main_path(model):
     front_ms, prep_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
     step_ms = (total * 1e3 - front_ms - prep_ms) / NEW_TOKENS
     rtfx = BATCH * UTT_SEC / total
-    log(f"main path: median {total * 1e3:.3f} ms per batch of {BATCH} x "
-        f"{UTT_SEC:.0f} s (runs: "
+    launches, dev_ms, copies, top = step_profile(model, audio, ids)
+    log(f"{label} path: RTFx {rtfx:.3f} (median of {runs} runs of "
         + ", ".join(f"{t * 1e3:.1f}" for t in times)
-        + f") -> RTFx {rtfx:.3f}; frontend {front_ms:.3f} ms, "
-        f"encode + re-encode + cross K/V {prep_ms:.3f} ms, decode "
-        f"{step_ms:.3f} ms per step; ids {tuple(ids.shape)}")
-
-    rel = route_check(model, audio, torch.bfloat16, 7e-2,
-                      "bf16 rounds at other places on the two routes")
+        + f" ms per batch of {BATCH} x {UTT_SEC:.0f} s); frontend "
+        f"{front_ms:.3f} ms, encode + re-encode + cross K/V {prep_ms:.3f} ms")
+    log(f"{label} path: decode {step_ms:.3f} ms per step; one step at width "
+        f"65: {launches} kernel launches ({dev_ms:.3f} ms of device time) "
+        f"and {copies} copies/fills under torch.profiler")
     return dict(rtfx=rtfx, ms_per_batch=total * 1e3,
                 ms_per_batch_runs=[t * 1e3 for t in times],
-                frontend_ms=front_ms,
-                prepare_ms=prep_ms, decode_ms_per_step=step_ms,
-                counts=counts, first_step_rel_err=rel)
+                frontend_ms=front_ms, prepare_ms=prep_ms,
+                decode_ms_per_step=step_ms, step_launches=launches,
+                step_device_ms=dev_ms, step_copies=copies, step_top=top,
+                counts=counts, ids=ids)
 
 
-def small_reference():
-    """A small f32 model: kernel route on the card against the plain
-    route on the CPU (the route the CPU tests hold against the JAX
-    package)."""
+def small_reference(fused: bool):
+    """A small f32 model (head width 128, so the fused gate admits it):
+    kernel route on the card against the plain route on the CPU (the
+    route the CPU tests hold against the JAX package)."""
     import torch
-    from asr_model_tpu_torch.config import Dimensions
+    from asr_model_tpu_torch.config import Dimensions, ModelConfig
     from asr_model_tpu_torch.models.model import Model
+    from asr_model_tpu_torch.ops import cuda as kernels
     dims = Dimensions(tokens=512, mels=16, dims=128, head=1, layer=4)
+    cfg = ModelConfig(**FUSED_FIELDS) if fused else ModelConfig()
     rng = np.random.RandomState(0)
     feats = dict(spectrogram=rng.randn(2, 16, 48).astype(np.float32),
                  pitch=rng.rand(2, 1, 48).astype(np.float32),
                  waveform=rng.randn(2, 1, 48).astype(np.float32))
     ids = torch.from_numpy(rng.randint(3, 512, size=(2, 6)))
-    cpu = Model(dims, device="cpu", seed=1)
-    gpu = Model(dims, device="cuda", seed=1)
+    cpu = Model(dims, cfg, device="cpu", seed=1)
+    gpu = Model(dims, cfg, device=DEV, seed=1)
     gpu.load_state_dict(cpu.state_dict())
     want = cpu(ids, **{k: torch.from_numpy(v) for k, v in feats.items()})
-    got = gpu(ids.cuda(), **{k: torch.from_numpy(v).cuda()
-                             for k, v in feats.items()})
+    kernels.reset_counts()
+    got = gpu(ids.to(DEV), **{k: torch.from_numpy(v).to(DEV)
+                              for k, v in feats.items()})
+    c = kernels.counts()
+    names = (kernels.FUSED_ONLY if fused else
+             ("flash_attention", "fused_abby", "fused_sheath_scan"))
     rel = float((got["logits"].cpu() - want["logits"]).abs().max()) \
         / float(want["logits"].abs().max())
-    check(rel < 1e-3, f"small f32 model, card kernels vs CPU plain: max abs "
-          f"err / max|ref| = {rel:.3e} (tolerance 1e-3: f32 sums in other "
-          "orders through the stack)")
+    check(rel < 1e-3 and all(c[n]["launches"] > 0 for n in names),
+          f"small f32 model{' (fused path)' if fused else ''}, card kernels "
+          f"vs CPU plain: max abs err / max|ref| = {rel:.3e} (tolerance "
+          "1e-3: f32 sums in other orders through the stack); launched "
+          + ", ".join(f"{n} {c[n]['launches']}" for n in names))
+    return rel
 
 
 def main() -> int:
@@ -472,8 +730,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from asr_model_tpu_torch.config import Dimensions
-    from asr_model_tpu_torch.models.model import Model, cast_variables
+    from asr_model_tpu_torch.ops import cuda as kernels
     from asr_model_tpu_torch.ops.cuda import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -488,23 +745,54 @@ def main() -> int:
     log(f"built {os.path.relpath(lib, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    model = cast_variables(Model(Dimensions(), device="cuda", seed=0))
-    kernels = check_kernels(model)
-    result = main_path(model)
-    result["first_step_rel_err_f32"] = route_check(
-        Model(Dimensions(), device="cuda", seed=0),
-        torch.from_numpy(tones(BATCH, UTT_SEC)).cuda(), torch.float32, 6e-5,
-        "f32 sums in other orders")
-    for k in kernels:
-        k["launches"] = result["counts"][k["name"]]["launches"]
-    small_reference()
+    audio = torch.from_numpy(tones(BATCH, UTT_SEC)).to(DEV)
+    model, fused = flagship(False), flagship(True)
+    fused.load_state_dict(model.state_dict())
+    kern = check_kernels(model) + check_fused_kernels(fused, audio)
+
+    paths = {"default": drive_path(model, audio, "default",
+                                   kernels.DEFAULT_PATH),
+             "fused": drive_path(fused, audio, "fused",
+                                 kernels.DEFAULT_PATH + kernels.FUSED_ONLY)}
+    same = float((paths["fused"]["ids"] == paths["default"]["ids"])
+                 .float().mean())
+    log(f"bf16 tokens identical on the two paths: {100 * same:.1f}%")
+    rel = {"default_bf16": route_check(
+        model, audio, torch.bfloat16, 7e-2,
+        "bf16 rounds at other places on the two routes", "default path")[0],
+        "fused_bf16": route_check(
+        fused, audio, torch.bfloat16, 7e-2,
+        "bf16 rounds at other places on the two routes", "fused path")[0]}
+    del model, fused
+    m32, fus32 = flagship(False, torch.float32), flagship(True, torch.float32)
+    rel["default_f32"], l_def = route_check(
+        m32, audio, torch.float32, 6e-5, "f32 sums in other orders",
+        "default path")
+    rel["fused_f32"], l_fus = route_check(
+        fus32, audio, torch.float32, 6e-5, "f32 sums in other orders",
+        "fused path")
+    rel["fused_vs_default_f32"] = compare_logits(
+        l_fus, l_def, 2e-5, "first decode step logits, fused path vs default "
+        "path, both on their kernels (f32; the fused kernels sum and round "
+        "in other places)")
+    del m32, fus32
+    rel["small_default"] = small_reference(False)
+    rel["small_fused"] = small_reference(True)
+
+    for k in kern:
+        by_path = {p: r["counts"][k["name"]]["launches"]
+                   for p, r in paths.items()}
+        k["launches"] = by_path["fused"]
+        k["launches_by_path"] = by_path
 
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed")
         return 1
-    log(json.dumps({"main_path": {k: v for k, v in result.items()
-                                  if k != "counts"}, "card": card}))
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"paths": {p: {k: v for k, v in r.items()
+                                  if k not in ("counts", "ids")}
+                              for p, r in paths.items()},
+                    "route_checks": rel, "card": card}))
+    log(json.dumps({"kernels": kern}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,13 +5,17 @@ main path's shapes on the card.
 
 Tolerances: f32 1e-4 relative to the output's scale (sums in another
 order), bf16 storage 2e-2 (one bf16 rounding of the output), mel 2e-3
-(the kernel's DFT against the FFT path)."""
+(the kernel's DFT against the FFT path).  The whole-call decode kernels
+(attention, MLP, router) chain several products and norms: f32 1e-4,
+bf16 5e-2 (a bf16 rounding at each stage, where a near tie may round or
+route a value the other way)."""
 
 import numpy as np
 import pytest
 import torch
 
-from asr_model_tpu_torch.ops.cuda import abby, attention, mel, sheath
+from asr_model_tpu_torch.ops.cuda import (abby, attention, mel, mlp, router,
+                                          sheath, xattn)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +91,106 @@ def test_sheath_kernel(dev, use_valid):
     assert _rel(got, want) < 1e-4
     assert act_g.tolist() == act_w.tolist()
     assert js_g.tolist() == js_w.tolist()
+
+
+def _tol(dtype):
+    return 1e-4 if dtype == torch.float32 else 5e-2
+
+
+def _rand(dev, seed, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return lambda *s, sc=1.0: (sc * torch.randn(*s, device=dev, generator=g)
+                               ).to(dtype)
+
+
+def _norm_w(r, n):
+    return {"n_w1": r(n, n, sc=n ** -0.5), "n_b1": r(n, sc=0.1),
+            "n_w2": r(3, n, sc=n ** -0.5), "n_b2": r(3, sc=0.1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_abby_tail_kernel(dev, dtype):
+    r = _rand(dev, 5, dtype)
+    for n, d in ((8 * 65, 512), (250, 2048)):
+        x, lg = r(n, d, sc=2.0), r(n, 3).float()
+        size = abby.window_size(d)
+        got = abby.fused_abby_tail(x, lg, size, 1e-4, 1.0, 0.75)
+        want = abby.abby_tail_plain(x, lg, size, 1e-4, 1.0, 0.75)
+        assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_mod", [1, 3])
+def test_router_kernel(dev, dtype, n_mod):
+    r = _rand(dev, 6, dtype)
+    d = 512
+    args = (r(8 * 65, d), r(3, n_mod * d, sc=d ** -0.5), r(3, sc=0.1),
+            r(3, n_mod * d, sc=d ** -0.5), r(3, sc=0.1), r(1), n_mod)
+    got = router.fused_router_same(*args)
+    want = router.router_same_plain(*args)
+    assert _rel(got, want) < _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [12, 8 * 65])
+def test_mlp_kernel(dev, dtype, n):
+    r = _rand(dev, 7, dtype)
+    d = 512
+    args = (r(n, d), tuple(_norm_w(r, d).values()), r(3, d, sc=d ** -0.5),
+            r(3, sc=0.1), [(r(d, d, sc=d ** -0.5), r(d, sc=0.1))
+                           for _ in range(3)],
+            r(3 * d, d, sc=d ** -0.5), r(3 * d, sc=0.1),
+            r(d, 3 * d, sc=(3 * d) ** -0.5), r(d, sc=0.1),
+            abby.window_size(d), 1e-4, 1.0, 0.75)
+    got = mlp.fused_mlp_residual(*args)
+    want = mlp.mlp_residual_plain(*args)
+    assert _rel(got, want) < _tol(dtype)
+
+
+def _attn_weights(r, d, heads):
+    wq = _norm_w(r, d) | {"proj_w": r(d, d, sc=d ** -0.5),
+                          "proj_b": r(d, sc=0.1)}
+    wkv = _norm_w(r, d) | {"proj_w": r(2 * d, d, sc=d ** -0.5),
+                           "proj_b": r(2 * d, sc=0.1)}
+    wo = {"proj_w": r(d, d, sc=d ** -0.5), "proj_b": r(d, sc=0.1)}
+    return wq, wkv, _norm_w(r, d // heads), wo
+
+
+def _freqs(dev, d, heads, causal):
+    from asr_model_tpu_torch.models.rotary import compute_freqs
+    return torch.from_numpy(compute_freqs(d, heads, causal)).to(dev)
+
+
+KW = dict(head=4, size_d=abby.window_size(512),
+          size_h=abby.window_size(128), alpha=1e-4, k=1.0, beta=0.75)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_attn_cached_kernel(dev, dtype, masked):
+    r = _rand(dev, 8, dtype)
+    wq, _, wh, wo = _attn_weights(r, 512, 4)
+    x, kn, v = r(3, 20, 512, sc=0.5), r(3, 4, 150, 128), r(3, 4, 150, 128)
+    valid = (torch.arange(150, device=dev)[None] < torch.tensor(
+        [[150], [70], [0]], device=dev)) if masked else None
+    args = (x, kn, v, valid, _freqs(dev, 512, 4, False), wq, wh, wo)
+    got = xattn.fused_attn_cached(*args, **KW)
+    want = xattn.attn_cached_plain(*args, **KW)
+    assert _rel(got, want) < _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,cross", [(False, False), (True, False),
+                                          (False, True)])
+def test_attn_full_kernel(dev, dtype, causal, cross):
+    r = _rand(dev, 9, dtype)
+    wq, wkv, wh, wo = _attn_weights(r, 512, 4)
+    x = r(3, 33, 512, sc=0.5)
+    ta = 47 if cross else 33
+    xa = r(3, ta, 512, sc=0.5) if cross else x
+    valid = torch.arange(ta, device=dev)[None] < torch.tensor(
+        [[ta], [17], [1]], device=dev)
+    args = (x, xa, valid, _freqs(dev, 512, 4, causal), wq, wkv, wh, wo)
+    got = xattn.fused_attn_full(*args, causal=causal, **KW)
+    want = xattn.attn_full_plain(*args, causal=causal, **KW)
+    assert _rel(got, want) < _tol(dtype)

@@ -14,7 +14,8 @@ import torch
 from asr_model_tpu_torch.config import Dimensions
 from asr_model_tpu_torch.models.model import Model
 from asr_model_tpu_torch.ops import cuda as kernels
-from asr_model_tpu_torch.ops.cuda import abby, attention, build, mel, sheath
+from asr_model_tpu_torch.ops.cuda import (abby, attention, build, mel, mlp,
+                                          router, sheath, xattn)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "asr_model_tpu")
@@ -45,7 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_every_kernel_source_is_built():
     names = {p.name for p in build.sources()}
-    assert names == {"abby.cu", "flash_attention.cu", "mel.cu", "sheath.cu"}
+    assert names == {"abby.cu", "flash_attention.cu", "mel.cu", "sheath.cu",
+                     "xattn.cu", "mlp.cu", "router.cu"}
     assert "-gencode" in build.CFLAGS and \
         "arch=compute_90a,code=sm_90a" in build.CFLAGS
     assert len(build.source_hash()) == 16
@@ -73,7 +75,12 @@ def test_model_needs_cuda_unless_cpu_is_asked():
 def _cpu_calls():
     rng = np.random.RandomState(1)
     t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
-    d = 16
+    d, D = 16, 256
+    norm = lambda n: {"n_w1": t(n, n), "n_b1": t(n), "n_w2": t(3, n),
+                      "n_b2": t(3)}
+    wq = norm(D) | {"proj_w": t(D, D), "proj_b": t(D)}
+    wkv = norm(D) | {"proj_w": t(2 * D, D), "proj_b": t(2 * D)}
+    wh, wo = norm(128), {"proj_w": t(D, D), "proj_b": t(D)}
     return {
         "mel_spectrogram": lambda: mel.mel_spectrogram(t(2, 1600), n_mels=8),
         "flash_attention": lambda: attention.flash_attention(
@@ -89,6 +96,20 @@ def _cpu_calls():
              "vmlp2_w": t(4, d // 2), "vmlp2_b": t(4), "vcat_w": t(4, 2),
              "vcat_b": t(4), "adapt_w": t(2, d, d), "adapt_b": t(2, d),
              "memgate_w": t(d), "memgate_b": t(1)}, 4, 0.3),
+        "fused_attn_cached": lambda: xattn.fused_attn_cached(
+            t(2, 3, D), t(2, 2, 5, 128), t(2, 2, 5, 128), None, t(64),
+            wq, wh, wo, 2, 13, 7, 1e-4, 1.0, 0.75),
+        "fused_attn_full": lambda: xattn.fused_attn_full(
+            t(2, 3, D), t(2, 4, D), None, t(64), wq, wkv, wh, wo, 2, 13, 7,
+            1e-4, 1.0, 0.75, False),
+        "fused_mlp_residual": lambda: mlp.fused_mlp_residual(
+            t(4, d), (t(d, d), t(d), t(3, d), t(3)), t(3, d), t(3),
+            [(t(d, d), t(d)) for _ in range(3)], t(3 * d, d), t(3 * d),
+            t(d, 3 * d), t(d), 3, 1e-4, 1.0, 0.75),
+        "fused_router_same": lambda: router.fused_router_same(
+            t(4, d), t(3, 3 * d), t(3), t(3, 3 * d), t(3), t(1), 3),
+        "fused_abby_tail": lambda: abby.fused_abby_tail(
+            t(4, d), t(4, 3), 3, 1e-4, 1.0, 0.75),
     }
 
 
