@@ -7,23 +7,54 @@
 // the input dtype.  Masking follows the JAX package's plain route
 // (attention._sdpa_xla): a masked logit is set to -1e30 -- it is not
 // dropped -- so a row whose keys are all masked averages V uniformly;
-// the causal mask is aligned bottom-right (key j is visible to query i
-// when j <= i + Tk - Tq); kv_valid is a (B, Tk) byte mask.
+// keys past Tk in the ragged last tile get zero weight; the causal mask
+// is aligned bottom-right (key j is visible to query i when j <= i + Tk
+// - Tq); kv_valid is a (B, Tk) byte mask.
 //
 // What bounds it: at the encoder shape (8, 4, 1001, 128) the two
-// products are 4 * B * H * Tq * Tk * hd = 16.4 GFLOP on 33 MB, i.e. ~500
-// operations per byte -- operations.  Design: one block per (b * h,
-// 64-query tile), looping over 32-key tiles in the block (the TPU's
-// sequential KV grid axis and its VMEM carry become a loop and
-// registers); Q stays in shared memory, K and V tiles are staged as f32,
-// each thread keeps 4 query rows x 8 channels of the output in
-// registers, and the 16 threads sharing a row reduce its max and sum
-// with warp shuffles.  The products run on the CUDA cores in f32; moving
-// them to tensor cores (wgmma) is the next step for this kernel.
+// products are 4 * B * H * Tq * Tk * hd = 16.4 GFLOP on 33 MB, ~500
+// operations per byte -- the tensor cores' rate; at the decode shapes
+// (65 queries against up to 1001 keys) reading K and V once -- bytes.
+//
+// bf16 (what the model runs): flash_tc_kernel, tensor cores through
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate; HMMA in the SASS) with
+// ldmatrix and cp.async -- not wgmma and TMA, which would need
+// cuTensorMapEncodeTiled (-lcuda) and a warp-specialised pipeline.  A block
+// is 4 warps (64 query rows) or, when Tq is 65..80, 5 warps (80 rows:
+// the decode width 65 in one tile), each warp owning 16 rows.  Q is read
+// once from device memory straight into A fragments in registers; 64-key
+// tiles of K and V come in through cp.async into a ring of 3 stages (4
+// for the 5-warp blocks), the next tiles' copies in flight while one is
+// multiplied, one barrier a tile.  S = Q K^T leaves the accumulator as
+// f32, is scaled by scale * log2(e) and masked, the running max and sum
+// stay in f32 registers (exp2f), and P is rounded to bf16 in registers,
+// straight into the A fragments of O += P V (V is read with
+// ldmatrix.trans); the row sum takes the f32 P, as the Pallas kernel
+// does (p.astype(v.dtype) only for the product).  Shared rows are padded
+// by 16 bytes so ldmatrix reads are free of bank conflicts; the head dim
+// is zero-padded to 64 or 128 (exact).  No register cap: 220 registers
+// and no spills fit two 4-warp blocks an SM, which measured faster than
+// three blocks at a 168-register cap with spills.  Causal key tiles
+// wholly above the diagonal are skipped unless a row of the query tile is
+// fully masked (then every key counts, as the -1e30 rule says).
+// Decode shapes give too few (batch * head, query tile) blocks for 132
+// SMs, so the wrapper may split the keys over `nsplit` blocks: each
+// writes its unnormalised O, max and sum to a workspace, and the last
+// block of a tile to finish (a counter, after __threadfence) merges
+// them in the same launch -- one launch per call either way.  (A
+// thread-block cluster merging over distributed shared memory measured
+// slower at the decode width 65: four one-per-SM blocks a cluster do not
+// all fit in one wave of the GPCs.)
+//
+// f32: flash_fwd_kernel keeps the CUDA cores.  TF32 would keep about
+// three digits, and the f32 route is held at 1e-4 (kernel tests) and at
+// 6e-5 of the largest logit (the first decode step), so the products
+// stay in full f32: one block per (b * h, 64-query tile) looping over
+// 32-key tiles, 4 rows x 8 channels of the output per thread.
 #include "common.cuh"
 
 constexpr int FA_BQ = 64;   // query rows per block
-constexpr int FA_BK = 32;   // keys per tile
+constexpr int FA_BK = 32;   // keys per tile (f32)
 constexpr int FA_HD = 128;  // largest head dim
 constexpr float FA_MASKED = -1e30f;
 
@@ -163,11 +194,444 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores
+typedef __nv_bfloat16 bf16;
+constexpr int TC_BK = 64;        // keys per tile
+constexpr int TC_MAX_SPLIT = 16;
+
+// warps a block (16 query rows each): 5 when Tq is 65..80, the decode
+// width 65 in one query tile; else 4 (64-row tiles)
+__host__ __device__ constexpr int tc_warps(int Tq) {
+  return Tq > 64 && Tq <= 80 ? 5 : 4;
+}
+
+// K/V ring stages: 3 for 4-warp blocks (two blocks an SM), 4 for the
+// 5-warp decode blocks (one an SM, so more tiles in flight each; 5
+// stages measured slower on the H100)
+__host__ __device__ constexpr int tc_stages(int warps) {
+  return warps == 5 ? 4 : 3;
+}
+
+__host__ __device__ constexpr int tc_lds(int hdp) { return hdp + 8; }
+
+__host__ __device__ constexpr size_t tc_smem_bytes(int hdp, int stages) {
+  // a K and a V tile (bf16, padded rows) and a key-state tile a stage
+  return (sizeof(bf16) * 2 * TC_BK * tc_lds(hdp) + TC_BK) * stages;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte async copy; `in` false fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// rows [0, 64) x channels [0, HDP) of a (rows_valid, hd) bf16 tile into
+// shared memory (row stride tc_lds(HDP)), zero past rows_valid and hd.
+// `vec`: hd % 8 == 0 and 16-byte aligned rows, so 16-byte async copies.
+template <int HDP, int NT>
+__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src,
+                                             int rows_valid, int hd,
+                                             bool vec) {
+  constexpr int CH = HDP / 8, LDS = tc_lds(HDP);
+  for (int e = threadIdx.x; e < TC_BK * CH; e += NT) {
+    const int r = e / CH, c = e % CH;
+    bf16* d = dst + r * LDS + c * 8;
+    if (vec) {
+      const bool in = r < rows_valid && c * 8 < hd;
+      cp_async16(d, in ? src + (size_t)r * hd + c * 8 : src, in);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = c * 8 + i;
+        d[i] = (r < rows_valid && col < hd) ? src[(size_t)r * hd + col]
+                                            : __float2bfloat16(0.0f);
+      }
+    }
+  }
+}
+
+// channels d and d + 1 of a bf16 Q row packed as one register of an A
+// fragment, zero for a row past Tq (`live` false) and past hd; `vec`: one
+// 4-byte load
+__device__ __forceinline__ uint32_t tc_q_pair(const bf16* qrow, bool live,
+                                              int d, int hd, bool vec) {
+  if (!live || d >= hd) return 0u;
+  if (vec) return *reinterpret_cast<const uint32_t*>(qrow + d);
+  const bf16 hi = d + 1 < hd ? qrow[d + 1] : __float2bfloat16(0.0f);
+  __nv_bfloat162 h;
+  h.x = qrow[d];
+  h.y = hi;
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// key states of a tile: 1 visible, 0 masked by kv_valid, 2 past Tk
+__device__ __forceinline__ void tc_load_state(uint8_t* dst,
+                                              const uint8_t* valid, int k0,
+                                              int Tk) {
+  const int t = threadIdx.x;
+  if (t < TC_BK) {
+    const int key = k0 + t;
+    dst[t] = key >= Tk ? 2 : (valid && !valid[key]) ? 0 : 1;
+  }
+}
+
+template <int HDP, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS, WARPS == 4 ? 2 : 1)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v,
+                const uint8_t* __restrict__ kv_valid, bf16* __restrict__ out,
+                float* __restrict__ part_o, float* __restrict__ part_ml,
+                int* __restrict__ counters, int H, int Tq, int Tk, int hd,
+                float scale_log2, int causal, int nsplit, int vec) {
+  constexpr int LDS = tc_lds(HDP), NKK = HDP / 16, NDT = HDP / 8;
+  constexpr int BQ = 16 * WARPS, NT = 32 * WARPS, NS = tc_stages(WARPS);
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(fa_smem);   // [NS][64][LDS]
+  bf16* vs = ks + NS * TC_BK * LDS;              // [NS][64][LDS]
+  uint8_t* st = reinterpret_cast<uint8_t*>(vs + NS * TC_BK * LDS);  // [NS][64]
+  __shared__ int s_red[WARPS];
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3, lm = lane >> 3, lr = lane & 7;
+  const int split = blockIdx.x, qt = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / H;
+  const int q0 = qt * BQ;
+  const int shift = Tk - Tq;  // bottom-right causal alignment
+  const bf16* qb = q + (size_t)bh * Tq * hd;
+  const bf16* kb = k + (size_t)bh * Tk * hd;
+  const bf16* vb = v + (size_t)bh * Tk * hd;
+  const uint8_t* valid = kv_valid ? kv_valid + (size_t)b * Tk : nullptr;
+  const int nkt = (Tk + TC_BK - 1) / TC_BK;
+
+  // the key tiles this query tile needs
+  int kt_end = nkt;
+  if (causal) {
+    int fv = 0;  // first visible key of the batch row
+    if (valid) {
+      int m = Tk;
+      for (int j = tid; j < Tk; j += NT)
+        if (valid[j]) { m = j; break; }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = min(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (lane == 0) s_red[warp] = m;
+      __syncthreads();
+      fv = s_red[0];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) fv = min(fv, s_red[w]);
+    }
+    // rows q0.. all see key fv: keys past the last row's diagonal carry
+    // exactly zero weight and their tiles can be skipped
+    if (fv <= q0 + shift) {
+      const int q_last = min(q0 + BQ - 1, Tq - 1);
+      kt_end = min(nkt, (q_last + shift) / TC_BK + 1);
+    }
+  }
+  const int per = (kt_end + nsplit - 1) / nsplit;
+  const int kt0 = split * per, kt1 = min(kt_end, kt0 + per);
+
+  // the ring: tile kt0 + i goes to stage i % NS, one commit group each
+  auto load_stage = [&](int it) {
+    const int k0 = it * TC_BK, sg = (it - kt0) % NS;
+    if (it < kt1) {
+      tc_load_tile<HDP, NT>(ks + sg * TC_BK * LDS, kb + (size_t)k0 * hd,
+                            Tk - k0, hd, vec);
+      tc_load_tile<HDP, NT>(vs + sg * TC_BK * LDS, vb + (size_t)k0 * hd,
+                            Tk - k0, hd, vec);
+      tc_load_state(st + sg * TC_BK, valid, k0, Tk);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) load_stage(kt0 + i);
+
+  float o[NDT][4];
+#pragma unroll
+  for (int i = 0; i < NDT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.0f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.0f, 0.0f};
+  const int row0 = q0 + warp * 16 + g;  // rows of c[0..1]; c[2..3]: + 8
+  // Q as A fragments, read once from device memory while the first K/V
+  // tile is in flight
+  uint32_t qf[NKK][4];
+  {
+    const bf16* r0p = qb + (size_t)row0 * hd;
+    const bf16* r1p = r0p + 8 * (size_t)hd;
+    const bool l0 = row0 < Tq, l1 = row0 + 8 < Tq;
+#pragma unroll
+    for (int kk = 0; kk < NKK; ++kk) {
+      const int d = kk * 16 + 2 * tg;
+      qf[kk][0] = tc_q_pair(r0p, l0, d, hd, vec);
+      qf[kk][1] = tc_q_pair(r1p, l1, d, hd, vec);
+      qf[kk][2] = tc_q_pair(r0p, l0, d + 8, hd, vec);
+      qf[kk][3] = tc_q_pair(r1p, l1, d + 8, hd, vec);
+    }
+  }
+
+  for (int it = kt0; it < kt1; ++it) {
+    const int buf = (it - kt0) % NS;
+    cp_async_wait<NS - 2>();  // this tile has landed
+    __syncthreads();          // ... for every thread; the last stage is free
+    load_stage(it + NS - 1);  // streams in while this tile runs
+    if (q0 + warp * 16 < Tq) {  // a warp past Tq only helps copy
+      // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
+      const bf16* kt = ks + buf * TC_BK * LDS;
+      float s[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < NKK; ++kk) {
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t r[4];
+          ldsm_x4(r, kt + (np * 16 + (lm >> 1) * 8 + lr) * LDS + kk * 16 +
+                         (lm & 1) * 8);
+          mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
+        }
+      }
+
+      // scale to log2 units and mask: -1e30 masked, -inf past Tk
+      const int k0 = it * TC_BK;
+      const uint8_t* kst = st + buf * TC_BK;
+      const bool need_mask = causal || valid || k0 + TC_BK > Tk;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nt][e] * scale_log2;
+          if (need_mask) {
+            const int kc = nt * 8 + 2 * tg + (e & 1);
+            const int row = row0 + (e >> 1) * 8;
+            const uint8_t ks_ = kst[kc];
+            if (ks_ == 2)
+              x = -INFINITY;
+            else if (ks_ == 0 || (causal && k0 + kc > row + shift))
+              x = FA_MASKED;
+          }
+          s[nt][e] = x;
+        }
+
+      // online softmax over the two rows this thread holds
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          mx = fmaxf(mx, fmaxf(s[nt][2 * hr], s[nt][2 * hr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_r[hr], mx);  // finite: key k0 exists
+        const float alpha = exp2f(m_r[hr] - m_new);
+        float sum = 0.0f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = exp2f(s[nt][2 * hr + c] - m_new);
+            s[nt][2 * hr + c] = p;
+            sum += p;
+          }
+        l_r[hr] = l_r[hr] * alpha + sum;  // this thread's columns only
+        m_r[hr] = m_new;
+#pragma unroll
+        for (int dt = 0; dt < NDT; ++dt) {
+          o[dt][2 * hr] *= alpha;
+          o[dt][2 * hr + 1] *= alpha;
+        }
+      }
+
+      // O += P V, P rounded to bf16 in the A fragments
+      const bf16* vt = vs + buf * TC_BK * LDS;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int dp = 0; dp < NKK; ++dp) {
+          uint32_t r[4];
+          ldsm_x4_t(r, vt + (kk * 16 + (lm & 1) * 8 + lr) * LDS + dp * 16 +
+                           (lm >> 1) * 8);
+          mma_bf16(o[2 * dp], a, r[0], r[1]);
+          mma_bf16(o[2 * dp + 1], a, r[2], r[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l_r[hr] += __shfl_xor_sync(0xffffffffu, l_r[hr], 1);
+    l_r[hr] += __shfl_xor_sync(0xffffffffu, l_r[hr], 2);
+  }
+
+  if (nsplit == 1) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      if (row >= Tq) continue;
+      const float inv = 1.0f / fmaxf(l_r[hr], 1e-30f);
+      bf16* orow = out + ((size_t)bh * Tq + row) * hd;
+#pragma unroll
+      for (int dt = 0; dt < NDT; ++dt) {
+        const int d = dt * 8 + 2 * tg;
+        if (d < hd) orow[d] = __float2bfloat16(o[dt][2 * hr] * inv);
+        if (d + 1 < hd) orow[d + 1] = __float2bfloat16(o[dt][2 * hr + 1] * inv);
+      }
+    }
+    return;
+  }
+
+  // split keys: write this block's unnormalised partial, then the last
+  // block of the (b * h, query tile) to finish merges every split
+  const size_t tile = (size_t)bh * gridDim.y + qt;
+  const size_t slot = tile * nsplit + split;
+  float* po = part_o + slot * BQ * HDP;
+  float* pml = part_ml + slot * BQ * 2;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = warp * 16 + g + 8 * hr;
+    if (q0 + r >= Tq) continue;
+#pragma unroll
+    for (int dt = 0; dt < NDT; ++dt) {
+      const int d = dt * 8 + 2 * tg;
+      if (d < hd)
+        *reinterpret_cast<float2*>(po + r * HDP + d) =
+            make_float2(o[dt][2 * hr], o[dt][2 * hr + 1]);
+    }
+    if (tg == 0) {
+      pml[2 * r] = m_r[hr];
+      pml[2 * r + 1] = l_r[hr];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&counters[tile], 1) == nsplit - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  const int rows = min(BQ, Tq - q0);
+  const float* po0 = part_o + tile * nsplit * BQ * HDP;
+  const float* pml0 = part_ml + tile * nsplit * BQ * 2;
+  float* coef = reinterpret_cast<float*>(fa_smem);  // [nsplit][BQ]
+  if (tid < rows) {
+    float mv[TC_MAX_SPLIT], lv[TC_MAX_SPLIT];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int sp = 0; sp < TC_MAX_SPLIT; ++sp)
+      if (sp < nsplit) {
+        mv[sp] = __ldcg(pml0 + (sp * BQ + tid) * 2);
+        lv[sp] = __ldcg(pml0 + (sp * BQ + tid) * 2 + 1);
+        mx = fmaxf(mx, mv[sp]);
+      }
+    float lsum = 0.0f;
+#pragma unroll
+    for (int sp = 0; sp < TC_MAX_SPLIT; ++sp)
+      if (sp < nsplit) {
+        mv[sp] = exp2f(mv[sp] - mx);
+        lsum += mv[sp] * lv[sp];
+      }
+    const float inv = 1.0f / fmaxf(lsum, 1e-30f);
+#pragma unroll
+    for (int sp = 0; sp < TC_MAX_SPLIT; ++sp)
+      if (sp < nsplit) coef[sp * BQ + tid] = mv[sp] * inv;
+  }
+  __syncthreads();
+  // each thread owns PER float4s of the tile; one split's loads are all
+  // in flight together
+  constexpr int C4 = HDP / 4, PER = (BQ * C4 + NT - 1) / NT;
+  float4 acc[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int sp = 0; sp < nsplit; ++sp) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + i * NT, r = e / C4, d = (e % C4) * 4;
+      if (r < rows && d < hd) {
+        const float c = coef[sp * BQ + r];
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(
+            po0 + ((size_t)sp * BQ + r) * HDP + d));
+        acc[i].x = fmaf(c, x.x, acc[i].x);
+        acc[i].y = fmaf(c, x.y, acc[i].y);
+        acc[i].z = fmaf(c, x.z, acc[i].z);
+        acc[i].w = fmaf(c, x.w, acc[i].w);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = tid + i * NT, r = e / C4, d = (e % C4) * 4;
+    if (r >= rows || d >= hd) continue;
+    bf16* orow = out + ((size_t)bh * Tq + q0 + r) * hd + d;
+    const float a4[4] = {acc[i].x, acc[i].y, acc[i].z, acc[i].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (d + j < hd) orow[j] = __float2bfloat16(a4[j]);
+  }
+  if (tid == 0) counters[tile] = 0;  // ready for the next call
+}
+
 template <typename T>
-static int launch_flash(const void* q, const void* k, const void* v,
-                        const void* kv_valid, void* out, int B, int H, int Tq,
-                        int Tk, int hd, float scale, int causal,
-                        cudaStream_t st) {
+static int launch_flash_f32(const void* q, const void* k, const void* v,
+                            const void* kv_valid, void* out, int B, int H,
+                            int Tq, int Tk, int hd, float scale, int causal,
+                            cudaStream_t st) {
   const int hdp = hd + 1;
   const size_t smem = sizeof(float) * ((FA_BQ + FA_BK) * hdp + FA_BK * hd +
                                        FA_BQ * (FA_BK + 1));
@@ -181,19 +645,59 @@ static int launch_flash(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <int HDP, int WARPS>
+static int launch_flash_tc(const void* q, const void* k, const void* v,
+                           const void* kv_valid, void* out, void* part_o,
+                           void* part_ml, void* counters, int B, int H,
+                           int Tq, int Tk, int hd, float scale, int causal,
+                           int nsplit, cudaStream_t st) {
+  const size_t smem = tc_smem_bytes(HDP, tc_stages(WARPS));
+  cudaFuncSetAttribute(flash_tc_kernel<HDP, WARPS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const bool vec = hd % 8 == 0 && ((uintptr_t)q | (uintptr_t)k |
+                                   (uintptr_t)v) % 16 == 0;
+  const dim3 grid(nsplit, (Tq + 16 * WARPS - 1) / (16 * WARPS), B * H);
+  flash_tc_kernel<HDP, WARPS><<<grid, 32 * WARPS, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v,
+      (const uint8_t*)kv_valid, (bf16*)out, (float*)part_o, (float*)part_ml,
+      (int*)counters, H, Tq, Tk, hd, scale * 1.4426950408889634f, causal,
+      nsplit, vec ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
 // q: (B, H, Tq, hd); k, v: (B, H, Tk, hd); out like q; kv_valid: (B, Tk)
 // bytes or null.  hd <= 128, Tk >= 1.  dtype 0 = f32, 1 = bf16.
+// bf16 only: nsplit (1..16) blocks share each (b * h, query tile)'s keys,
+// the query tile bq = 16 * tc_warps(Tq) rows; with nsplit > 1, part_o
+// holds B*H*ceil(Tq/bq)*nsplit*bq*hdp f32 (hdp = 64 for hd <= 64, else
+// 128), part_ml B*H*ceil(Tq/bq)*nsplit*bq*2 f32, and counters
+// B*H*ceil(Tq/bq) ints that are zero on entry (the kernel leaves them
+// zero).
 ASR_API int asr_flash_attention(int dtype, const void* q, const void* k,
                                 const void* v, const void* kv_valid,
-                                void* out, int B, int H, int Tq, int Tk,
-                                int hd, float scale, int causal,
+                                void* out, void* part_o, void* part_ml,
+                                void* counters, int B, int H, int Tq, int Tk,
+                                int hd, float scale, int causal, int nsplit,
                                 void* stream) {
   if (hd > FA_HD || hd < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || Tq == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ASR_F32)
-    return launch_flash<float>(q, k, v, kv_valid, out, B, H, Tq, Tk, hd,
-                               scale, causal, st);
-  return launch_flash<__nv_bfloat16>(q, k, v, kv_valid, out, B, H, Tq, Tk,
-                                     hd, scale, causal, st);
+    return launch_flash_f32<float>(q, k, v, kv_valid, out, B, H, Tq, Tk, hd,
+                                   scale, causal, st);
+  if (nsplit < 1 || nsplit > TC_MAX_SPLIT ||
+      (nsplit > 1 && (!part_o || !part_ml || !counters)))
+    return (int)cudaErrorInvalidValue;
+#define FA_TC(hdp, w)                                                      \
+  return launch_flash_tc<hdp, w>(q, k, v, kv_valid, out, part_o, part_ml,  \
+                                 counters, B, H, Tq, Tk, hd, scale, causal, \
+                                 nsplit, st)
+  if (tc_warps(Tq) == 5) {
+    if (hd <= 64) FA_TC(64, 5);
+    FA_TC(128, 5);
+  }
+  if (hd <= 64) FA_TC(64, 4);
+  FA_TC(128, 4);
+#undef FA_TC
 }

@@ -6,127 +6,284 @@
 //
 // For a (B, N) f32 batch: frames of n_fft samples at hop `hop` over the
 // centre zero-padded signal (frame t starts at sample t * hop - n_fft /
-// 2), the windowed DFT as two products against the Hann-windowed cos /
-// -sin bases (n_fft, F), power re^2 + im^2, and the (F, n_mels) HTK
-// filterbank: out (B, n_mels, T), T = 1 + N / hop.
+// 2), the periodic Hann window, the real FFT's power |X[k]|^2 for k = 0
+// .. n_fft / 2, and the HTK filterbank: out (B, n_mels, T), T = 1 + N /
+// hop.
 //
 // What bounds it: the function needs a real FFT, the power and the
-// filterbank, about 0.16 MFLOP per frame (1.3 GFLOP for 8 x 10 s) against
-// the audio read once and the mel written once -- operations, in f32.
-// This kernel does the DFT products instead, 4 * n_fft * F operations per
-// frame (2.1 MFLOP; 16.8 GFLOP for 8 x 10 s), about 13x the FFT's, so it
-// cannot come near that bound; a shared-memory FFT is the way there.
-// Design: one block per (32-frame tile,
-// utterance).  Frames are read straight from the waveform with the
-// hop-strided addressing the TPU kernel could not express (it framed the
-// signal in HBM first), 32 samples of 32 frames at a time into shared
-// memory; the bases stream through shared tiles from L2; each 64-bin
-// slice of the power spectrum lives only in shared memory before it is
-// folded into the block's (32, n_mels) mel accumulators in registers, so
-// the (T, F) spectrum never reaches device memory.  f32 on the CUDA
-// cores: the 2e-3 tolerance of the spectrum does not leave room for TF32.
+// filterbank's nonzero entries, about 60k operations per 1024-sample
+// frame, against the audio read once and the mel written once --
+// operations, in f32.  (The TPU kernel computed the windowed DFT as two
+// products, 13x the FFT's operations, to put it on the MXU.)
+// Design: one block per (16-frame tile, utterance).  The tile's span of
+// the waveform, 15 * hop + n_fft samples, is read once into shared
+// memory, zero outside the signal (the centred padding).  Each frame's
+// windowed n_fft reals are packed as M = n_fft / 2 complex values z[n] =
+// x[2n] + i x[2n + 1] and go through an M-point complex FFT in shared
+// memory: Stockham radix-8 stages (and one radix-2 or -4 stage when M is
+// not a power of 8), each thread holding the 8 points of its butterflies
+// in registers, M / 8 threads a frame, 2048 / M frames at a time.  The
+// real-FFT split X[k] = E[k] + W^k O[k] gives the M + 1 bins, and their
+// power goes to the frame's free ping-pong buffer (the buffers are padded
+// one complex value in 16 against bank conflicts).  The mel product runs
+// over each filter's nonzero band only (the wrapper's band table: first
+// bin, length, offset into packed weights; an HTK bin lies in at most
+// two triangles), two lanes a mel, each weight loaded once for all the
+// frames in flight.  The FFT size is a template parameter, so strides,
+// stages and loops are compile-time.  Twiddles W^k = exp(-2 pi i k / n_fft) come from a
+// table the wrapper makes in float64 and stores as f32.  The tile's (n_mels,
+// 16) outputs are staged in shared memory and written as runs of 16
+// consecutive frames of each mel row.  f32 on the CUDA cores: the power
+// spectrum's 2e-3 tolerance leaves no room for TF32.
 #include "common.cuh"
 
-constexpr int MEL_TF = 32;   // frames per block
-constexpr int MEL_FN = 64;   // frequency bins per slice
-constexpr int MEL_KC = 32;   // samples per chunk
+constexpr int MEL_TF = 16;        // frames per block
+constexpr int MEL_THREADS = 256;
 constexpr int MEL_MAXM = 128;
 
-__global__ void __launch_bounds__(256)
-mel_kernel(const float* __restrict__ audio, const float* __restrict__ wc,
-           const float* __restrict__ ws, const float* __restrict__ fb,
-           float* __restrict__ out, int N, int T, int hop, int n_fft, int F,
-           int n_mels) {
-  __shared__ float as[MEL_TF][MEL_KC + 1];
-  __shared__ float wct[MEL_KC][MEL_FN + 1];
-  __shared__ float wst[MEL_KC][MEL_FN + 1];
-  __shared__ float pw[MEL_TF][MEL_FN + 1];
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
 
-  const int t = threadIdx.x;
-  const int b = blockIdx.y;
-  const int f0t = blockIdx.x * MEL_TF;     // first frame of the tile
-  const float* x = audio + (size_t)b * N;
-  const int pad = n_fft / 2;
-
-  // DFT role: bin fc of the slice, frames 8 * fg .. + 7
-  const int fc = t % MEL_FN, fg = t / MEL_FN;
-  // mel role: mel bin mm, frames 16 * mh .. + 15
-  const int mm = t % MEL_MAXM, mh = t / MEL_MAXM;
-  float macc[16];
+// in-register R-point DFT (R = 2, 4, 8), natural order in and out:
+// radix-2 decimation-in-frequency layers, then the bit-reversal
+template <int R>
+__device__ __forceinline__ void dft_small(float2 (&v)[R]) {
+  const float c = 0.70710678118654752f;
+  const float w8r[4] = {1.0f, c, 0.0f, -c};    // exp(-2 pi i j / 8)
+  const float w8i[4] = {0.0f, -c, -1.0f, -c};
 #pragma unroll
-  for (int i = 0; i < 16; ++i) macc[i] = 0.0f;
-
-  for (int fs = 0; fs < F; fs += MEL_FN) {
-    float re[8], im[8];
+  for (int half = R / 2; half >= 1; half >>= 1) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) re[i] = im[i] = 0.0f;
-    for (int k0 = 0; k0 < n_fft; k0 += MEL_KC) {
+    for (int base = 0; base < R; base += 2 * half) {
 #pragma unroll
-      for (int e = 0; e < (MEL_TF * MEL_KC) / 256; ++e) {
-        const int idx = t + 256 * e;
-        const int fr = idx / MEL_KC, kk = idx % MEL_KC;
-        const int s = (f0t + fr) * hop + k0 + kk - pad;
-        as[fr][kk] =
-            (f0t + fr < T && k0 + kk < n_fft && s >= 0 && s < N) ? x[s] : 0.0f;
-      }
-#pragma unroll
-      for (int e = 0; e < (MEL_KC * MEL_FN) / 256; ++e) {
-        const int idx = t + 256 * e;
-        const int kk = idx / MEL_FN, ff = idx % MEL_FN;
-        const bool in = k0 + kk < n_fft && fs + ff < F;
-        const size_t off = (size_t)(k0 + kk) * F + fs + ff;
-        wct[kk][ff] = in ? wc[off] : 0.0f;
-        wst[kk][ff] = in ? ws[off] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < MEL_KC; ++kk) {
-        const float c = wct[kk][fc], sn = wst[kk][fc];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float a = as[8 * fg + i][kk];
-          re[i] = fmaf(a, c, re[i]);
-          im[i] = fmaf(a, sn, im[i]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) pw[8 * fg + i][fc] = re[i] * re[i] + im[i] * im[i];
-    __syncthreads();
-    if (mm < n_mels) {
-      const int fmax = min(MEL_FN, F - fs);
-      for (int ff = 0; ff < fmax; ++ff) {
-        const float w = fb[(size_t)(fs + ff) * n_mels + mm];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) macc[i] = fmaf(pw[16 * mh + i][ff], w, macc[i]);
+      for (int i = 0; i < half; ++i) {
+        const float2 a = v[base + i], b = v[base + i + half];
+        v[base + i] = make_float2(a.x + b.x, a.y + b.y);
+        const float2 d = make_float2(a.x - b.x, a.y - b.y);
+        const int j = i * (4 / half);             // W_{2 half}^i = W_8^j
+        v[base + i + half] = cmul(d, make_float2(w8r[j], w8i[j]));
       }
     }
-    __syncthreads();
   }
-
-  if (mm < n_mels) {
-    float* o = out + ((size_t)b * n_mels + mm) * T;
+  float2 t[R];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int fr = f0t + 16 * mh + i;
-      if (fr < T) o[fr] = macc[i];
-    }
+  for (int i = 0; i < R; ++i) t[i] = v[i];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    int r = 0;
+#pragma unroll
+    for (int bit = 1, rb = R / 2; bit < R; bit <<= 1, rb >>= 1)
+      if (i & bit) r |= rb;
+    v[r] = t[i];
   }
 }
 
-// audio: (B, N) f32; wc, ws: (n_fft, F) f32; fb: (F, n_mels) f32;
-// out: (B, n_mels, T) f32 with T = 1 + N / hop.  n_mels <= 128.
-ASR_API int asr_mel_spectrogram(const void* audio, const void* wc,
-                                const void* ws, const void* fb, void* out,
-                                int B, int N, int hop, int n_fft, int F,
-                                int n_mels, void* stream) {
-  if (n_mels > MEL_MAXM || n_mels < 1) return (int)cudaErrorInvalidValue;
+// Shared FFT buffers are padded by one complex value every 16, so the
+// stride-R stores of a stage spread over the banks.
+__device__ __forceinline__ int pad16(int i) { return i + (i >> 4); }
+
+// Stockham stages of an m-point FFT: radix 8 while 8 divides what is
+// left, then one of radix 2 or 4
+__host__ __device__ constexpr int fft_stage_count(int m) {
+  return m <= 1 ? 0 : 1 + fft_stage_count(m >= 8 ? m / 8 : 1);
+}
+
+template <int NFFT>
+struct MelShape {
+  static constexpr int M = NFFT / 2;                  // complex points
+  static constexpr int TPF = M / 8;                   // threads a frame
+  static constexpr int FC =                           // frames at a time
+      MEL_THREADS / TPF < MEL_TF ? MEL_THREADS / TPF : MEL_TF;
+  static constexpr int BUF = M + M / 16;              // padded buffer
+  static constexpr int STAGES = fft_stage_count(M);
+};
+
+// one Stockham stage of radix R over M points (NS: the size of the
+// transforms already done); tw[k] = exp(-2 pi i k / (2 M))
+template <int M, int R, int NS>
+__device__ __forceinline__ void fft_stage(const float2* src, float2* dst,
+                                          int tf,
+                                          const float2* __restrict__ tw) {
+  constexpr int TPF = M / 8;
+#pragma unroll
+  for (int q = 0; q < 8 / R; ++q) {
+    const int j = tf + q * TPF;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = src[pad16(j + r * (M / R))];
+    const int kq = j & (NS - 1);
+    if (NS > 1) {
+      const int step = 2 * kq * (M / (NS * R));  // W_M^(r kq M/(NS R))
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], __ldg(&tw[r * step]));
+    }
+    dft_small<R>(v);
+    const int d = (j - kq) * R + kq;
+#pragma unroll
+    for (int r = 0; r < R; ++r) dst[pad16(d + r * NS)] = v[r];
+  }
+}
+
+// the stages from NS on (as fft_stage_count counts them); src ends on
+// the transform, dst on the free buffer
+template <int M, int NS>
+__device__ __forceinline__ void fft_stages(float2*& src, float2*& dst,
+                                           int tf, bool act,
+                                           const float2* __restrict__ tw) {
+  if constexpr (NS < M) {
+    constexpr int R = M / NS >= 8 ? 8 : M / NS;
+    __syncthreads();
+    if (act) fft_stage<M, R, NS>(src, dst, tf, tw);
+    float2* t = src;
+    src = dst;
+    dst = t;
+    fft_stages<M, NS * R>(src, dst, tf, act, tw);
+  }
+}
+
+template <int NFFT>
+__host__ __device__ constexpr size_t mel_smem_floats(int hop, int n_mels) {
+  return (size_t)MelShape<NFFT>::FC * 4 * MelShape<NFFT>::BUF  // ping-pong
+         + (size_t)n_mels * MEL_TF                              // output
+         + (size_t)(MEL_TF - 1) * hop + NFFT;                   // waveform
+}
+
+template <int NFFT>
+__global__ void __launch_bounds__(MEL_THREADS, 3)
+mel_fft_kernel(const float* __restrict__ audio, const float* __restrict__ win,
+               const float2* __restrict__ tw, const int* __restrict__ band,
+               const float* __restrict__ bw, float* __restrict__ out, int N,
+               int T, int hop, int n_mels) {
+  using S = MelShape<NFFT>;
+  constexpr int M = S::M, TPF = S::TPF, FC = S::FC, BUF = S::BUF;
+  extern __shared__ __align__(16) float msm[];
+  float2* fbuf = reinterpret_cast<float2*>(msm);   // [FC][2][BUF]
+  float* outs = msm + (size_t)FC * 4 * BUF;        // [n_mels][TF]
+  float* wave = outs + n_mels * MEL_TF;            // [span]
+  const int span = (MEL_TF - 1) * hop + NFFT;
+
+  const int t = threadIdx.x, b = blockIdx.y;
+  const int f0t = blockIdx.x * MEL_TF;
+  const float* x = audio + (size_t)b * N;
+  const long long start = (long long)f0t * hop - NFFT / 2;
+  for (int i = t; i < span; i += MEL_THREADS) {
+    const long long s = start + i;
+    wave[i] = (s >= 0 && s < N) ? x[s] : 0.0f;
+  }
+
+  const int slot = t / TPF, tf = t % TPF;
+  const bool act = slot < FC;
+  float2* b0 = fbuf + (size_t)(act ? slot : 0) * 2 * BUF;
+  // the buffer that ends up free (the power goes there)
+  constexpr int PW_OFF = (S::STAGES & 1) ? 0 : BUF;
+
+  for (int f0 = 0; f0 < MEL_TF; f0 += FC) {
+    __syncthreads();  // waveform in; the previous round's power consumed
+    if (act) {
+      const float* w = wave + (f0 + slot) * hop;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int n = tf + q * TPF;
+        b0[pad16(n)] = make_float2(w[2 * n] * __ldg(&win[2 * n]),
+                                   w[2 * n + 1] * __ldg(&win[2 * n + 1]));
+      }
+    }
+    float2 *src = b0, *dst = b0 + BUF;
+    fft_stages<M, 1>(src, dst, tf, act, tw);
+    __syncthreads();
+    if (act) {
+      // real-FFT split: E = (Z[k] + conj Z[M-k]) / 2, O = (Z[k] - conj
+      // Z[M-k]) / 2i, X[k] = E + W^k O, for k = 0 .. M
+      float* pw = reinterpret_cast<float*>(dst);
+      for (int k = tf; k <= M; k += TPF) {
+        const float2 zk = src[pad16(k & (M - 1))];
+        const float2 zm = src[pad16((M - k) & (M - 1))];
+        const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+        const float2 o = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+        const float2 wo = cmul(__ldg(&tw[k]), o);
+        const float re = e.x + wo.x, im = e.y + wo.y;
+        pw[k] = re * re + im * im;
+      }
+    }
+    __syncthreads();
+    // mel product over each filter's band: lanes 2m and 2m + 1 take the
+    // two halves of mel m's bins for every frame of the round (one
+    // weight load per bin), summed by one shuffle in a fixed order
+    {
+      const int m = t >> 1, half = t & 1;
+      int lo = 0, n = 0, off = 0;
+      if (m < n_mels) {
+        lo = __ldg(&band[3 * m]);
+        const int len = __ldg(&band[3 * m + 1]), h = (len + 1) / 2;
+        off = __ldg(&band[3 * m + 2]) + (half ? h : 0);
+        lo += half ? h : 0;
+        n = half ? len - h : h;
+      }
+      float acc[FC];
+#pragma unroll
+      for (int sl = 0; sl < FC; ++sl) acc[sl] = 0.0f;
+      const float* pw0 = reinterpret_cast<const float*>(fbuf + PW_OFF);
+      for (int i = 0; i < n; ++i) {
+        const float w = __ldg(&bw[off + i]);
+#pragma unroll
+        for (int sl = 0; sl < FC; ++sl)
+          acc[sl] = fmaf(pw0[sl * 4 * BUF + lo + i], w, acc[sl]);
+      }
+#pragma unroll
+      for (int sl = 0; sl < FC; ++sl) {
+        const float other = __shfl_xor_sync(0xffffffffu, acc[sl], 1);
+        if (!half && m < n_mels && f0 + sl < MEL_TF)
+          outs[m * MEL_TF + f0 + sl] = acc[sl] + other;
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = t; e < n_mels * MEL_TF; e += MEL_THREADS) {
+    const int m = e / MEL_TF, f = e % MEL_TF;
+    if (f0t + f < T) out[((size_t)b * n_mels + m) * T + f0t + f] = outs[e];
+  }
+}
+
+template <int NFFT>
+static int launch_mel(const void* audio, const void* win, const void* tw,
+                      const void* band, const void* bw, void* out, int B,
+                      int N, int T, int hop, int n_mels, cudaStream_t st) {
+  const size_t smem = sizeof(float) * mel_smem_floats<NFFT>(hop, n_mels);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(mel_fft_kernel<NFFT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const dim3 grid((T + MEL_TF - 1) / MEL_TF, B);
+  mel_fft_kernel<NFFT><<<grid, MEL_THREADS, smem, st>>>(
+      (const float*)audio, (const float*)win, (const float2*)tw,
+      (const int*)band, (const float*)bw, (float*)out, N, T, hop, n_mels);
+  return (int)cudaGetLastError();
+}
+
+// audio: (B, N) f32; win: (n_fft,) f32 Hann window; tw: (n_fft,) complex
+// f32 exp(-2 pi i k / n_fft); band: (n_mels, 3) int32 (first bin, length,
+// offset into bw); bw: the filters' nonzero weights, packed; out: (B,
+// n_mels, T) f32 with T = 1 + N / hop.  n_fft a power of two, 64..4096;
+// 1 <= n_mels <= 128.
+ASR_API int asr_mel_spectrogram(const void* audio, const void* win,
+                                const void* tw, const void* band,
+                                const void* bw, void* out, int B, int N,
+                                int hop, int n_fft, int n_mels,
+                                void* stream) {
+  if (n_mels > MEL_MAXM || n_mels < 1 || hop < 1)
+    return (int)cudaErrorInvalidValue;
   const int T = 1 + N / hop;
   if (B == 0) return 0;
-  const dim3 grid((T + MEL_TF - 1) / MEL_TF, B);
-  mel_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)audio, (const float*)wc, (const float*)ws,
-      (const float*)fb, (float*)out, N, T, hop, n_fft, F, n_mels);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n_fft) {
+#define MEL_CASE(n)                                                        \
+  case n:                                                                  \
+    return launch_mel<n>(audio, win, tw, band, bw, out, B, N, T, hop,      \
+                         n_mels, st);
+    MEL_CASE(64) MEL_CASE(128) MEL_CASE(256) MEL_CASE(512) MEL_CASE(1024)
+    MEL_CASE(2048) MEL_CASE(4096)
+#undef MEL_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

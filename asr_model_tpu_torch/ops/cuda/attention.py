@@ -6,14 +6,19 @@ On the card every ``sdpa`` call of the port goes here, decode shapes
 included (the TPU gate admitted only Tq, Tk >= 128).  The masking is the
 JAX package's plain route (``attention._sdpa_xla``): masked logits are
 -1e30, so a fully masked row is the uniform mean of V, and the causal
-mask is aligned bottom-right.  At the encoder shape the kernel is bound
-by operations (~500 per byte); this first version runs the products on
-the CUDA cores in f32, one block per (batch * head, 64-query tile),
-looping over 32-key tiles with the running max / sum in registers.
+mask is aligned bottom-right.  bf16 runs on the tensor cores
+(``mma.sync``, 64- or 80-query x 64-key tiles, a 3-4 stage cp.async
+ring, P rounded to bf16 for the PV product as the Pallas kernel does);
+when a call has too few (batch * head, query tile) blocks to fill the
+card, the keys are split over ``splits`` blocks whose partials the last
+one merges in the same launch (a workspace per call, tile counters per
+device).  f32 stays on the CUDA cores in full f32 (TF32 would not hold
+the f32 route's 1e-4).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -46,8 +51,55 @@ attention_plain.calls = 0
 
 def _launch():
     return B.function("asr_flash_attention",
-                      [B.I, B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I, B.I, B.I,
-                       B.F, B.I, B.P])
+                      [B.I, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I,
+                       B.I, B.I, B.I, B.F, B.I, B.I, B.P])
+
+
+TILE = 64          # keys per tile of the bf16 kernel
+MAX_SPLIT = 16
+MIN_SPLIT_TILES = 4
+
+
+def q_tile(tq: int) -> int:
+    """Query rows per block of the bf16 kernel (``tc_warps`` in the
+    source): 80 when Tq is 65..80, the decode width 65 in one tile; else
+    64."""
+    return 80 if 64 < tq <= 80 else 64
+
+
+def splits(bh: int, tq: int, tk: int, sms: int) -> int:
+    """Key splits of the bf16 kernel: 1 when the (batch * head, query
+    tile) blocks fill the card's ``sms`` SMs; else enough for the blocks
+    an SM holds (two of 64 rows, one of 80), with at least 4 key tiles a
+    split (a split's start and its share of the merge cost about as much
+    as a few tiles, measured on the H100), at most 16."""
+    bq = q_tile(tq)
+    blocks = bh * -(-tq // bq)
+    nkt = -(-tk // TILE)
+    if blocks >= sms:
+        return 1
+    per_sm = 2 if bq == 64 else 1
+    n = max(1, min(MAX_SPLIT, nkt // MIN_SPLIT_TILES,
+                   -(-per_sm * sms // blocks)))
+    return -(-nkt // -(-nkt // n))      # no split left without a tile
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device, n: int):
+    """Zeroed tile counters of the split merge, one buffer per device,
+    grown as needed (the kernel leaves them zero)."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
@@ -80,9 +132,21 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
             f"{q.dtype}")
     code = B.dtype_code(q.dtype)
     out = torch.empty_like(q)
+    nsplit, part_o, part_ml, counters, ws = 1, None, None, None, None
+    if code == 1:
+        nsplit = splits(b * h, tq, tk, _sm_count(q.device.index or 0))
+    if nsplit > 1:
+        bq = q_tile(tq)
+        tiles = b * h * -(-tq // bq)
+        hdp = 64 if hd <= 64 else 128
+        ws, (part_o, part_ml) = B.workspace(
+            q.device, [4 * tiles * nsplit * bq * hdp,
+                       4 * tiles * nsplit * bq * 2])
+        counters = _counters(q.device, tiles).data_ptr()
     rc = _launch()(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   B.ptr(kv_valid), out.data_ptr(), b, h, tq, tk, hd,
-                   float(scale), int(bool(causal)), B.stream_of(q))
+                   B.ptr(kv_valid), out.data_ptr(), part_o, part_ml,
+                   counters, b, h, tq, tk, hd,
+                   float(scale), int(bool(causal)), nsplit, B.stream_of(q))
     B.check(rc, "asr_flash_attention")
     flash_attention.launches += 1 if b * h * tq else 0
     return out

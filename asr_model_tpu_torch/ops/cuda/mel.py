@@ -4,13 +4,14 @@ PyTorch version.
 Replaces ``asr_model_tpu/ops/pallas/mel_kernel.py:pallas_mel_spectrogram``
 (the fused frame / window / DFT / power / mel Pallas kernel).  The
 function is bound by its f32 operations: a real FFT, the power and the
-filterbank, about 160k per 1024-sample frame.  This kernel computes the
-windowed DFT as the TPU kernel did, 4 * n_fft * (n_fft/2 + 1) operations
-per frame, about 13x what an FFT needs, and so runs far above that
-bound.  It reads frames straight from the waveform at the hop stride
-(no framed copy in device memory) and keeps the power spectrum in
-shared memory, so only the waveform and the mel output cross device
-memory.  See the source for the design.
+filterbank's nonzero entries.  The TPU kernel computed the windowed DFT
+as two products (13x the FFT's operations) to use the MXU; this kernel
+does the real FFT in shared memory instead (a half-length complex
+Stockham FFT and the real split), reads frames straight from the
+waveform at the hop stride, and takes the mel product over each
+filter's nonzero band (``mel_bands``).  Only the waveform and the mel
+output cross device memory.  The kernel takes ``n_fft`` a power of two
+from 64 to 4096 and ``n_mels <= 128``.  See the source for the design.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ _DEVICE_CONSTS: dict = {}
 @functools.lru_cache(maxsize=4)
 def dft_bases(n_fft: int):
     """Hann-windowed DFT bases (n_fft, n_fft//2 + 1), float32: the cos
-    and -sin halves of the real DFT with the window folded in."""
+    and -sin halves of the real DFT with the window folded in -- the
+    TPU kernel's operands (the CUDA kernel takes an FFT instead)."""
     from asr_model_tpu_torch.ops.mel import hann_window
     n_freqs = n_fft // 2 + 1
     k = np.arange(n_fft)[:, None].astype(np.float64)
@@ -39,16 +41,37 @@ def dft_bases(n_fft: int):
             (-np.sin(ang) * w).astype(np.float32))
 
 
+def fft_twiddles(n_fft: int) -> np.ndarray:
+    """(n_fft, 2) float32: exp(-2 pi i k / n_fft) for k < n_fft, made in
+    float64 (real, imaginary)."""
+    w = np.exp(-2j * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft)
+    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
+def mel_bands(fb: np.ndarray):
+    """The (F, n_mels) filterbank as the kernel's band table: (n_mels, 3)
+    int32 rows (first nonzero bin, band length, offset into the weights)
+    and the bands' weights packed in mel order, float32."""
+    rows, weights, off = [], [], 0
+    for m in range(fb.shape[1]):
+        nz = np.flatnonzero(fb[:, m])
+        lo, n = (int(nz[0]), int(nz[-1] - nz[0] + 1)) if nz.size else (0, 0)
+        rows.append((lo, n, off))
+        weights.append(fb[lo:lo + n, m])
+        off += n
+    return (np.asarray(rows, dtype=np.int32),
+            np.concatenate(weights).astype(np.float32))
+
+
 def _consts(device, sample_rate, n_fft, n_mels, f_min, f_max):
-    from asr_model_tpu_torch.ops.mel import mel_filterbank
+    from asr_model_tpu_torch.ops.mel import hann_window, mel_filterbank
     key = (str(device), sample_rate, n_fft, n_mels, f_min, f_max)
     if key not in _DEVICE_CONSTS:
-        wc, ws = dft_bases(n_fft)
-        fb = mel_filterbank(n_fft // 2 + 1, f_min, f_max, n_mels,
-                            sample_rate)
+        band, bw = mel_bands(mel_filterbank(n_fft // 2 + 1, f_min, f_max,
+                                            n_mels, sample_rate))
         _DEVICE_CONSTS[key] = tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (wc, ws, fb))
+            for a in (hann_window(n_fft), fft_twiddles(n_fft), band, bw))
     return _DEVICE_CONSTS[key]
 
 
@@ -72,7 +95,7 @@ mel_spectrogram_plain.calls = 0
 
 def _launch():
     return B.function("asr_mel_spectrogram",
-                      [B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I, B.I, B.I, B.I,
+                      [B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I, B.I, B.I,
                        B.P])
 
 
@@ -93,17 +116,19 @@ def mel_spectrogram(audio, sample_rate: int = 16000, n_fft: int = 1024,
         raise ValueError("mel_spectrogram kernel takes contiguous (B, N) "
                          f"float32 audio, got {tuple(audio.shape)} "
                          f"{audio.dtype}")
-    if not 1 <= n_mels <= 128 or n_fft % 32:
+    if not 1 <= n_mels <= 128 or not 64 <= n_fft <= 4096 \
+            or n_fft & (n_fft - 1):
         raise ValueError("mel_spectrogram kernel takes n_mels <= 128 and "
-                         "n_fft a multiple of 32")
-    wc, ws, fb = _consts(audio.device, sample_rate, n_fft, n_mels, f_min,
-                         f_max)
+                         f"n_fft a power of two in 64..4096, got n_mels "
+                         f"{n_mels}, n_fft {n_fft}")
+    win, tw, band, bw = _consts(audio.device, sample_rate, n_fft, n_mels,
+                                f_min, f_max)
     b, n = audio.shape
     out = torch.empty(b, n_mels, 1 + n // hop_length, device=audio.device,
                       dtype=torch.float32)
-    rc = _launch()(audio.data_ptr(), wc.data_ptr(), ws.data_ptr(),
-                   fb.data_ptr(), out.data_ptr(), b, n, hop_length, n_fft,
-                   n_fft // 2 + 1, n_mels, B.stream_of(audio))
+    rc = _launch()(audio.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                   band.data_ptr(), bw.data_ptr(), out.data_ptr(), b, n,
+                   hop_length, n_fft, n_mels, B.stream_of(audio))
     B.check(rc, "asr_mel_spectrogram")
     mel_spectrogram.launches += 1 if b else 0
     return out

@@ -8,7 +8,10 @@
 2. Holds each kernel against its plain PyTorch version on the card at
    the shapes of the decode paths, with the tolerance stated beside it,
    and times kernel, plain version and (where one PyTorch call computes
-   the same function) that call.
+   the same function) that call, each as device time (``cuda_ms``); for
+   the mel and flash kernels also the achieved TFLOP/s and the share of
+   the bound, and (where the toolkit has ``cuobjdump``) the tensor-core
+   instructions in the bf16 flash kernels.
 3. Drives the two decode paths at the flagship config (40k vocab, 512
    dims, 4 heads, 4 layers, bf16, the same seeded random weights): 8 x
    10 s synthetic tones -> log-mel + YIN pitch + frame-rate waveform ->
@@ -48,6 +51,9 @@ DEV = "cuda"
 BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
 F32_PEAK = 67e12          # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12         # H100 SXM device-memory bytes/s
+SLEEP_HZ = 2.0e9          # torch.cuda._sleep cycles a second: at or above
+                          # the H100's SM clock, so a sleep lasts at least
+                          # the time asked
 
 FAILURES: list = []
 
@@ -70,12 +76,21 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per call of ``fn``: the calls are enqueued while the
+    device waits behind a sleep kernel long enough to cover their host
+    time, so the events between them time the device work alone, not
+    the host's launch rate (a call whose host time is longer than its
+    kernels' would otherwise time the host)."""
     import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / warmup
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(max(5e-3, 2.0 * host_s * iters) * SLEEP_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -88,6 +103,39 @@ def bound_ms(flops: float, nbytes: float, peak: float):
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rates(flops: float, ms: float, b_ms: float) -> dict:
+    """Achieved TFLOP/s of the operations the function needs, and the
+    share of the bound reached (bound ms / ms)."""
+    return dict(tflops=flops / (ms * 1e-3) / 1e12, bound_share=b_ms / ms)
+
+
+def sass_mma_counts(lib):
+    """Tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in each
+    bf16 flash kernel of the built library, from ``cuobjdump -sass``;
+    None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    from asr_model_tpu_torch.ops.cuda.build import nvcc_path
+    exe = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    exe = exe if os.path.exists(exe) else shutil.which("cuobjdump")
+    if exe is None:
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_tc_kernelILi(\d+)ELi(\d+)E", line)
+            fn = f"flash_tc_kernel<{m.group(1)}, {m.group(2)}>" if m else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for ins in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{ins}\.", line):
+                    counts[fn][ins] += 1
+    return counts
 
 
 def nbytes(*ts) -> int:
@@ -136,9 +184,12 @@ def check_kernels(model):
     got = mel.mel_spectrogram(audio)
     want = mel.mel_spectrogram_plain(audio)
     err = (got - want).abs()
-    ok = bool((err <= 2e-3 + 2e-3 * want.abs()).all())
+    top = float(want.abs().max())
+    ok = bool((err <= 4e-6 * want.abs() + 1.2e-6 * top).all())
     check(ok, f"mel_spectrogram (8, 160000): max abs err {float(err.max()):.3e}"
-              " (tolerance |err| <= 2e-3 + 2e-3 |plain|, the FFT path)")
+              f" = {float(err.max()) / top:.2e} max|plain| (tolerance |err| <="
+              " 4e-6 |plain| + 1.2e-6 max|plain|: f32 FFTs in two orders, "
+              "about twice the readings of 5.8e-7 and 1.7e-6)")
     window = torch.hann_window(1024, device=dev)
     fb = torch.from_numpy(mel_filterbank(513, 50.0, 8000.0, 128)).to(dev)
 
@@ -148,19 +199,21 @@ def check_kernels(model):
         return torch.einsum("bft,fm->bmt", s.real ** 2 + s.imag ** 2, fb)
 
     # what the function needs: per frame a real FFT (~2.5 n log2 n), the
-    # power and the filterbank; the audio read once, the mel written once
+    # power and the filterbank's nonzero entries; the audio read once,
+    # the mel written once
     T = got.shape[-1]
-    flops = BATCH * T * (2.5 * 1024 * 10 + 3 * 513 + 2.0 * 513 * 128)
+    nnz = int(np.count_nonzero(fb.cpu().numpy()))
+    flops = BATCH * T * (2.5 * 1024 * 10 + 3 * 513 + 2.0 * nnz)
     b_ms, b_by = bound_ms(flops, nbytes(audio, got), F32_PEAK)
+    ms = cuda_ms(lambda: mel.mel_spectrogram(audio))
     out.append(dict(
         name="mel_spectrogram", route="cuda",
         source="asr_model_tpu_torch/csrc/mel.cu",
         replaces="asr_model_tpu/ops/pallas/mel_kernel.py:119",
-        max_abs_err=float(err.max()),
-        ms=cuda_ms(lambda: mel.mel_spectrogram(audio)),
+        max_abs_err=float(err.max()), ms=ms,
         plain_ms=cuda_ms(lambda: mel.mel_spectrogram_plain(audio)),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_mel),
-        shape="audio (8, 160000) f32"))
+        **rates(flops, ms, b_ms), shape="audio (8, 160000) f32"))
 
     # ---- flash attention, bf16: encoder, decode self, cached cross
     H, hd = 4, 128
@@ -181,14 +234,16 @@ def check_kernels(model):
         got = attention.flash_attention(q, k, v, causal, valid)
         want = attention.attention_plain(q.float(), k.float(), v.float(),
                                          causal, valid)
-        e, bad, rows = close_rows(got, want, 8e-3, 2e-3, hd)
-        check(bad == 0, f"flash_attention {label}: max abs err {e:.3e}, "
-              f"{bad}/{rows} rows out (tolerance 8e-3 |plain| + 2e-3 "
-              "max|plain|: one bf16 rounding of the output)")
+        e, bad, rows = close_rows(got, want, 0.0, 5e-3, hd)
+        check(bad == 0, f"flash_attention {label}: max abs err {e:.3e} = "
+              f"{e / float(want.abs().max()):.2e} max|plain|, {bad}/{rows} "
+              "rows out (tolerance 5e-3 max|plain|: the softmax weights and "
+              "the output rounded to bf16; about twice the largest reading, "
+              "2.6e-3)")
         pairs = tq * tk if not causal else sum(
             min(tk, i + 1 + tk - tq) for i in range(tq))
-        b_ms, b_by = bound_ms(4.0 * BATCH * H * pairs * hd,
-                              nbytes(q, k, v, got, valid), BF16_PEAK)
+        flops = 4.0 * BATCH * H * pairs * hd
+        b_ms, b_by = bound_ms(flops, nbytes(q, k, v, got, valid), BF16_PEAK)
         mask = None
         if causal or masked:
             mask = torch.ones(BATCH, 1, tq, tk, dtype=torch.bool, device=dev)
@@ -197,15 +252,15 @@ def check_kernels(model):
                                          device=dev).tril(tk - tq)
             if masked:
                 mask = mask & valid[:, None, None, :]
+        ms = cuda_ms(lambda: attention.flash_attention(q, k, v, causal,
+                                                       valid))
         entries.append(dict(
-            shape=label, max_abs_err=e,
-            ms=cuda_ms(lambda: attention.flash_attention(q, k, v, causal,
-                                                         valid)),
+            shape=label, max_abs_err=e, ms=ms,
             plain_ms=cuda_ms(lambda: attention.attention_plain(
                 q, k, v, causal, valid)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask))))
+                q, k, v, attn_mask=mask)), **rates(flops, ms, b_ms)))
     out.append(dict(name="flash_attention", route="cuda",
                     source="asr_model_tpu_torch/csrc/flash_attention.cu",
                     replaces="asr_model_tpu/ops/pallas/attention_kernel.py:156",
@@ -744,6 +799,12 @@ def main() -> int:
     build.library()
     log(f"built {os.path.relpath(lib, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    mma = sass_mma_counts(lib)
+    log("tensor-core instructions in the bf16 flash kernels (cuobjdump "
+        f"-sass): {json.dumps(mma) if mma is not None else 'no cuobjdump'}")
+    if mma is not None:
+        check(all(c["HGMMA"] + c["HMMA"] > 0 for c in mma.values())
+              and len(mma) > 0, "bf16 flash kernels run on the tensor cores")
 
     audio = torch.from_numpy(tones(BATCH, UTT_SEC)).to(DEV)
     model, fused = flagship(False), flagship(True)

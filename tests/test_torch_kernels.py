@@ -4,8 +4,9 @@ they skip.  ``python3 chip_smoke.py`` runs the same comparisons at the
 main path's shapes on the card.
 
 Tolerances: f32 1e-4 relative to the output's scale (sums in another
-order), bf16 storage 2e-2 (one bf16 rounding of the output), mel 2e-3
-(the kernel's DFT against the FFT path).  The whole-call decode kernels
+order), bf16 storage 2e-2 (one bf16 rounding of the output, and of the softmax
+weights before the PV product in flash), mel 2e-3 (the kernel's f32
+shared-memory FFT against torch's FFT path).  The whole-call decode kernels
 (attention, MLP, router) chain several products and norms: f32 1e-4,
 bf16 5e-2 (a bf16 rounding at each stage, where a near tie may round or
 route a value the other way)."""
@@ -32,26 +33,61 @@ def _rel(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
 
 
-def test_mel_kernel(dev):
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("shape", [(2, 160000), (3, 16000)])
+def test_mel_kernel(dev, shape, n_mels):
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(3, 16000, device=dev, generator=g)
-    got = mel.mel_spectrogram(x, n_mels=128)
-    want = mel.mel_spectrogram_plain(x, n_mels=128)
+    x = torch.randn(*shape, device=dev, generator=g)
+    got = mel.mel_spectrogram(x, n_mels=n_mels)
+    want = mel.mel_spectrogram_plain(x, n_mels=n_mels)
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("n_fft", [64, 256, 2048, 4096])
+def test_mel_kernel_fft_sizes(dev, n_fft):
+    """Every stage mix of the FFT: M = n_fft / 2 = 32 (8 x 4), 128 (8 x 8
+    x 2), 1024 (8^3 x 2), 2048 (8^3 x 4)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(2, 8000, device=dev, generator=g)
+    kw = dict(n_fft=n_fft, hop_length=n_fft // 4, n_mels=40)
+    got = mel.mel_spectrogram(x, **kw)
+    want = mel.mel_spectrogram_plain(x, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+def test_mel_kernel_refuses_other_n_fft(dev):
+    x = torch.zeros(1, 16000, device=dev)
+    with pytest.raises(ValueError):
+        mel.mel_spectrogram(x, n_fft=1000)
+
+
+# (B, H, Tq, Tk, hd, causal, valid keys per batch row (0: a fully masked
+# row), or None for no kv_valid)
+FLASH_CASES = {
+    "self_100": (2, 2, 100, 100, 128, False, [100, 50]),
+    "causal_65": (2, 2, 65, 65, 128, True, [65, 32]),
+    "cross_65x300": (2, 2, 65, 300, 128, False, [300, 150]),
+    "causal_9x40_masked_row": (2, 2, 9, 40, 128, True, [40, 0]),
+    "self_1001": (1, 4, 1001, 1001, 128, False, None),
+    "cross_65x1001_masked_row": (2, 4, 65, 1001, 128, False, [1001, 0]),
+    "causal_65x300": (2, 2, 65, 300, 128, True, [300, 150]),
+    "hd64": (2, 2, 100, 130, 64, False, [130, 70]),
+    "hd80_causal": (2, 2, 100, 130, 80, True, None),
+    "tk_ragged": (3, 2, 70, 77, 128, False, [77, 40, 1]),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,tq,tk", [(False, 100, 100), (True, 65, 65),
-                                          (False, 65, 300), (True, 9, 40)])
-def test_flash_kernel(dev, dtype, causal, tq, tk):
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel(dev, dtype, case):
+    b, h, tq, tk, hd, causal, lens = FLASH_CASES[case]
     g = torch.Generator(device=dev).manual_seed(1)
-    q = torch.randn(2, 2, tq, 128, device=dev, generator=g).to(dtype)
-    k = torch.randn(2, 2, tk, 128, device=dev, generator=g).to(dtype)
-    v = torch.randn(2, 2, tk, 128, device=dev, generator=g).to(dtype)
-    valid = torch.arange(tk, device=dev)[None] < torch.tensor(
-        [[tk], [tk // 2]], device=dev)
-    if tq == 9:
-        valid[1] = False                    # fully masked rows
+    q, k, v = (torch.randn(b, h, t, hd, device=dev, generator=g).to(dtype)
+               for t in (tq, tk, tk))
+    valid = None
+    if lens is not None:
+        valid = torch.arange(tk, device=dev)[None] < torch.tensor(
+            lens, device=dev)[:, None]
     got = attention.flash_attention(q, k, v, causal=causal, kv_valid=valid)
     want = attention.attention_plain(q.float(), k.float(), v.float(),
                                      causal=causal, kv_valid=valid)

@@ -66,6 +66,32 @@ def test_dft_bases_match_pallas_kernel():
         np.testing.assert_array_equal(ours, theirs)
 
 
+@pytest.mark.parametrize("n_fft,n_mels", [(1024, 128), (1024, 80),
+                                          (64, 40)])
+def test_mel_band_table_reproduces_dense_filterbank(n_fft, n_mels):
+    """The kernel's band table (first bin, length, offset, packed
+    weights) gives the dense (F, n_mels) product within 1e-6."""
+    fb = mel.mel_filterbank(n_fft // 2 + 1, 50.0, 8000.0, n_mels)
+    band, w = kmel.mel_bands(fb)
+    assert band.shape == (n_mels, 3) and band.dtype == np.int32
+    assert w.size == band[:, 1].sum() >= np.count_nonzero(fb)
+    power = np.random.RandomState(2).rand(7, fb.shape[0]) * 1e3
+    dense = power.astype(np.float64) @ fb.astype(np.float64)
+    got = np.stack([power[:, lo:lo + n] @ w[off:off + n].astype(np.float64)
+                    for lo, n, off in band], axis=1)
+    np.testing.assert_allclose(got, dense, rtol=1e-6,
+                               atol=1e-6 * np.abs(dense).max())
+
+
+@pytest.mark.parametrize("n_fft", [64, 1024, 4096])
+def test_fft_twiddles_match_numpy(n_fft):
+    tw = kmel.fft_twiddles(n_fft)
+    assert tw.shape == (n_fft, 2) and tw.dtype == np.float32
+    want = np.exp(-2j * np.pi * np.arange(n_fft) / n_fft)
+    np.testing.assert_allclose(tw[:, 0] + 1j * tw[:, 1], want, rtol=0,
+                               atol=6e-8)
+
+
 def test_log_mel_per_utterance_matches_jax(audio2):
     """(B, N) input: Whisper compression with a per-utterance max, as
     bench.py's vmap over utterances computes it."""

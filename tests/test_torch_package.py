@@ -133,6 +133,23 @@ def test_wrapper_refuses_other_devices():
     assert kernels.counts()["flash_attention"]["plain_calls"] == 0
 
 
+@pytest.mark.parametrize("bh,tq,tk,want", [
+    (32, 1001, 1001, 1),      # encoder: 512 blocks fill 132 SMs
+    (32, 65, 1001, 4),        # decode cached cross: 32 blocks, 16 key tiles
+    (32, 65, 65, 1),          # decode self: 2 key tiles, under 4 a split
+    (4, 9, 40, 1),            # one key tile: nothing to split
+    (8, 64, 64 * 20, 5),      # 4 key tiles a split
+    (1, 64, 64 * 80, 16),     # at most 16, evened: 16 x 5 tiles
+])
+def test_flash_key_splits(bh, tq, tk, want):
+    n = attention.splits(bh, tq, tk, 132)
+    assert n == want
+    nkt = -(-tk // attention.TILE)
+    per = -(-nkt // n)
+    assert (n - 1) * per < nkt          # every split has a key tile
+    assert n == 1 or per >= attention.MIN_SPLIT_TILES
+
+
 def test_mel_wrapper_shapes_on_cpu():
     a = torch.zeros(1600)
     assert mel.mel_spectrogram(a[None], n_mels=8).shape == (1, 8, 11)
