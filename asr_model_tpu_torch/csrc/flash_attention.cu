@@ -201,7 +201,9 @@ constexpr int TC_BK = 64;        // keys per tile
 constexpr int TC_MAX_SPLIT = 16;
 
 // warps a block (16 query rows each): 5 when Tq is 65..80, the decode
-// width 65 in one query tile; else 4 (64-row tiles)
+// width 65 in one query tile; else 4 (64-row tiles).  On the H100 the
+// 80-row tile read 0.0187 ms at the width-65 cached cross against 0.024
+// for two 64-row tiles (asr_model_tpu_torch/bench_flash.py)
 __host__ __device__ constexpr int tc_warps(int Tq) {
   return Tq > 64 && Tq <= 80 ? 5 : 4;
 }
@@ -673,7 +675,7 @@ static int launch_flash_tc(const void* q, const void* k, const void* v,
 // holds B*H*ceil(Tq/bq)*nsplit*bq*hdp f32 (hdp = 64 for hd <= 64, else
 // 128), part_ml B*H*ceil(Tq/bq)*nsplit*bq*2 f32, and counters
 // B*H*ceil(Tq/bq) ints that are zero on entry (the kernel leaves them
-// zero).
+// zero; calls that share counters must run in order, on one stream).
 ASR_API int asr_flash_attention(int dtype, const void* q, const void* k,
                                 const void* v, const void* kv_valid,
                                 void* out, void* part_o, void* part_ml,

@@ -12,8 +12,8 @@ ring, P rounded to bf16 for the PV product as the Pallas kernel does);
 when a call has too few (batch * head, query tile) blocks to fill the
 card, the keys are split over ``splits`` blocks whose partials the last
 one merges in the same launch (a workspace per call, tile counters per
-device).  f32 stays on the CUDA cores in full f32 (TF32 would not hold
-the f32 route's 1e-4).
+device and stream).  f32 stays on the CUDA cores in full f32 (TF32 would
+not hold the f32 route's 1e-4).
 """
 
 from __future__ import annotations
@@ -87,13 +87,15 @@ def splits(bh: int, tq: int, tk: int, sms: int) -> int:
 _COUNTERS: dict = {}
 
 
-def _counters(device, n: int):
-    """Zeroed tile counters of the split merge, one buffer per device,
-    grown as needed (the kernel leaves them zero)."""
-    buf = _COUNTERS.get(device)
+def _counters(device, stream: int, n: int):
+    """Zeroed tile counters of the split merge, grown as needed (the
+    kernel leaves them zero).  One buffer per (device, stream): calls on
+    one stream run in order and may share it; calls on two streams at
+    once must not."""
+    buf = _COUNTERS.get((device, stream))
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
+        _COUNTERS[(device, stream)] = buf
     return buf
 
 
@@ -106,7 +108,9 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
                     scale: float | None = None):
     """(B, H, Tq, hd) x (B, H, Tk, hd) -> (B, H, Tq, hd); ``kv_valid``
     (B, Tk) bool.  The flash kernel on CUDA tensors (f32 or bf16,
-    hd <= 128), the plain version on CPU tensors."""
+    hd <= 128), on the current stream, the plain version on CPU tensors.
+    The split merge's tile counters are kept per stream, so calls on
+    two streams may run at once."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -132,6 +136,7 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
             f"{q.dtype}")
     code = B.dtype_code(q.dtype)
     out = torch.empty_like(q)
+    stream = B.stream_of(q)
     nsplit, part_o, part_ml, counters, ws = 1, None, None, None, None
     if code == 1:
         nsplit = splits(b * h, tq, tk, _sm_count(q.device.index or 0))
@@ -142,11 +147,11 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
         ws, (part_o, part_ml) = B.workspace(
             q.device, [4 * tiles * nsplit * bq * hdp,
                        4 * tiles * nsplit * bq * 2])
-        counters = _counters(q.device, tiles).data_ptr()
+        counters = _counters(q.device, stream, tiles).data_ptr()
     rc = _launch()(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    B.ptr(kv_valid), out.data_ptr(), part_o, part_ml,
                    counters, b, h, tq, tk, hd,
-                   float(scale), int(bool(causal)), nsplit, B.stream_of(q))
+                   float(scale), int(bool(causal)), nsplit, stream)
     B.check(rc, "asr_flash_attention")
     flash_attention.launches += 1 if b * h * tq else 0
     return out

@@ -16,29 +16,12 @@ from 64 to 4096 and ``n_mels <= 128``.  See the source for the design.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from asr_model_tpu_torch.ops.cuda import build as B
 
 _DEVICE_CONSTS: dict = {}
-
-
-@functools.lru_cache(maxsize=4)
-def dft_bases(n_fft: int):
-    """Hann-windowed DFT bases (n_fft, n_fft//2 + 1), float32: the cos
-    and -sin halves of the real DFT with the window folded in -- the
-    TPU kernel's operands (the CUDA kernel takes an FFT instead)."""
-    from asr_model_tpu_torch.ops.mel import hann_window
-    n_freqs = n_fft // 2 + 1
-    k = np.arange(n_fft)[:, None].astype(np.float64)
-    f = np.arange(n_freqs)[None, :].astype(np.float64)
-    ang = 2.0 * np.pi * k * f / n_fft
-    w = hann_window(n_fft).astype(np.float64)[:, None]
-    return ((np.cos(ang) * w).astype(np.float32),
-            (-np.sin(ang) * w).astype(np.float32))
 
 
 def fft_twiddles(n_fft: int) -> np.ndarray:

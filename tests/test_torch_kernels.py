@@ -74,6 +74,9 @@ FLASH_CASES = {
     "hd64": (2, 2, 100, 130, 64, False, [130, 70]),
     "hd80_causal": (2, 2, 100, 130, 80, True, None),
     "tk_ragged": (3, 2, 70, 77, 128, False, [77, 40, 1]),
+    # Tq under one 64-row query tile, keys split over blocks and merged
+    "cross_9x1001_split_masked_row": (2, 4, 9, 1001, 128, False, [600, 0]),
+    "causal_33x700_split": (2, 2, 33, 700, 128, True, [700, 350]),
 }
 
 

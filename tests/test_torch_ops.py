@@ -60,10 +60,20 @@ def test_plain_mel_matches_pallas_kernel(audio2):
         np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
 
 
-def test_dft_bases_match_pallas_kernel():
+@pytest.mark.parametrize("n_fft", [64, 1024])
+def test_dft_bases_match_pallas_kernel(n_fft):
+    """The CUDA kernel's window and twiddle table give the Pallas kernel's
+    windowed DFT bases (cos and -sin halves) within f32 rounding."""
     from asr_model_tpu.ops.pallas.mel_kernel import _dft_bases
-    for ours, theirs in zip(kmel.dft_bases(64), _dft_bases(64)):
-        np.testing.assert_array_equal(ours, theirs)
+    wc, ws = _dft_bases(n_fft)
+    tw = kmel.fft_twiddles(n_fft)
+    k = np.arange(n_fft)[:, None]
+    f = np.arange(n_fft // 2 + 1)[None, :]
+    w = mel.hann_window(n_fft)[:, None]
+    np.testing.assert_allclose(w * tw[k * f % n_fft, 0], wc, rtol=0,
+                               atol=1.2e-7)
+    np.testing.assert_allclose(w * tw[k * f % n_fft, 1], ws, rtol=0,
+                               atol=1.2e-7)
 
 
 @pytest.mark.parametrize("n_fft,n_mels", [(1024, 128), (1024, 80),

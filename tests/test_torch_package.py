@@ -136,6 +136,7 @@ def test_wrapper_refuses_other_devices():
 @pytest.mark.parametrize("bh,tq,tk,want", [
     (32, 1001, 1001, 1),      # encoder: 512 blocks fill 132 SMs
     (32, 65, 1001, 4),        # decode cached cross: 32 blocks, 16 key tiles
+    (32, 9, 1001, 4),         # the first bucket's width: 32 blocks
     (32, 65, 65, 1),          # decode self: 2 key tiles, under 4 a split
     (4, 9, 40, 1),            # one key tile: nothing to split
     (8, 64, 64 * 20, 5),      # 4 key tiles a split
