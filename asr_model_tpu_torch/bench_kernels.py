@@ -1,0 +1,174 @@
+#!/usr/bin/env python3
+"""Device time of the port's decode-path kernels at every prefix-bucket
+width, on one GPU, for one checkout of the package.
+
+    python3 asr_model_tpu_torch/bench_kernels.py [--root DIR] [--repeats 5]
+        [--only flash,abby,sheath]
+
+At every decode width w (9, 17, ..., 65; 8 utterances, the flagship's 512
+channels, 4 heads of 128) and at encoder length (1001 frames), each
+held against its plain version:
+- flash: bf16 ``flash_attention`` against the cached cross K/V of a
+  1001-frame encoding, and the self causal call at width 65 with a
+  kv_valid mask, beside ``F.scaled_dot_product_attention``;
+- abby: bf16 ``fused_abby`` at (8 w, 512), the per-head norms at
+  (8 * 4 * w, 128), and the encoder's (8 * 1001, 512);
+- sheath: ``fused_sheath_scan`` of a seeded bf16 flagship MSheath (D
+  512, M 64, 4 slots) over bf16 x at (8 w, 512) with a kv-style valid
+  mask, and at (8 * 1001, 512) without one.
+Times are device time (chip_smoke.py's ``cuda_ms``), the median of
+``--repeats`` readings of 20 calls.  ``--root`` names the checkout whose
+package is timed (default: this one), so that two versions of a kernel
+can be compared in one call on one card: run A, B, B, A.  Prints one
+line per shape and, last, one JSON object.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WIDTHS = list(range(9, 66, 8))
+
+
+def _median_ms(fn, repeats):
+    import numpy as np
+    from chip_smoke import cuda_ms
+    runs = [cuda_ms(fn, iters=20) for _ in range(repeats)]
+    return float(np.median(runs)), runs
+
+
+def bench_flash(dev, repeats, rows):
+    import torch
+    import torch.nn.functional as F
+    from asr_model_tpu_torch.ops.cuda import attention
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, h, hd, tk_enc = 8, 4, 128, 1001
+    rnd = lambda t: torch.randn(b, h, t, hd, device=dev,
+                                generator=g).bfloat16()
+    k_enc, v_enc = rnd(tk_enc), rnd(tk_enc)
+    shapes = [(f"cached cross ({b},{h},{w},{hd})x({b},{h},{tk_enc},{hd})",
+               w, False) for w in WIDTHS]
+    shapes.append((f"self causal ({b},{h},65,{hd}) + kv_valid", 65, True))
+    for label, tq, causal in shapes:
+        q = rnd(tq)
+        k, v = (rnd(tq), rnd(tq)) if causal else (k_enc, v_enc)
+        tk = k.shape[2]
+        valid, mask = None, None
+        if causal:
+            lens = torch.arange(b, device=dev) * 3 + 40
+            valid = torch.arange(tk, device=dev)[None] < lens[:, None]
+            mask = (torch.ones(tq, tk, dtype=torch.bool, device=dev)
+                    .tril(tk - tq)[None, None] & valid[:, None, None, :])
+        got = attention.flash_attention(q, k, v, causal, valid)
+        want = attention.attention_plain(q.float(), k.float(), v.float(),
+                                         causal, valid)
+        err = float((got.float() - want).abs().max() / want.abs().max())
+        ms, runs = _median_ms(lambda: attention.flash_attention(
+            q, k, v, causal, valid), repeats)
+        sdpa, sdpa_runs = _median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), repeats)
+        rows.append(dict(kernel="flash_attention", shape=label,
+                         splits=attention.splits(b * h, tq, tk, sms),
+                         err_over_max=err, ms=ms, ms_runs=runs,
+                         sdpa_ms=sdpa, sdpa_runs=sdpa_runs))
+        print(f"flash {label}: {ms:.4f} ms ({rows[-1]['splits']} split(s)), "
+              f"SDPA {sdpa:.4f} ms, max err {err:.2e} max|plain|",
+              flush=True)
+
+
+def bench_abby(dev, repeats, rows):
+    import torch
+    from asr_model_tpu_torch.ops.cuda import abby
+    g = torch.Generator(device=dev).manual_seed(1)
+    shapes = [(8 * w, 512) for w in WIDTHS] + \
+        [(8 * 4 * w, 128) for w in WIDTHS] + [(8 * 1001, 512)]
+    for n, d in shapes:
+        r = lambda *s, sc=1.0: (sc * torch.randn(*s, device=dev, generator=g)
+                                ).bfloat16()
+        args = (r(n, d, sc=2.0), r(d, d, sc=d ** -0.5), r(d, sc=0.1),
+                r(3, d, sc=d ** -0.5), r(3, sc=0.1), abby.window_size(d),
+                1e-4, 1.0, 0.75)
+        got, want = abby.fused_abby(*args), abby.abby_plain(*args)
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        ms, runs = _median_ms(lambda: abby.fused_abby(*args), repeats)
+        rows.append(dict(kernel="fused_abby", shape=f"({n}, {d}) bf16",
+                         err_over_max=err, ms=ms, ms_runs=runs))
+        print(f"abby ({n}, {d}) bf16: {ms:.4f} ms, max err {err:.2e} "
+              "max|plain|", flush=True)
+
+
+def bench_sheath(dev, repeats, rows):
+    import torch
+    from asr_model_tpu_torch.models.sheath import MSheath, masked_mean
+    from asr_model_tpu_torch.models.tlayers import reset_all
+    from asr_model_tpu_torch.ops.cuda import sheath
+    m = MSheath(512, 4, 4, device=dev)
+    reset_all(m, torch.Generator(device=dev).manual_seed(2))
+    m = m.to(torch.bfloat16)
+    w = m.scan_weights()
+    sw = {k: w[k] for k in sheath.WEIGHT_NAMES}
+    g = torch.Generator(device=dev).manual_seed(3)
+    for ctx in WIDTHS + [1001]:
+        x = torch.randn(8, ctx, 512, device=dev, generator=g).bfloat16()
+        valid = None
+        if ctx < 1001:
+            valid = (torch.arange(ctx, device=dev)[None]
+                     < torch.arange(8, device=dev)[:, None] + ctx - 8)
+        pooled = masked_mean(x, valid, dim=1)[:, 0]
+        sampled = torch.argmax(m.pnet(pooled).mean(0)).to(torch.int32)
+        args = (x.reshape(-1, 512), 8, valid, w["mem0"], sampled,
+                w["jump_s"], sw, 4, m.thresh)
+        got, act, _ = sheath.fused_sheath_scan(*args)
+        want, act_p, _ = sheath.sheath_scan_plain(*args)
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        ms, runs = _median_ms(lambda: sheath.fused_sheath_scan(*args),
+                              repeats)
+        label = f"(8*{ctx}, 512) bf16" + (" + valid" if valid is not None
+                                          else "")
+        rows.append(dict(kernel="fused_sheath_scan", shape=label,
+                         actions=act.tolist(),
+                         actions_match=act.tolist() == act_p.tolist(),
+                         err_over_max=err, ms=ms, ms_runs=runs))
+        print(f"sheath {label}: {ms:.4f} ms, actions {act.tolist()} "
+              f"(plain {act_p.tolist()}), max err {err:.2e} max|plain|",
+              flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--only", default="flash,abby,sheath")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    # run as a script, sys.path[0] is this package's directory: the
+    # checkout under test (and this one, for chip_smoke) take its place
+    sys.path[0:1] = [root, ROOT]
+
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import card_line
+    import asr_model_tpu_torch
+    assert os.path.abspath(asr_model_tpu_torch.__file__).startswith(root)
+
+    dev = torch.device("cuda")
+    rows: list = []
+    benches = {"flash": bench_flash, "abby": bench_abby,
+               "sheath": bench_sheath}
+    for name in args.only.split(","):
+        benches[name](dev, args.repeats, rows)
+    print(json.dumps({"root": root, "card": card_line(), "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

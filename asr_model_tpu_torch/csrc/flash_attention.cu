@@ -51,7 +51,7 @@
 // 6e-5 of the largest logit (the first decode step), so the products
 // stay in full f32: one block per (b * h, 64-query tile) looping over
 // 32-key tiles, 4 rows x 8 channels of the output per thread.
-#include "common.cuh"
+#include "mma.cuh"
 
 constexpr int FA_BQ = 64;   // query rows per block
 constexpr int FA_BK = 32;   // keys per tile (f32)
@@ -196,7 +196,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------
 // bf16 on the tensor cores
-typedef __nv_bfloat16 bf16;
 constexpr int TC_BK = 64;        // keys per tile
 constexpr int TC_MAX_SPLIT = 16;
 
@@ -220,58 +219,6 @@ __host__ __device__ constexpr int tc_lds(int hdp) { return hdp + 8; }
 __host__ __device__ constexpr size_t tc_smem_bytes(int hdp, int stages) {
   // a K and a V tile (bf16, padded rows) and a key-state tile a stage
   return (sizeof(bf16) * 2 * TC_BK * tc_lds(hdp) + TC_BK) * stages;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte async copy; `in` false fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // rows [0, 64) x channels [0, HDP) of a (rows_valid, hd) bf16 tile into

@@ -6,14 +6,13 @@ Replaces ``asr_model_tpu/ops/pallas/abby_kernel.py:fused_abby``, and with
 file's ``fused_abby_tail``.  Every
 eval AbbyNormal call of the port on a CUDA tensor goes through the
 kernel, at every row count (the TPU's size gate is gone).  The router
-product (2 * N * D * D operations) bounds it; the kernel keeps each
-16-row tile in shared memory from load to store and runs the two
-sliding windows as a stencil over the shared row, so x is read and
-written once.  Arithmetic after the router product is f32; the output
-is cast back to x's dtype.  At decode widths the card would idle with
-one block per row tile, so the router product is also split over
-64-column slices (one launch), and a second launch sums the slices'
-partial logits in a fixed order and runs the tail.
+product (2 * N * D * D operations) bounds it.  One launch a call: a
+thread-block cluster per 32-row tile, one CTA per 64-column slice of the
+router (``launch_plan``), the bf16 product on the tensor cores; the
+slices' partial logits meet in distributed shared memory, summed in a
+fixed order, and each CTA runs the tail on its share of the tile's rows
+(x read and written once).  Arithmetic after the router product is f32;
+the output is cast back to x's dtype.
 """
 
 from __future__ import annotations
@@ -73,23 +72,44 @@ def abby_plain(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
 abby_plain.calls = 0
 
 
+ROWS = 32               # rows of a cluster's tile (abby.cu AB_ROWS)
+MAX_TAPS = 51           # widest window: window_size(1024)
+
+
+def launch_plan(n: int, d: int, dtype) -> dict:
+    """What ``abby.cu`` launches for (n, d) rows of ``dtype``: the
+    columns of the router each CTA owns, the CTAs of a cluster (one row
+    tile), the tiles, and the dynamic shared memory of a CTA in bytes
+    (the formula of ``abby_smem_bytes``)."""
+    cols = 64 if d <= 512 else 128
+    cluster = -(-d // cols)
+    if dtype == torch.bfloat16:
+        smem = 2 * (ROWS + 64) * (64 * -(-d // 64) + 8)
+    else:
+        smem = 4 * (ROWS * d + 32 * 65)
+    smem += 4 * ((ROWS + 4) * cols + (ROWS + 8) * 3 + 2 * ROWS)
+    return dict(cols=cols, cluster=cluster, tiles=-(-n // ROWS),
+                rows=ROWS, smem=smem)
+
+
 def _launch():
     return B.function("asr_fused_abby",
-                      [B.I, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I,
+                      [B.I, B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I,
                        B.F, B.F, B.F, B.P])
 
 
 def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
                beta: float):
     """The whole eval AbbyNormal over the rows of x2 (N, D): the kernel
-    on CUDA tensors (f32 or bf16, weights in x2's dtype, D <= 1024), the
-    plain version on CPU tensors."""
+    on CUDA tensors (f32 or bf16, weights in x2's dtype, D <= 1024, N <=
+    65535 * 32, size <= 51), the plain version on CPU tensors."""
     if x2.device.type == "cpu":
         return abby_plain(x2, w1, b1, w2, b2, size, alpha, k, beta)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_abby: unsupported device {x2.device}")
     n, d = x2.shape
-    ok = (x2.dim() == 2 and 2 <= d <= 1024 and w1.shape == (d, d)
+    ok = (x2.dim() == 2 and 2 <= d <= 1024 and n <= 65535 * ROWS
+          and 1 <= size <= MAX_TAPS and w1.shape == (d, d)
           and b1.shape == (d,) and w2.shape == (3, d) and b2.shape == (3,)
           and all(t.dtype == x2.dtype and t.is_contiguous()
                   and t.device == x2.device
@@ -97,20 +117,18 @@ def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
     if not ok:
         raise ValueError(
             "fused_abby kernel takes contiguous (N, D<=1024) x with "
-            "(D, D), (D,), (3, D), (3,) weights of its dtype and device; "
+            "(D, D), (D,), (3, D), (3,) weights of its dtype and device and "
+            f"a window of at most {MAX_TAPS}; "
             f"got x {tuple(x2.shape)} {x2.dtype}, w1 {tuple(w1.shape)} "
             f"{w1.dtype}")
     code = B.dtype_code(x2.dtype)
     out = torch.empty_like(x2)
-    plog = torch.empty(-(-d // 64), n, 3, device=x2.device,
-                       dtype=torch.float32)
     rc = _launch()(code, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                   w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                   plog.data_ptr(), n, d,
+                   w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, d,
                    int(size), float(alpha), float(k), float(beta),
                    B.stream_of(x2))
     B.check(rc, "asr_fused_abby")
-    fused_abby.launches += 2 if n else 0      # abby_router, abby_tail
+    fused_abby.launches += 1 if n else 0      # abby_cluster_kernel
     return out
 
 
@@ -138,8 +156,8 @@ def fused_abby_tail(x2, logits, size: int, alpha: float, k: float,
                     beta: float):
     """Replaces ``abby_kernel.py:fused_abby_tail``: the eval AbbyNormal
     tail of x2 (N, D) on precomputed router logits (N, 3).  The kernel is
-    ``abby.cu``'s second launch run alone (one slice of f32 logits, no
-    bias), on CUDA tensors (f32 or bf16, D <= 4096); the plain version
+    ``abby.cu``'s ``abby_tail`` (one warp a row, on f32 logits, no bias),
+    on CUDA tensors (f32 or bf16, D <= 4096); the plain version
     on CPU tensors."""
     if x2.device.type == "cpu":
         return abby_tail_plain(x2, logits, size, alpha, k, beta)

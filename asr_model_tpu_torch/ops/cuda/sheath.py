@@ -6,11 +6,15 @@ At encoder length the per-slot row products are bound by operations;
 every slot also needs two reductions over all rows (the per-batch
 masked mean for the working memory, the global masked mean of ion for
 the forced skip) before the next slot can start.  The card runs it as
-a fixed sequence of launches per scan step that read the slot index
-and the step's action from device memory, so the host never waits;
-the reductions read the validity mask directly instead of the TPU
-program's pooling matrices.  All arithmetic is f32; x comes back in its
-own dtype.
+two launches per scan step and one at the end, which read the slot
+index and the step's action from device memory, so the host never
+waits.  The row kernel runs a thread-block cluster per row tile, one CTA
+per 64-column slice of the slot's products, at most 8
+(``launch_plan``), on the tensor cores at f32 accuracy (split TF32);
+its weights come in the layout ``kernel_weights`` builds once per
+weight set.  The reductions
+read the validity mask directly instead of the TPU program's pooling
+matrices.  All arithmetic is f32; x comes back in its own dtype.
 """
 
 from __future__ import annotations
@@ -92,17 +96,122 @@ def sheath_scan_plain(x2, batch: int, valid, mem0, sampled, jump_s,
 sheath_scan_plain.calls = 0
 
 
+MAX_CLUSTER = 8          # CTAs of a cluster (portable size)
+MAX_D = 1024
+ROW_TILES = (16, 64)
+SMEM_MAX = 232448        # dynamic shared memory a block may use (H100)
+_MAX_CLUSTERS: dict = {}  # (device, rows, d, cluster) -> at once
+
+
+def smem_bytes(rows: int, d: int, passes: int) -> int:
+    """Dynamic shared memory of a row-kernel CTA (``sh_smem_bytes``): the
+    x tile, three slot vectors, a 3-stage ring of two (32, 72) weight
+    chunks, 5 + 4 * 8 values a row, two a score column, and the adapter
+    outputs of the passes before the last."""
+    lda = -(-d // 32) * 32 + 4
+    return 4 * ((rows + 3) * lda + 3 * 2 * 32 * 72 + 37 * rows + 128
+                + (passes - 1) * rows * 72)
+
+
+def launch_plan(n: int, d: int, d2: int, m_keys: int,
+                max_clusters: dict | None = None) -> dict:
+    """The row kernel's launch for n rows: score columns (M + D2) and
+    adapter columns (D) padded to 64-column slices, a cluster of one CTA
+    a slice (at most 8) per row tile of 16 rows when the clusters all run
+    at once (``max_clusters``: rows -> clusters the card holds together;
+    none given: 64 rows), else 64 (each CTA streams its slices of the
+    weights once per tile, so fewer, taller tiles stream less).  Past 8
+    slices each CTA takes every 8th slice, one pass each, on 16-row
+    tiles."""
+    scp = 64 * -(-(m_keys + d2) // 64)
+    dp = 64 * -(-d // 64)
+    slices = max(scp, dp) // 64
+    cluster = min(slices, MAX_CLUSTER)
+    passes = -(-slices // MAX_CLUSTER)
+    rows = ROW_TILES[0] if passes > 1 else ROW_TILES[-1]
+    for r in ROW_TILES:
+        if (passes == 1 and max_clusters is not None
+                and -(-n // r) <= max_clusters[r]):
+            rows = r
+            break
+    return dict(scp=scp, dp=dp, cluster=cluster, passes=passes, rows=rows,
+                tiles=-(-n // rows), smem=smem_bytes(rows, d, passes))
+
+
+def max_clusters_on(dev, d: int, cluster: int) -> dict:
+    """Clusters of the one-pass row kernel the card runs at once, by tile
+    rows."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = {}
+    for r in ROW_TILES:
+        key = (idx, r, d, cluster)
+        if key not in _MAX_CLUSTERS:
+            with torch.cuda.device(idx):
+                got = B.function("asr_sheath_max_clusters",
+                                 [B.I, B.I, B.I])(r, d, cluster)
+            if got < 0:
+                B.check(-got, "asr_sheath_max_clusters")
+            _MAX_CLUSTERS[key] = got
+        out[r] = _MAX_CLUSTERS[key]
+    return out
+
+
+_PREP: dict = {}         # the kernel's weight layouts, by weight set
+_PREP_KEEP = 8
+
+
+def _bf16_exact(t) -> bool:
+    """Every value keeps its low 16 bits zero (exact in bf16)."""
+    return bool(((t.contiguous().view(torch.int32) & 0xFFFF) == 0).all())
+
+
+def kernel_weights(weights: dict, L: int) -> dict:
+    """The layout the row kernel streams, built once per weight set and
+    cached (keyed by the source tensors and their versions): ``wsc`` (L,
+    D, SCP) = [mkey^T | vmlp1_w | 0], ``wad`` ((L + 1) / 2, D, DP) =
+    [adapt_w | 0], ``mkinv`` (L, M) = 1 / max(||mkey[m]||, 1e-12), and
+    ``split``.  When every product weight is exact in bf16 (as the bf16
+    model's upcast weights are) wsc and wad are bf16, half the bytes to
+    stream, exact TF32 values: two TF32 products give f32 accuracy
+    (``split`` False); else they stay f32 and are split too: three."""
+    src = (weights["mkey"], weights["vmlp1_w"], weights["adapt_w"])
+    key = tuple((id(t), t._version) for t in src)
+    hit = _PREP.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], src)):
+        return hit[1]
+    mkey, w1, aw = src
+    _, m_keys, d = mkey.shape
+    d2 = w1.shape[-1]
+    plan = launch_plan(0, d, d2, m_keys)
+    split = not all(_bf16_exact(t) for t in src)
+    wt = torch.float32 if split else torch.bfloat16
+    wsc = torch.zeros(L, d, plan["scp"], device=mkey.device, dtype=wt)
+    wsc[:, :, :m_keys] = mkey.transpose(1, 2)
+    wsc[:, :, m_keys:m_keys + d2] = w1
+    wad = torch.zeros(aw.shape[0], d, plan["dp"], device=aw.device, dtype=wt)
+    wad[:, :, :d] = aw
+    norm = torch.sqrt(torch.sum(mkey * mkey, dim=-1))
+    out = {"wsc": wsc, "wad": wad,
+           "mkinv": (1.0 / torch.clamp(norm, min=1e-12)).contiguous(),
+           "split": split}
+    if len(_PREP) >= _PREP_KEEP:
+        _PREP.pop(next(iter(_PREP)))
+    _PREP[key] = (src, out)
+    return out
+
+
 def _launch():
     return B.function("asr_fused_sheath_scan",
-                      [B.I] + [B.P] * 30 + [B.I] * 7 + [B.F, B.P])
+                      [B.I] + [B.P] * 31 + [B.I] * 11 + [B.F, B.P])
 
 
 def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
                       weights: dict, L: int, thresh: float):
     """The MSheath eval scan over x2 (N = batch * C rows, D): the kernel
     sequence on CUDA tensors (x2 f32 or bf16; ``sampled`` a device int32
-    scalar; mem0, jump_s and the weights f32), the plain version on CPU
-    tensors.  Returns (x, actions (L,) int32, jstat (3,) int32)."""
+    scalar; mem0, jump_s and the weights f32; D <= 1024), the plain
+    version on CPU tensors.  Returns (x, actions (L,) int32, jstat (3,)
+    int32)."""
     if x2.device.type == "cpu":
         return sheath_scan_plain(x2, batch, valid, mem0, sampled, jump_s,
                                  weights, L, thresh)
@@ -120,8 +229,11 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
               "adapt_w": ((L + 1) // 2, d, d), "adapt_b": ((L + 1) // 2, d),
               "memgate_w": (d,), "memgate_b": (1,)}
     f32 = [mem0, jump_s] + [w[k] for k in WEIGHT_NAMES]
+    plan = launch_plan(n, d, d2, m_keys)
     ok = (x2.dim() == 2 and 1 <= batch <= 64 and c * batch == n
-          and x2.is_contiguous() and d <= 1024 and m_keys >= 1
+          and 1 <= d <= MAX_D and x2.is_contiguous() and L >= 1
+          and m_keys >= 1 and plan["smem"] <= SMEM_MAX
+          and -(-n // ROW_TILES[0]) <= 65535
           and all(tuple(w[k].shape) == s for k, s in shapes.items())
           and mem0.shape == (d,) and jump_s.shape == (3,)
           and all(t.dtype == torch.float32 and t.is_contiguous()
@@ -134,32 +246,39 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
                      and valid.device == x2.device)
     if not ok:
         raise ValueError(
-            "fused_sheath_scan kernel takes contiguous (batch * C, D<=1024) "
-            "x, a (batch<=64, C) bool mask, an int32 device scalar action "
-            "and the f32 per-slot stacks of WEIGHT_NAMES; got x "
-            f"{tuple(x2.shape)} {x2.dtype}, batch {batch}")
+            "fused_sheath_scan kernel takes contiguous (batch * C, "
+            f"D<={MAX_D}) x, a (batch<=64, C) bool mask, an int32 device "
+            "scalar action and the f32 per-slot "
+            f"stacks of WEIGHT_NAMES; got x {tuple(x2.shape)} {x2.dtype}, "
+            f"batch {batch}, M {m_keys}, D2 {d2}")
+    if plan["passes"] == 1:
+        plan = launch_plan(n, d, d2, m_keys,
+                           max_clusters_on(x2.device, d, plan["cluster"]))
+    kw = kernel_weights(w, L)
     code = B.dtype_code(x2.dtype)
     dev = x2.device
     out = torch.empty_like(x2)
     xs = torch.empty(n, d, device=dev, dtype=torch.float32)
-    ion = torch.empty(n, device=dev, dtype=torch.float32)
-    mem = torch.empty(batch, d, device=dev, dtype=torch.float32)
-    mem_w = torch.empty(batch, d, device=dev, dtype=torch.float32)
-    ctl = torch.empty(3, device=dev, dtype=torch.int32)
-    jump_w = torch.empty(1, device=dev, dtype=torch.float32)
     actions = torch.empty(L, device=dev, dtype=torch.int32)
     jstat = torch.empty(3, device=dev, dtype=torch.int32)
+    _buf, (ion, mem, mem_w, ctl, counter, jump_w) = B.workspace(
+        dev, [4 * n, 4 * batch * d, 4 * batch * d, 8, 4, 4])
+    args = {k: w[k].data_ptr() for k in WEIGHT_NAMES}
+    args.update(mkinv=kw["mkinv"].data_ptr(), wsc=kw["wsc"].data_ptr(),
+                wad=kw["wad"].data_ptr())
+    order = ("ln_scale", "ln_bias", "gate_w", "gate_b", "mkinv", "mval",
+             "wsc", "vmlp1_b", "vmlp2_w", "vmlp2_b", "vcat_w", "vcat_b",
+             "wad", "adapt_b", "memgate_w", "memgate_b")
     rc = _launch()(
         code, x2.data_ptr(), out.data_ptr(), B.ptr(valid), mem0.data_ptr(),
-        sampled.data_ptr(), jump_s.data_ptr(),
-        *[w[k].data_ptr() for k in WEIGHT_NAMES],
-        xs.data_ptr(), ion.data_ptr(), mem.data_ptr(), mem_w.data_ptr(),
-        ctl.data_ptr(), jump_w.data_ptr(), actions.data_ptr(),
-        jstat.data_ptr(), n, batch, c, d, d2, m_keys, L, float(thresh),
-        B.stream_of(x2))
+        sampled.data_ptr(), jump_s.data_ptr(), *[args[k] for k in order],
+        xs.data_ptr(), ion, mem, mem_w, ctl, counter, jump_w,
+        actions.data_ptr(), jstat.data_ptr(), n, batch, c, d, d2, m_keys, L,
+        plan["scp"], plan["dp"], B.dtype_code(kw["wsc"].dtype), plan["rows"],
+        float(thresh), B.stream_of(x2))
     B.check(rc, "asr_fused_sheath_scan")
-    # sheath_init, then rows, mem, ctl and jump per step, sheath_finish
-    fused_sheath_scan.launches += 2 + 4 * L
+    # sheath_rows and sheath_mem_ctl per step, sheath_finish
+    fused_sheath_scan.launches += 2 * L + 1 if n else 0
     return out, actions, jstat
 
 

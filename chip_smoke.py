@@ -9,9 +9,10 @@
    the shapes of the decode paths, with the tolerance stated beside it,
    and times kernel, plain version and (where one PyTorch call computes
    the same function) that call, each as device time (``cuda_ms``); for
-   the mel and flash kernels also the achieved TFLOP/s and the share of
-   the bound, and (where the toolkit has ``cuobjdump``) the tensor-core
-   instructions in the bf16 flash kernels.
+   the mel, flash, AbbyNormal and MSheath kernels also the achieved
+   TFLOP/s and the share of the bound, and (where the toolkit has
+   ``cuobjdump``) the tensor-core instructions in the bf16 flash and
+   AbbyNormal kernels and the MSheath row kernel.
 3. Drives the two decode paths at the flagship config (40k vocab, 512
    dims, 4 heads, 4 layers, bf16, the same seeded random weights): 8 x
    10 s synthetic tones -> log-mel + YIN pitch + frame-rate waveform ->
@@ -22,7 +23,9 @@
    whole-call attention, residual-MLP and router kernels.  Each path
    must launch exactly its kernels and run no plain version; each
    prints its RTFx (median of 5 timed runs), decode ms per step and the
-   device kernels of one decode step at width 65 (torch.profiler).
+   device kernels of one decode step at width 65 (torch.profiler), where
+   the AbbyNormal and MSheath kernels the profiler sees must be the
+   launches their wrappers counted.
 4. Checks the output ids, the first decode step's logits on each path's
    kernel route against its plain route on the card (bf16 and f32,
    argmax identical in every row), the fused path against the default
@@ -49,6 +52,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SR, HOP, UTT_SEC, BATCH, NEW_TOKENS = 16000, 160, 10.0, 8, 64
 DEV = "cuda"
 BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
+TF32_PEAK = 495e12        # H100 SXM dense TF32 tensor-core FLOP/s
 F32_PEAK = 67e12          # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12         # H100 SXM device-memory bytes/s
 SLEEP_HZ = 2.0e9          # torch.cuda._sleep cycles a second: at or above
@@ -118,10 +122,19 @@ def rates(flops: float, ms: float, b_ms: float) -> dict:
     return dict(tflops=flops / (ms * 1e-3) / 1e12, bound_share=b_ms / ms)
 
 
+# the kernels that must run on the tensor cores: bf16 flash, the bf16
+# AbbyNormal and the MSheath row kernel (mangled-name patterns)
+MMA_KERNELS = {
+    "flash_tc_kernel": r"flash_tc_kernelILi(\d+)ELi(\d+)E",
+    "abby_cluster_kernel<bf16>": r"abby_cluster_kernelI13__nv_bfloat16E",
+    "sheath_rows": r"sheath_rowsI(\w+?)Li(\d+)E(\w+?)Lb([01])EEv",
+}
+
+
 def sass_mma_counts(lib):
     """Tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in each
-    bf16 flash kernel of the built library, from ``cuobjdump -sass``;
-    None where the toolkit has no cuobjdump."""
+    kernel of ``MMA_KERNELS`` in the built library, from ``cuobjdump
+    -sass``; None where the toolkit has no cuobjdump."""
     import re
     import shutil
     from asr_model_tpu_torch.ops.cuda.build import nvcc_path
@@ -134,10 +147,18 @@ def sass_mma_counts(lib):
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_tc_kernelILi(\d+)ELi(\d+)E", line)
-            fn = f"flash_tc_kernel<{m.group(1)}, {m.group(2)}>" if m else None
-            if fn:
-                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            fn = None
+            for name, pat in MMA_KERNELS.items():
+                m = re.search(pat, line)
+                if m:
+                    # template arguments: 13__nv_bfloat16 bf16, f f32,
+                    # S0_ the first one again, Lb0/Lb1 false/true
+                    args = [{"13__nv_bfloat16": "bf16", "f": "f32",
+                             "0": "false", "1": "true"}.get(g, g)
+                            for g in m.groups()]
+                    args = [args[0] if g == "S0_" else g for g in args]
+                    fn = f"{name}<{', '.join(args)}>" if args else name
+                    counts[fn] = {"HGMMA": 0, "HMMA": 0}
         elif fn:
             for ins in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{ins}\.", line):
@@ -301,10 +322,12 @@ def check_kernels(model):
                     **{k: entries[0][k] for k in entries[0] if k != "shape"},
                     shape=entries[0]["shape"], shapes=entries))
 
-    # ---- fused_abby, bf16, with the flagship block's norm weights
+    # ---- fused_abby, bf16, with the flagship block's norm weights, at
+    # the last and the first bucket's width, the head norms, the encoder
     blk = model.processor.block
     entries = []
     for label, n, norm in [("decode (8*65, 512)", BATCH * 65, blk.ln),
+                           ("decode (8*9, 512)", BATCH * 9, blk.ln),
                            ("decode head norm (8*4*65, 128)",
                             BATCH * 4 * 65, blk.attn.head_norm),
                            ("encoder (8*1001, 512)", BATCH * 1001, blk.ln)]:
@@ -316,53 +339,66 @@ def check_kernels(model):
         got = abby.fused_abby(x, *w, size, 1e-4, 1.0, 0.75)
         want = abby.abby_plain(x, *w, size, 1e-4, 1.0, 0.75)
         e, bad, rows = close_rows(got, want, 8e-3, 1e-3, d)
+        plan = abby.launch_plan(n, d, x.dtype)
         check(bad <= rows // 1000, f"fused_abby {label}: max abs err {e:.3e}, "
-              f"{bad}/{rows} rows out (tolerance 8e-3 |plain| + 1e-3 "
+              f"{bad}/{rows} rows out, {plan['tiles']} clusters of "
+              f"{plan['cluster']} (tolerance 8e-3 |plain| + 1e-3 "
               "max|plain| per element, one bf16 rounding; at most 0.1% of "
               "rows may route differently on a near tie)")
-        flops = 2.0 * n * d * d + 2.0 * n * d * 3 + n * d * (2 * size + 12)
+        flops = _abby_ops(n, d, size)
         b_ms, b_by = bound_ms(flops, nbytes(x, got, *w), BF16_PEAK)
+        ms = cuda_ms(lambda: abby.fused_abby(x, *w, size, 1e-4, 1.0, 0.75))
         entries.append(dict(
-            shape=label, max_abs_err=e,
-            ms=cuda_ms(lambda: abby.fused_abby(x, *w, size, 1e-4, 1.0,
-                                               0.75)),
+            shape=label, max_abs_err=e, ms=ms,
             plain_ms=cuda_ms(lambda: abby.abby_plain(x, *w, size, 1e-4, 1.0,
                                                      0.75)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **rates(flops, ms, b_ms)))
     out.append(dict(name="fused_abby", route="cuda",
                     source="asr_model_tpu_torch/csrc/abby.cu",
                     replaces="asr_model_tpu/ops/pallas/abby_kernel.py:180",
                     **{k: entries[0][k] for k in entries[0] if k != "shape"},
                     shape=entries[0]["shape"], shapes=entries))
 
-    # ---- fused_sheath_scan, bf16 x, the flagship block's MSheath
+    # ---- fused_sheath_scan, bf16 x, the flagship block's MSheath, at
+    # the last and the first bucket's width and at encoder length
+    from asr_model_tpu_torch.models.sheath import masked_mean
     jump = blk.jump
     w = jump.scan_weights()
+    sw = {kk: w[kk] for kk in sheath.WEIGHT_NAMES}
+    # the products' weights exact in TF32 (the bf16 model's upcast ones):
+    # two TF32 products give f32 accuracy, else three
+    kw = sheath.kernel_weights(sw, jump.layer)
+    n_prod = 3 if kw["split"] else 2
     entries = []
     for label, ctx, lens in [("decode (8*65, 512) + valid", 65, 40),
+                             ("decode (8*9, 512)", 9, None),
                              ("encoder (8*1001, 512)", 1001, None)]:
         x = torch.randn(BATCH, ctx, 512, device=dev, generator=g).bfloat16()
         valid = None
         if lens is not None:
             valid = (torch.arange(ctx, device=dev)[None]
                      < (torch.arange(BATCH, device=dev)[:, None] + lens))
-        from asr_model_tpu_torch.models.sheath import masked_mean
         pooled = masked_mean(x, valid, dim=1)[:, 0]
         sampled = torch.argmax(jump.pnet(pooled).mean(0)).to(torch.int32)
         args = (x.reshape(-1, 512), BATCH, valid, w["mem0"], sampled,
-                w["jump_s"], {kk: w[kk] for kk in sheath.WEIGHT_NAMES},
-                jump.layer, jump.thresh)
+                w["jump_s"], sw, jump.layer, jump.thresh)
         got, act_k, js_k = sheath.fused_sheath_scan(*args)
         want, act_p, js_p = sheath.sheath_scan_plain(*args)
         e, bad, rows = close_rows(got, want, 8e-3, 1e-3, 512)
         same = act_k.tolist() == act_p.tolist() \
             and js_k.tolist() == js_p.tolist()
+        n, d, d2, m = BATCH * ctx, 512, 256, jump.mem
+        plan = sheath.launch_plan(n, d, d2, m, sheath.max_clusters_on(
+            dev, d, sheath.launch_plan(n, d, d2, m)["cluster"]))
         check(bad <= rows // 1000 and same,
               f"fused_sheath_scan {label}: max abs err {e:.3e}, {bad}/{rows} "
-              f"rows out, actions {act_k.tolist()} vs {act_p.tolist()} "
-              "(tolerance 8e-3 |plain| + 1e-3 max|plain| per element, one "
-              "bf16 rounding; at most 0.1% of rows may cross the ion "
-              "threshold on a near tie; actions and jstat exact)")
+              f"rows out, actions {act_k.tolist()} vs {act_p.tolist()}, "
+              f"{plan['tiles']} clusters of {plan['cluster']} x "
+              f"{plan['rows']} rows (tolerance 8e-3 |plain| + 1e-3 "
+              "max|plain| per element, one bf16 rounding; at most 0.1% of "
+              "rows may cross the ion threshold on a near tie; actions and "
+              "jstat exact)")
         # executed slots, from this run's actions
         slots, i = [], 0
         for a in act_k.tolist():
@@ -370,17 +406,19 @@ def check_kernels(model):
                 break
             slots.append(i)
             i = min(i + a + 1, jump.layer) if a > 0 else i + 1
-        n, d, d2, m = BATCH * ctx, 512, 256, jump.mem
         flops = sum(2.0 * n * d * (m + d2) + (2.0 * n * d * d if s % 2 == 0
                                              else 0) + 30.0 * n * d
                     for s in slots)
-        b_ms, b_by = bound_ms(flops, nbytes(x, got, valid, *w.values()),
-                              F32_PEAK)
+        b_ms, b_by = bound_ms(
+            flops, nbytes(x, got, valid, w["mem0"], w["jump_s"])
+            + _sheath_weight_bytes(sw, kw, slots),
+            TF32_PEAK / n_prod)
+        ms = cuda_ms(lambda: sheath.fused_sheath_scan(*args))
         entries.append(dict(
-            shape=label, max_abs_err=e, slots=len(slots),
-            ms=cuda_ms(lambda: sheath.fused_sheath_scan(*args)),
+            shape=label, max_abs_err=e, slots=len(slots), ms=ms,
             plain_ms=cuda_ms(lambda: sheath.sheath_scan_plain(*args)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            tf32_products=n_prod, **rates(flops, ms, b_ms)))
     out.append(dict(name="fused_sheath_scan", route="cuda",
                     source="asr_model_tpu_torch/csrc/sheath.cu",
                     replaces="asr_model_tpu/ops/pallas/sheath_kernel.py:180",
@@ -388,6 +426,23 @@ def check_kernels(model):
                        if k not in ("shape", "slots")},
                     shape=entries[0]["shape"], shapes=entries))
     return out
+
+
+def _sheath_weight_bytes(w: dict, kw: dict, slots: list) -> int:
+    """The weight bytes the MSheath scan needs for the slots it ran: the
+    product weights at the element size the kernel streams (bf16 when
+    they are exact in bf16), each slot's [mkey^T | vmlp1_w] and, on even
+    slots, adapt_w; the slots' f32 vectors; and the per-call ones."""
+    prod = sum(w["mkey"][s].numel() + w["vmlp1_w"][s].numel()
+               for s in slots) * kw["wsc"].element_size()
+    prod += sum(w["adapt_w"][s // 2].numel() for s in slots
+                if s % 2 == 0) * kw["wad"].element_size()
+    per_slot = ("ln_scale", "ln_bias", "gate_w", "gate_b", "mval",
+                "vmlp1_b", "vmlp2_w", "vmlp2_b", "vcat_w", "vcat_b")
+    vec = sum(w[k][s].numel() for k in per_slot for s in slots)
+    vec += sum(w["adapt_b"][s // 2].numel() for s in slots if s % 2 == 0)
+    vec += w["memgate_w"].numel() + w["memgate_b"].numel()
+    return prod + 4 * vec
 
 
 def _pairs(tq: int, tk: int, causal: bool, valid) -> int:
@@ -673,24 +728,37 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+# kernels the profiler names (demangled) for the wrappers whose launches
+# one decode step checks against the wrapper's own count
+PROFILED = {"fused_abby": ("abby_cluster_kernel",),
+            "fused_sheath_scan": ("sheath_rows", "sheath_mem_ctl",
+                                  "sheath_finish")}
+
+
 def step_profile(model, audio, ids):
     """Every device kernel of one decode step at the last bucket (width
     65, 64 live positions), PyTorch's own included, under torch.profiler:
-    (kernel launches, their device ms, copies and fills, top kernels)."""
+    (kernel launches, their device ms, copies and fills, top kernels, and
+    for each wrapper of ``PROFILED`` its launches as (the profiler's
+    count, the wrapper's count))."""
+    import re
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from asr_model_tpu_torch.models.generate import decode_step, prepare_cross
     from asr_model_tpu_torch.models.model import modality_slots
+    from asr_model_tpu_torch.ops import cuda as kernels
     mel, f0, wav = frontend(audio)
     xa_kv = prepare_cross(model, modality_slots(f0, mel, wav))
     buf = ids[:, :1 + NEW_TOKENS].contiguous()
     decode_step(model, buf, xa_kv, NEW_TOKENS)
     torch.cuda.synchronize()
+    kernels.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         decode_step(model, buf, xa_kv, NEW_TOKENS)
         torch.cuda.synchronize()
+    counted = kernels.counts()
     rows, copies = [], 0
     for evt in prof.key_averages():
         us = _device_us(evt)
@@ -701,8 +769,13 @@ def step_profile(model, audio, ids):
         else:
             rows.append((evt.key, evt.count, us / 1e3))
     rows.sort(key=lambda r: -r[2])
+    seen = {w: (sum(c for k, c, _ in rows
+                    if any(re.search(rf"\b{n}\b", k) for n in names)),
+                counted[w]["launches"])
+            for w, names in PROFILED.items()}
     return (sum(r[1] for r in rows), sum(r[2] for r in rows), copies,
-            [{"kernel": k[:60], "count": c, "ms": m} for k, c, m in rows[:8]])
+            [{"kernel": k[:60], "count": c, "ms": m} for k, c, m in rows[:8]],
+            seen)
 
 
 def drive_path(model, audio, label: str, expect, runs: int = 5):
@@ -762,7 +835,12 @@ def drive_path(model, audio, label: str, expect, runs: int = 5):
     front_ms, prep_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
     step_ms = (total * 1e3 - front_ms - prep_ms) / NEW_TOKENS
     rtfx = BATCH * UTT_SEC / total
-    launches, dev_ms, copies, top = step_profile(model, audio, ids)
+    launches, dev_ms, copies, top, seen = step_profile(model, audio, ids)
+    for w, (prof_n, wrap_n) in seen.items():
+        # the profiler may drop an event (a run read 15 of 16), never add
+        check(0 < prof_n <= wrap_n, f"{label} path, one decode step: the "
+              f"profiler saw {prof_n} {w} kernel launches, the wrapper "
+              f"counted {wrap_n}")
     log(f"{label} path: RTFx {rtfx:.3f} (median of {runs} runs of "
         + ", ".join(f"{t * 1e3:.1f}" for t in times)
         + f" ms per batch of {BATCH} x {UTT_SEC:.0f} s); frontend "
@@ -834,11 +912,15 @@ def main() -> int:
     log(f"built {os.path.relpath(lib, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
     mma = sass_mma_counts(lib)
-    log("tensor-core instructions in the bf16 flash kernels (cuobjdump "
-        f"-sass): {json.dumps(mma) if mma is not None else 'no cuobjdump'}")
+    log("tensor-core instructions (cuobjdump -sass): "
+        f"{json.dumps(mma) if mma is not None else 'no cuobjdump'}")
     if mma is not None:
-        check(all(c["HGMMA"] + c["HMMA"] > 0 for c in mma.values())
-              and len(mma) > 0, "bf16 flash kernels run on the tensor cores")
+        for name in MMA_KERNELS:
+            found = {k: c for k, c in mma.items() if k.startswith(name)}
+            check(len(found) > 0 and all(c["HGMMA"] + c["HMMA"] > 0
+                                         for c in found.values()),
+                  f"{name} runs on the tensor cores ({len(found)} "
+                  "instantiation(s))")
 
     audio = torch.from_numpy(tones(BATCH, UTT_SEC)).to(DEV)
     model, fused = flagship(False), flagship(True)

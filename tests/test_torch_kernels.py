@@ -111,6 +111,59 @@ def test_abby_kernel(dev, d, dtype):
     assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 2e-2)
 
 
+# the decode paths' shapes: width 65 and 9 at the flagship width, the
+# per-head norms at width 65, the encoder; 33 rows: one full 32-row tile
+# and one row; D 100: rows that are no 16-byte multiple (loads, not
+# cp.async) and a window of 5 taps (the kernel's general tail); D 768 and
+# 1024: 128-column slices, two MMA passes a CTA (6 and 8 CTAs a cluster)
+ABBY_PATH = [(520, 512), (72, 512), (2080, 128), (8008, 512), (33, 512),
+             (33, 100), (72, 768), (100, 1024)]
+
+
+@pytest.mark.parametrize("n,d", ABBY_PATH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_abby_kernel_path_shapes(dev, n, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(12)
+    r = lambda *s, sc=1.0: (sc * torch.randn(*s, device=dev, generator=g)
+                            ).to(dtype)
+    args = (r(n, d, sc=2.0), r(d, d, sc=d ** -0.5), r(d, sc=0.1),
+            r(3, d, sc=d ** -0.5), r(3, sc=0.1))
+    size = abby.window_size(d)
+    got = abby.fused_abby(*args, size, 1e-4, 1.0, 0.75)
+    want = abby.abby_plain(*args, size, 1e-4, 1.0, 0.75)
+    assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_abby_kernel_deterministic(dev, dtype):
+    """The slices' partial logits are summed in a fixed order: two calls
+    give the same bits."""
+    r = _rand(dev, 13, dtype)
+    d = 512
+    args = (r(520, d, sc=2.0), r(d, d, sc=d ** -0.5), r(d, sc=0.1),
+            r(3, d, sc=d ** -0.5), r(3, sc=0.1), abby.window_size(d), 1e-4,
+            1.0, 0.75)
+    assert torch.equal(abby.fused_abby(*args), abby.fused_abby(*args))
+
+
+def test_launch_plans_match_kernels(dev):
+    """The wrappers' shared-memory formulas are the kernels' own."""
+    from asr_model_tpu_torch.ops.cuda import build as B
+    abby_smem = B.function("asr_abby_smem_bytes", [B.I, B.I])
+    abby_cluster = B.function("asr_abby_cluster_size", [B.I])
+    sheath_smem = B.function("asr_sheath_smem_bytes", [B.I, B.I, B.I])
+    for d in (16, 100, 128, 512, 600, 1024):
+        for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+            plan = abby.launch_plan(1, d, dtype)
+            assert abby_smem(code, d) == plan["smem"]
+            assert abby_cluster(d) == plan["cluster"]
+    for d in (100, 256, 512, 1024):
+        for rows in sheath.ROW_TILES:
+            for passes in (1, 2, 3):
+                assert sheath_smem(rows, d, passes) == sheath.smem_bytes(
+                    rows, d, passes)
+
+
 @pytest.mark.parametrize("use_valid", [False, True])
 def test_sheath_kernel(dev, use_valid):
     from asr_model_tpu_torch.models.sheath import MSheath
@@ -233,3 +286,140 @@ def test_attn_full_kernel(dev, dtype, causal, cross):
     got = xattn.fused_attn_full(*args, causal=causal, **KW)
     want = xattn.attn_full_plain(*args, causal=causal, **KW)
     assert _rel(got, want) < _tol(dtype)
+
+
+def _flagship_sheath(dev):
+    """The flagship's MSheath (D 512, M 64, D2 256, L 4) in bf16, whose
+    upcast weights are exact in TF32."""
+    from asr_model_tpu_torch.models.sheath import MSheath
+    from asr_model_tpu_torch.models.tlayers import reset_all
+    m = MSheath(512, 4, 4, device=dev)
+    reset_all(m, torch.Generator(device=dev).manual_seed(14))
+    return m.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("width,masked", [(65, True), (9, False)])
+def test_sheath_kernel_flagship(dev, width, masked):
+    m = _flagship_sheath(dev)
+    w = m.scan_weights()
+    assert not sheath.kernel_weights(
+        {k: w[k] for k in sheath.WEIGHT_NAMES}, 4)["split"]
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(8 * width, 512, device=dev, generator=g).bfloat16()
+    valid = None
+    if masked:
+        valid = (torch.arange(width, device=dev)[None]
+                 < torch.arange(8, device=dev)[:, None] + 40)
+    for act in (0, 2):
+        sampled = torch.tensor(act, dtype=torch.int32, device=dev)
+        args = (x, 8, valid, w["mem0"], sampled, w["jump_s"],
+                {k: w[k] for k in sheath.WEIGHT_NAMES}, 4, 0.3)
+        got, act_g, js_g = sheath.fused_sheath_scan(*args)
+        want, act_w, js_w = sheath.sheath_scan_plain(*args)
+        assert _rel(got, want) < 2e-2
+        assert act_g.tolist() == act_w.tolist()
+        assert js_g.tolist() == js_w.tolist()
+
+
+def test_sheath_kernel_ragged_width(dev):
+    """D 100: a last weight chunk of 4 rows, score and adapter columns
+    padded to 128 (a cluster of 2), f32 weights split three ways."""
+    from asr_model_tpu_torch.models.sheath import MSheath
+    from asr_model_tpu_torch.models.tlayers import reset_all
+    m = MSheath(100, 2, 4, device=dev)
+    reset_all(m, torch.Generator(device=dev).manual_seed(18))
+    g = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn(3 * 21, 100, device=dev, generator=g)
+    w = m.scan_weights()
+    sampled = torch.tensor(1, dtype=torch.int32, device=dev)
+    args = (x, 3, None, w["mem0"], sampled, w["jump_s"],
+            {k: w[k] for k in sheath.WEIGHT_NAMES}, 4, 0.3)
+    got, act_g, js_g = sheath.fused_sheath_scan(*args)
+    want, act_w, js_w = sheath.sheath_scan_plain(*args)
+    assert _rel(got, want) < 1e-4
+    assert act_g.tolist() == act_w.tolist()
+    assert js_g.tolist() == js_w.tolist()
+
+
+@pytest.mark.parametrize("flagship", [False, True])
+def test_sheath_kernel_deterministic(dev, flagship):
+    """Every reduction runs in a fixed order: two calls give the same
+    bits (x, actions and jstat)."""
+    if flagship:
+        m, d, x_dtype = _flagship_sheath(dev), 512, torch.bfloat16
+    else:
+        from asr_model_tpu_torch.models.sheath import MSheath
+        from asr_model_tpu_torch.models.tlayers import reset_all
+        m, d, x_dtype = MSheath(256, 2, 4, device=dev), 256, torch.float32
+        reset_all(m, torch.Generator(device=dev).manual_seed(16))
+    w = m.scan_weights()
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(8 * 1001 if flagship else 4 * 33, d, device=dev,
+                    generator=g).to(x_dtype)
+    sampled = torch.tensor(1, dtype=torch.int32, device=dev)
+    args = (x, 8 if flagship else 4, None, w["mem0"], sampled, w["jump_s"],
+            {k: w[k] for k in sheath.WEIGHT_NAMES}, 4, 0.3)
+    a, b = sheath.fused_sheath_scan(*args), sheath.fused_sheath_scan(*args)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.parametrize("width,masked", [(65, True), (9, False)])
+def test_sheath_kernel_bf16_exact_f32(dev, width, masked):
+    """The main path's two-product variant at f32 accuracy: the flagship
+    MSheath's weights rounded to bf16 but kept as f32 parameters, f32 x,
+    so the kernel streams bf16 weights and splits only the activations
+    (1e-4, as test_sheath_kernel holds the three-product variant)."""
+    from asr_model_tpu_torch.models.sheath import MSheath
+    from asr_model_tpu_torch.models.tlayers import reset_all
+    m = MSheath(512, 4, 4, device=dev)
+    reset_all(m, torch.Generator(device=dev).manual_seed(20))
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(p.bfloat16().float())
+    w = m.scan_weights()
+    sw = {k: w[k] for k in sheath.WEIGHT_NAMES}
+    assert not sheath.kernel_weights(sw, 4)["split"]
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(8 * width, 512, device=dev, generator=g)
+    valid = None
+    if masked:
+        valid = (torch.arange(width, device=dev)[None]
+                 < torch.arange(8, device=dev)[:, None] + 40)
+    for act in (0, 2):
+        sampled = torch.tensor(act, dtype=torch.int32, device=dev)
+        args = (x, 8, valid, w["mem0"], sampled, w["jump_s"], sw, 4, 0.3)
+        got, act_g, js_g = sheath.fused_sheath_scan(*args)
+        want, act_w, js_w = sheath.sheath_scan_plain(*args)
+        assert _rel(got, want) < 1e-4
+        assert act_g.tolist() == act_w.tolist()
+        assert js_g.tolist() == js_w.tolist()
+
+
+# (D, M): more than 8 slices of 64 columns, two passes a CTA (768 and
+# 1024 channels; M + D2 = 936 at D 512: memory logits on CTAs 0-7, and
+# on CTAs 0-2 again in the second pass, slice 10 part memory, part MLP);
+# memory logits on three CTAs (M 160); D 90, rows that are no multiple
+# of four values
+SHEATH_WIDE = [(768, 64), (1024, 64), (512, 680), (256, 160), (90, 64)]
+
+
+@pytest.mark.parametrize("d,mem", SHEATH_WIDE)
+def test_sheath_kernel_wide(dev, d, mem):
+    from asr_model_tpu_torch.models.sheath import MSheath
+    from asr_model_tpu_torch.models.tlayers import reset_all
+    m = MSheath(d, 2, 4, mem=mem, device=dev)
+    reset_all(m, torch.Generator(device=dev).manual_seed(22))
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(4 * 21, d, device=dev, generator=g)
+    valid = (torch.arange(21, device=dev)[None] < torch.tensor(
+        [[21], [13], [2], [8]], device=dev))
+    w = m.scan_weights()
+    for act in (0, 1):
+        sampled = torch.tensor(act, dtype=torch.int32, device=dev)
+        args = (x, 4, valid, w["mem0"], sampled, w["jump_s"],
+                {k: w[k] for k in sheath.WEIGHT_NAMES}, 4, 0.3)
+        got, act_g, js_g = sheath.fused_sheath_scan(*args)
+        want, act_w, js_w = sheath.sheath_scan_plain(*args)
+        assert _rel(got, want) < 1e-4
+        assert act_g.tolist() == act_w.tolist()
+        assert js_g.tolist() == js_w.tolist()
