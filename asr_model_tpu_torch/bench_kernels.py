@@ -3,7 +3,7 @@
 width, on one GPU, for one checkout of the package.
 
     python3 asr_model_tpu_torch/bench_kernels.py [--root DIR] [--repeats 5]
-        [--only flash,abby,sheath]
+        [--only flash,abby,sheath,attn_full,attn_cached,mlp] [--profile]
 
 At every decode width w (9, 17, ..., 65; 8 utterances, the flagship's 512
 channels, 4 heads of 128) and at encoder length (1001 frames), each
@@ -15,9 +15,18 @@ held against its plain version:
   (8 * 4 * w, 128), and the encoder's (8 * 1001, 512);
 - sheath: ``fused_sheath_scan`` of a seeded bf16 flagship MSheath (D
   512, M 64, 4 slots) over bf16 x at (8 w, 512) with a kv-style valid
-  mask, and at (8 * 1001, 512) without one.
+  mask, and at (8 * 1001, 512) without one;
+- attn_full: bf16 ``fused_attn_full`` of the flagship's shapes (512
+  channels, 4 heads) with random weights: the self causal call with
+  the prefix mask at (8, w, 512), and at widths 9 and 65 the non-causal
+  self call and the g block's cross call;
+- attn_cached: bf16 ``fused_attn_cached`` of (8, w, 512) against a
+  (8, 4, 1001, 128) K/V cache;
+- mlp: bf16 ``fused_mlp_residual`` at (8 w, 512), 3 gates, hidden 1536.
 Times are device time (chip_smoke.py's ``cuda_ms``), the median of
-``--repeats`` readings of 20 calls.  ``--root`` names the checkout whose
+``--repeats`` readings of 20 calls; with ``--profile``, the whole-call
+kernels' rows also hold each device kernel's time per call (torch.profiler
+over 20 calls).  ``--root`` names the checkout whose
 package is timed (default: this one), so that two versions of a kernel
 can be compared in one call on one card: run A, B, B, A.  Prints one
 line per shape and, last, one JSON object.  Needs a CUDA device.
@@ -141,12 +150,143 @@ def bench_sheath(dev, repeats, rows):
               flush=True)
 
 
+def _weights(r, d, heads):
+    """Random whole-call attention weights (torch (out, in) layouts)."""
+    def norm(n):
+        return {"n_w1": r(n, n, sc=n ** -0.5), "n_b1": r(n, sc=0.1),
+                "n_w2": r(3, n, sc=n ** -0.5), "n_b2": r(3, sc=0.1)}
+    wq = norm(d) | {"proj_w": r(d, d, sc=d ** -0.5), "proj_b": r(d, sc=0.1)}
+    wkv = norm(d) | {"proj_w": r(2 * d, d, sc=d ** -0.5),
+                     "proj_b": r(2 * d, sc=0.1)}
+    wo = {"proj_w": r(d, d, sc=d ** -0.5), "proj_b": r(d, sc=0.1)}
+    return wq, wkv, norm(d // heads), wo
+
+
+def _rand(dev, seed):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return lambda *s, sc=1.0: (sc * torch.randn(*s, device=dev, generator=g)
+                               ).bfloat16()
+
+
+def _attn_kw(d, heads):
+    from asr_model_tpu_torch.ops.cuda import abby
+    return dict(head=heads, size_d=abby.window_size(d),
+                size_h=abby.window_size(d // heads), alpha=1e-4, k=1.0,
+                beta=0.75)
+
+
+PROFILE = False
+
+
+def _kernel_us(fn, calls: int = 20) -> dict:
+    """Device us per call of each kernel ``fn`` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or \
+            getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out[e.key.split("(")[0][:48]] = us / calls
+    return out
+
+
+def _row(rows, kernel, label, got, want, fn, repeats):
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    ms, runs = _median_ms(fn, repeats)
+    rows.append(dict(kernel=kernel, shape=label, err_over_max=err, ms=ms,
+                     ms_runs=runs))
+    parts = ""
+    if PROFILE:
+        rows[-1]["kernel_us"] = _kernel_us(fn)
+        parts = "; " + ", ".join(f"{k} {v:.2f} us"
+                                 for k, v in rows[-1]["kernel_us"].items())
+    print(f"{kernel} {label}: {ms:.4f} ms, max err {err:.2e} max|plain|"
+          + parts, flush=True)
+
+
+def bench_attn_full(dev, repeats, rows):
+    import torch
+    from asr_model_tpu_torch.models.rotary import compute_freqs
+    from asr_model_tpu_torch.ops.cuda import xattn
+    b, d, heads = 8, 512, 4
+    r = _rand(dev, 4)
+    wq, wkv, wh, wo = _weights(r, d, heads)
+    kw = _attn_kw(d, heads)
+    shapes = [(w, True, False) for w in WIDTHS] + [
+        (w, causal, cross) for w in (9, 65)
+        for causal, cross in ((False, False), (False, True))]
+    for w, causal, cross in shapes:
+        x = r(b, w, d, sc=0.5)
+        xa = r(b, w, d, sc=0.5) if cross else x
+        valid = (torch.arange(w, device=dev) < w - 1)[None].expand(
+            b, w).contiguous()
+        fr = torch.from_numpy(compute_freqs(d, heads, causal)).to(dev)
+        args = (x, xa, valid, fr, wq, wkv, wh, wo)
+        label = (f"{'g cross' if cross else 'self'}"
+                 f"{' causal' if causal else ''} ({b},{w},{d}) + kv_valid")
+        _row(rows, "fused_attn_full", label,
+             xattn.fused_attn_full(*args, causal=causal, **kw),
+             xattn.attn_full_plain(*args, causal=causal, **kw),
+             lambda: xattn.fused_attn_full(*args, causal=causal, **kw),
+             repeats)
+
+
+def bench_attn_cached(dev, repeats, rows):
+    import torch
+    from asr_model_tpu_torch.models.rotary import compute_freqs
+    from asr_model_tpu_torch.ops.cuda import xattn
+    b, d, heads, tk = 8, 512, 4, 1001
+    r = _rand(dev, 5)
+    wq, _, wh, wo = _weights(r, d, heads)
+    kw = _attn_kw(d, heads)
+    kn, v = r(b, heads, tk, 128), r(b, heads, tk, 128)
+    fr = torch.from_numpy(compute_freqs(d, heads, False)).to(dev)
+    for w in WIDTHS:
+        args = (r(b, w, d, sc=0.5), kn, v, None, fr, wq, wh, wo)
+        _row(rows, "fused_attn_cached",
+             f"({b},{w},{d}) x K/V ({b},{heads},{tk},128)",
+             xattn.fused_attn_cached(*args, **kw),
+             xattn.attn_cached_plain(*args, **kw),
+             lambda: xattn.fused_attn_cached(*args, **kw), repeats)
+
+
+def bench_mlp(dev, repeats, rows):
+    from asr_model_tpu_torch.ops.cuda import abby, mlp
+    d, hid = 512, 1536
+    r = _rand(dev, 6)
+    ln = (r(d, d, sc=d ** -0.5), r(d, sc=0.1), r(3, d, sc=d ** -0.5),
+          r(3, sc=0.1))
+    gates = [(r(d, d, sc=d ** -0.5), r(d, sc=0.1)) for _ in range(3)]
+    for w in WIDTHS:
+        n = 8 * w
+        args = (r(n, d), ln, r(3, d, sc=d ** -0.5), r(3, sc=0.1), gates,
+                r(hid, d, sc=d ** -0.5), r(hid, sc=0.1),
+                r(d, hid, sc=hid ** -0.5), r(d, sc=0.1), abby.window_size(d),
+                1e-4, 1.0, 0.75)
+        _row(rows, "fused_mlp_residual", f"(8*{w}, {d}), 3 gates, hidden "
+             f"{hid}", mlp.fused_mlp_residual(*args),
+             mlp.mlp_residual_plain(*args),
+             lambda: mlp.fused_mlp_residual(*args), repeats)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--only", default="flash,abby,sheath")
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
+    global PROFILE
+    PROFILE = args.profile
     root = os.path.abspath(args.root)
     # run as a script, sys.path[0] is this package's directory: the
     # checkout under test (and this one, for chip_smoke) take its place
@@ -163,7 +303,8 @@ def main() -> int:
     dev = torch.device("cuda")
     rows: list = []
     benches = {"flash": bench_flash, "abby": bench_abby,
-               "sheath": bench_sheath}
+               "sheath": bench_sheath, "attn_full": bench_attn_full,
+               "attn_cached": bench_attn_cached, "mlp": bench_mlp}
     for name in args.only.split(","):
         benches[name](dev, args.repeats, rows)
     print(json.dumps({"root": root, "card": card_line(), "rows": rows}))

@@ -42,315 +42,9 @@
 //   structure.
 // x is read once per CTA of the cluster (from L2 after the first) and
 // written once; the (N, D) hidden never reaches device memory.
-#include <cooperative_groups.h>
-
-#include <type_traits>
-
-#include "abby_tail.cuh"
-#include "mma.cuh"
-
-namespace cg = cooperative_groups;
+#include "abby_cluster.cuh"
 
 constexpr int ABBY_WARPS = 8;     // rows per abby_tail block
-constexpr int AB_ROWS = 32;       // rows of a cluster's tile
-constexpr int AB_THREADS = 256;
-// the widest window the kernel takes: window_size(1024)
-constexpr int ABBY_MAX_TAPS = 51;
-
-// columns of W1 a CTA owns, and the CTAs of a cluster
-__host__ __device__ constexpr int abby_slice_cols(int D) {
-  return D <= 512 ? 64 : 128;
-}
-__host__ __device__ constexpr int abby_cluster_size(int D) {
-  return (D + abby_slice_cols(D) - 1) / abby_slice_cols(D);
-}
-// bf16 shared rows: the channels padded to whole 64-column chunks, plus
-// 16 bytes so that ldmatrix rows fall in different banks
-__host__ __device__ constexpr int abby_chunks(int D) { return (D + 63) / 64; }
-__host__ __device__ constexpr int abby_ld(int D) {
-  return 64 * abby_chunks(D) + 8;
-}
-
-// dynamic shared memory of abby_cluster_kernel<T>: the x tile (bf16 rows
-// or f32 rows), one 64-row pass of W1 (bf16) or gemm_rows16's weight tile
-// (f32), then f32: h of the slice [32][cols], the slices of W2 [3][cols]
-// and b1 [cols], the partial logits its rows receive [32 + 8][3], their
-// cv [32] and routes [32]
-__host__ __device__ constexpr size_t abby_smem_bytes(int dtype, int D) {
-  return (dtype == ASR_BF16
-              ? sizeof(bf16) * (AB_ROWS + 64) * abby_ld(D)
-              : sizeof(float) * (AB_ROWS * D + GEMM_WT_FLOATS)) +
-         sizeof(float) * ((AB_ROWS + 4) * abby_slice_cols(D) +
-                          (AB_ROWS + 8) * 3 + 2 * AB_ROWS);
-}
-
-// h = silu(x W1^T + b1) for the tile's 32 rows and the columns [c0, c0 +
-// ncols) on the tensor cores, rounded to bf16, and its partial router
-// logits h W2^T, per quarter of each pass's 64 columns, into pl [4][32][3];
-// b1s [ldh] and w2s [3][ldh] hold the slice of b1 and W2, written by
-// `stage()`, which runs once the first pass's copies are issued.  xs
-// [32][ld] and ws [64][ld] bf16 in shared memory; x, w1 16-byte aligned
-// with D % 8 == 0 when `vec` (16-byte cp.async copies).  Warp w owns rows
-// 16 (w % 2) .. + 15 and columns 16 (w / 2) .. + 15 of each 64-column
-// pass.
-template <typename Stage>
-__device__ void abby_router_tc(const bf16* __restrict__ x,
-                               const bf16* __restrict__ w1, const float* b1s,
-                               const float* w2s, Stage stage, int N, int D,
-                               int r0, int c0, int ncols, int ldh, bool vec,
-                               bf16* xs, bf16* ws, float* pl) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int g = lane >> 2, tg = lane & 3, lm = lane >> 3, lr = lane & 7;
-  const int nch = abby_chunks(D), ld = abby_ld(D);
-  const int mt = warp & 1, nq = warp >> 1;
-  for (int n0 = c0; n0 < c0 + ncols; n0 += 64) {
-    // chunk ch: columns [64 ch, 64 ch + 64) of the x tile (first pass
-    // only) and of W1's rows n0 .. n0 + 63, one commit group
-    for (int ch = 0; ch < nch; ++ch) {
-      for (int e = t; e < (n0 == c0 ? AB_ROWS + 64 : 64) * 8;
-           e += AB_THREADS) {
-        const bool is_w = n0 != c0 || e >= AB_ROWS * 8;
-        const int ee = (n0 == c0 && is_w) ? e - AB_ROWS * 8 : e;
-        const int r = ee >> 3, col = ch * 64 + (ee & 7) * 8;
-        const int grow = is_w ? n0 + r : r0 + r;
-        const bool row_in = is_w ? grow < D : grow < N;
-        const bf16* src = (is_w ? w1 : x) + (size_t)grow * D + col;
-        bf16* dst = (is_w ? ws : xs) + r * ld + col;
-        if (vec) {
-          const bool in = row_in && col < D;
-          cp_async16(dst, in ? src : (is_w ? w1 : x), in);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            dst[i] = (row_in && col + i < D) ? src[i]
-                                             : __float2bfloat16(0.0f);
-        }
-      }
-      cp_async_commit();
-    }
-    if (n0 == c0) stage();                // b1s is read after a barrier
-    // two accumulator chains a column tile (even and odd k16 steps)
-    float acc[2][2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[h][j][e] = 0.0f;
-    for (int ch = 0; ch < nch; ++ch) {
-      cp_async_wait_upto(nch - 1 - ch);   // chunk ch has landed ...
-      __syncthreads();                    // ... for every thread
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int k = ch * 64 + kk * 16;
-        uint32_t af[4], bf[4];
-        ldsm_x4(af, xs + (16 * mt + (lane & 15)) * ld + k + (lane >> 4) * 8);
-        ldsm_x4(bf, ws + (16 * nq + (lm >> 1) * 8 + lr) * ld + k +
-                        (lm & 1) * 8);
-        mma_bf16(acc[kk & 1][0], af, bf[0], bf[1]);
-        mma_bf16(acc[kk & 1][1], af, bf[2], bf[3]);
-      }
-    }
-    // h (rounded to bf16) times this slice of W2, summed over the
-    // thread's columns, then over the 4 lanes of a row; pl [4][32][3]
-    // holds each column quarter's partial logits, added over the passes
-    float p[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = n0 + 16 * nq + 8 * j + 2 * tg + (e & 1);
-        const float v = acc[0][j][e] + acc[1][j][e];
-        const float h =
-            n < D ? to_f32(from_f32<bf16>(siluf_(v + b1s[n - c0]))) : 0.0f;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) p[e >> 1][c] += h * w2s[c * ldh + n - c0];
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float v = p[h][c];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (tg == 0) {
-          float* o = pl + (nq * AB_ROWS + 16 * mt + g + 8 * h) * 3 + c;
-          *o = n0 == c0 ? v : *o + v;
-        }
-      }
-    __syncthreads();                      // ws is free for the next pass
-  }
-}
-
-// the same product in full f32 on the CUDA cores: the x tile to xf [32][D]
-// f32, W1 through gemm_rows16's tile
-__device__ void abby_router_f32(const float* __restrict__ x,
-                                const float* __restrict__ w1,
-                                const float* b1s, int N, int D,
-                                int r0, int c0, int ncols, int ldh, float* xf,
-                                float* wt, float* hs) {
-  const int t = threadIdx.x;
-  for (int e = t; e < AB_ROWS * D; e += AB_THREADS) {
-    const int r = e / D, j = e % D;
-    xf[e] = r0 + r < N ? x[(size_t)(r0 + r) * D + j] : 0.0f;
-  }
-  __syncthreads();
-  for (int n0 = c0; n0 < c0 + ncols; n0 += GEMM_NT)
-    for (int half = 0; half < 2; ++half) {
-      float acc[4];
-      gemm_rows16<float, false>(xf + half * GEMM_ROWS * D, D, D, w1, D, n0,
-                                D, wt, acc);
-      const int n = n0 + t % GEMM_NT;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = half * GEMM_ROWS + 4 * (t / GEMM_NT) + i;
-        hs[row * ldh + n - c0] = n < D ? siluf_(acc[i] + b1s[n - c0]) : 0.0f;
-      }
-    }
-}
-
-// cv = unbiased std / (mean |x| + 1e-6) of a row in shared memory (bf16
-// or f32 values), as abby_choice computes it; every lane gets it
-template <typename TS>
-__device__ float abby_row_cv(const TS* xr, int D, int lane) {
-  float sa = 0.0f, s = 0.0f;
-  for (int j = lane; j < D; j += 32) {
-    const float v = to_f32(xr[j]);
-    sa += fabsf(v);
-    s += v;
-  }
-  sa = warp_sum(sa);
-  s = warp_sum(s);
-  const float mu = s / (float)D;
-  float q = 0.0f;
-  for (int j = lane; j < D; j += 32) {
-    const float c = to_f32(xr[j]) - mu;
-    q += c * c;
-  }
-  q = warp_sum(q);
-  return sqrtf(q / (float)(D - 1)) / (sa / (float)D + 1e-6f);
-}
-
-// The tail of channels j0 .. j0 + 7 of a row in shared memory, from
-// registers: the squares of the 8 + size - 1 channels around them (-1
-// outside the row: no weight in the sum, below every square in the max),
-// then each window summed and maxed in channel order as abby_tail_at
-// does.  size <= MAXT.
-template <int MAXT, typename TS, typename T>
-__device__ __forceinline__ void abby_tail8(const TS* xr, int j0, int D,
-                                           int size, int choice, float alpha,
-                                           float k, float beta, T* orow) {
-  const int pad = size / 2;
-  float v[8 + MAXT - 1];
-#pragma unroll
-  for (int i = 0; i < 8 + MAXT - 1; ++i) {
-    const int jj = j0 - pad + i;
-    float sq = -1.0f;
-    if (i < 8 + size - 1 && jj >= 0 && jj < D) {
-      const float xv = to_f32(xr[jj]);
-      sq = xv * xv;
-    }
-    v[i] = sq;
-  }
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    if (j0 + q < D) {
-      float s = 0.0f, mx = -1.0f;
-#pragma unroll
-      for (int o = 0; o < MAXT; ++o)
-        if (o < size) {
-          s += fmaxf(v[q + o], 0.0f);
-          mx = fmaxf(mx, v[q + o]);
-        }
-      const float avg = s / (float)size;
-      const float div2 = mx > 2.0f * avg ? mx : avg;
-      const float mix = choice == 1 ? div2 : avg;
-      orow[j0 + q] = from_f32<T>(to_f32(xr[j0 + q]) /
-                                 expf(beta * logf(mix * alpha + k)));
-    }
-  }
-}
-
-// The same for a window of exactly SIZE taps, with less arithmetic: the
-// windows' maxima share the taps all eight windows hold (the sums keep
-// the tap order, and so abby_tail_at's rounding).
-template <int SIZE, typename TS, typename T>
-__device__ __forceinline__ void abby_tail8_sized(const TS* xr, int j0, int D,
-                                                 int choice, float alpha,
-                                                 float k, float beta,
-                                                 T* orow) {
-  constexpr int PAD = SIZE / 2, NV = 8 + SIZE - 1;
-  float v[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int jj = j0 - PAD + i;
-    float sq = -1.0f;
-    if (jj >= 0 && jj < D) {
-      const float xv = to_f32(xr[jj]);
-      sq = xv * xv;
-    }
-    v[i] = sq;
-  }
-  float mx[8];
-  if constexpr (SIZE >= 8) {
-    // window q is [q, q + SIZE): all hold [7, SIZE); the rest is a suffix
-    // of [q, 7) and a prefix of [SIZE, q + SIZE)
-    float mid = v[7];
-#pragma unroll
-    for (int i = 8; i < SIZE; ++i) mid = fmaxf(mid, v[i]);
-    float left[8], right[8];
-    left[7] = -1.0f;
-#pragma unroll
-    for (int q = 6; q >= 0; --q) left[q] = fmaxf(left[q + 1], v[q]);
-    right[0] = -1.0f;
-#pragma unroll
-    for (int q = 1; q < 8; ++q) right[q] = fmaxf(right[q - 1], v[SIZE + q - 1]);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) mx[q] = fmaxf(fmaxf(left[q], mid), right[q]);
-  } else {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      mx[q] = v[q];
-#pragma unroll
-      for (int o = 1; o < SIZE; ++o) mx[q] = fmaxf(mx[q], v[q + o]);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    if (j0 + q < D) {
-      float s = 0.0f;               // in tap order, as abby_tail_at sums
-#pragma unroll
-      for (int o = 0; o < SIZE; ++o) s += fmaxf(v[q + o], 0.0f);
-      const float avg = s / (float)SIZE;
-      const float div2 = mx[q] > 2.0f * avg ? mx[q] : avg;
-      const float mix = choice == 1 ? div2 : avg;
-      orow[j0 + q] = from_f32<T>(to_f32(xr[j0 + q]) /
-                                 expf(beta * logf(mix * alpha + k)));
-    }
-  }
-}
-
-// the tail of `nrows` rows of the tile held in shared memory (row stride
-// ld, rows lr0 ..), one thread per 8 channels of a row
-// (SIZE > 0: windows of exactly SIZE taps, else up to ABBY_MAX_TAPS)
-template <int SIZE, typename TS, typename T>
-__device__ void abby_tail_rows(const TS* xs, int ld, int lr0, int nrows,
-                               int r0, int N, int D, int size,
-                               const int* choice, float alpha, float k,
-                               float beta, T* __restrict__ out) {
-  const int n8 = (D + 7) / 8;
-  for (int it = threadIdx.x; it < nrows * n8; it += AB_THREADS) {
-    const int rr = it / n8, j0 = (it % n8) * 8, row = r0 + lr0 + rr;
-    if (row >= N) continue;
-    if constexpr (SIZE > 0)
-      abby_tail8_sized<SIZE>(xs + (lr0 + rr) * ld, j0, D, choice[rr], alpha,
-                             k, beta, out + (size_t)row * D);
-    else
-      abby_tail8<ABBY_MAX_TAPS>(xs + (lr0 + rr) * ld, j0, D, size,
-                                choice[rr], alpha, k, beta,
-                                out + (size_t)row * D);
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(AB_THREADS)
@@ -359,138 +53,9 @@ abby_cluster_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                     const T* __restrict__ b2, T* __restrict__ out, int N,
                     int D, int size, float alpha, float k, float beta,
                     int vec) {
-  cg::cluster_group cl = cg::this_cluster();
-  const int S = (int)cl.num_blocks(), rank = (int)cl.block_rank();
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int r0 = blockIdx.y * AB_ROWS;
-  cluster_arrive_relaxed();             // waited on before the first push
-  const float b2v[3] = {to_f32(b2[0]), to_f32(b2[1]), to_f32(b2[2])};
-  const int sc = abby_slice_cols(D), c0 = rank * sc;
-  const int scw = min(sc, D - c0);      // this CTA's columns
   extern __shared__ __align__(128) unsigned char ab_smem[];
-  using TS = typename std::conditional<sizeof(T) == 2, bf16, float>::type;
-  const TS* xrows;                      // the tile's rows, storage values
-  int ldx;
-  float* hs;  // f32: h of the slice [32][sc]; bf16: partial logits [4][32][3]
-  if constexpr (sizeof(T) == 2) {
-    bf16* xs = reinterpret_cast<bf16*>(ab_smem);
-    bf16* ws = xs + AB_ROWS * abby_ld(D);
-    hs = reinterpret_cast<float*>(ws + 64 * abby_ld(D));
-    xrows = xs;
-    ldx = abby_ld(D);
-  } else {
-    float* xf = reinterpret_cast<float*>(ab_smem);
-    hs = xf + AB_ROWS * D + GEMM_WT_FLOATS;
-    xrows = xf;
-    ldx = D;
-  }
-  float* w2s = hs + AB_ROWS * sc;       // [3][sc] this slice of W2
-  float* b1s = w2s + 3 * sc;            // [sc] this slice of b1
-  // [S][rows of this CTA][3]: the partial logits of this CTA's rows, as
-  // each CTA of the cluster pushed them
-  float* recv = b1s + sc;
-  float* cvs = recv + (AB_ROWS + 8) * 3;  // [32] cv of its rows
-  int* chs = reinterpret_cast<int*>(cvs + AB_ROWS);  // [32] their routes
-
-  // this slice of W2 and b1 to shared memory (bf16: once the first
-  // loads of the product are in flight)
-  auto stage = [&]() {
-    for (int e = t; e < 4 * sc; e += AB_THREADS) {
-      const int c = e / sc, j = e % sc;
-      w2s[e] = j >= scw ? 0.0f : c < 3 ? to_f32(w2[(size_t)c * D + c0 + j])
-                                       : to_f32(b1[c0 + j]);
-    }
-  };
-  if constexpr (sizeof(T) == 2) {
-    bf16* xs = reinterpret_cast<bf16*>(ab_smem);
-    abby_router_tc(reinterpret_cast<const bf16*>(x),
-                   reinterpret_cast<const bf16*>(w1), b1s, w2s, stage, N, D,
-                   r0, c0, scw, sc, vec != 0, xs, xs + AB_ROWS * abby_ld(D),
-                   hs);
-  } else {
-    float* xf = reinterpret_cast<float*>(ab_smem);
-    stage();
-    abby_router_f32(reinterpret_cast<const float*>(x),
-                    reinterpret_cast<const float*>(w1), b1s, N, D, r0, c0,
-                    scw, sc, xf, xf + AB_ROWS * D, hs);
-  }
-  __syncthreads();
-
-  // the slice's partial logits of each row, pushed into the shared memory
-  // of the CTA that owns the row: bf16 sums the router's column quarters
-  // (in hs as [4][32][3]), f32 takes the 3 dot products of a row in a warp
-  const int per = (AB_ROWS + S - 1) / S;
-  cluster_wait();                       // every CTA has started
-  auto push = [&](int r, int c, float v) {
-    const int q = r / per;
-    cl.map_shared_rank(recv, q)[(rank * per + r - q * per) * 3 + c] = v;
-  };
-  if constexpr (sizeof(T) == 2) {
-    for (int e = t; e < AB_ROWS * 3; e += AB_THREADS) {
-      float v = 0.0f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) v += hs[q * AB_ROWS * 3 + e];
-      push(e / 3, e % 3, v);
-    }
-  } else {
-    for (int r = warp; r < AB_ROWS; r += AB_THREADS / 32) {
-      float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
-      for (int j = lane; j < scw; j += 32) {
-        const float h = hs[r * sc + j];
-        p0 += h * w2s[j];
-        p1 += h * w2s[sc + j];
-        p2 += h * w2s[2 * sc + j];
-      }
-      p0 = warp_sum(p0);
-      p1 = warp_sum(p1);
-      p2 = warp_sum(p2);
-      if (lane == 0) {
-        push(r, 0, p0);
-        push(r, 1, p1);
-        push(r, 2, p2);
-      }
-    }
-  }
-
-  // arrive at the cluster barrier, and while the other CTAs push their
-  // partials, take the cv of this CTA's rows of the tile
-  const int lr0 = rank * per, nrows = max(0, min(per, AB_ROWS - lr0));
-  cluster_arrive();
-  for (int rr = warp; rr < nrows; rr += AB_THREADS / 32)
-    if (r0 + lr0 + rr < N) {
-      const float cv = abby_row_cv(xrows + (lr0 + rr) * ldx, D, lane);
-      if (lane == 0) cvs[rr] = cv;
-    }
-  cluster_wait();
-  __syncthreads();
-
-  // each row's logits (the partials of every CTA in rank order, + b2) and
-  // its route: argmax(logits + cv), the first maximum on ties
-  for (int rr = t; rr < nrows; rr += AB_THREADS) {
-    int best = 0;
-    float bv = 0.0f;
-    for (int c = 0; c < 3; ++c) {
-      float s = 0.0f;
-      for (int q = 0; q < S; ++q) s += recv[q * per * 3 + rr * 3 + c];
-      const float v = (s + b2v[c]) + cvs[rr];
-      if (c == 0 || v > bv) {
-        bv = v;
-        best = c;
-      }
-    }
-    chs[rr] = best;
-  }
-  __syncthreads();
-#define AB_TAIL(m)                                                          \
-  abby_tail_rows<m>(xrows, ldx, lr0, nrows, r0, N, D, size, chs, alpha, k, \
-                    beta, out)
-  if (size == 25)         // window_size(512)
-    AB_TAIL(25);
-  else if (size == 7)     // window_size(128)
-    AB_TAIL(7);
-  else
-    AB_TAIL(0);
-#undef AB_TAIL
+  abby_cluster_tile<T>(x, w1, b1, w2, b2, nullptr, out, N, D, size, alpha, k,
+                       beta, vec, blockIdx.y * AB_ROWS, ab_smem);
 }
 
 template <typename T>
@@ -498,29 +63,13 @@ static int launch_abby(int dtype, const void* x, const void* w1,
                        const void* b1, const void* w2, const void* b2,
                        void* out, int N, int D, int size, float alpha,
                        float k, float beta, cudaStream_t st) {
-  const int S = abby_cluster_size(D);
-  const size_t smem = abby_smem_bytes(dtype, D);
-  cudaError_t e = cudaFuncSetAttribute(
-      abby_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
   const int vec = D % 8 == 0 && ((uintptr_t)x | (uintptr_t)w1) % 16 == 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S, (N + AB_ROWS - 1) / AB_ROWS, 1);
-  cfg.blockDim = dim3(AB_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, abby_cluster_kernel<T>, (const T*)x,
-                         (const T*)w1, (const T*)b1, (const T*)w2,
-                         (const T*)b2, (T*)out, N, D, size, alpha, k, beta,
-                         vec);
+  const cudaError_t e = launch_clusters(
+      abby_cluster_kernel<T>,
+      dim3(abby_cluster_size(D), (N + AB_ROWS - 1) / AB_ROWS, 1),
+      abby_cluster_size(D), abby_smem_bytes(dtype, D), st, (const T*)x,
+      (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, N, D,
+      size, alpha, k, beta, vec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

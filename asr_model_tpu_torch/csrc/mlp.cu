@@ -15,81 +15,55 @@
 // them is f32, rounded where the reference rounds (before each product).
 //
 // What bounds it: 11 D^2 multiply-adds a row (two router products, nt = 3
-// gates, W_in, W_out) against ~5 MB of bf16 weights at D = 512: at decode
-// widths (N = 8 x 9 .. 8 x 65 rows) the weights dominate the bytes and
-// the card is bound by operations only above ~300 rows on tensor cores;
-// on the CUDA cores this version uses, by operations.  The weights do not
-// fit in shared memory, so every product streams them through a shared
-// tile (gemm_rows16).  Each product needs whole rows of its input, so
-// the call is the chain of launches those dependencies force, each split
-// over (16-row tile, 64-column slice) blocks to fill the card:
-//   1 router of ln on x -> partial logits      (abby_router_tile)
-//   2 tail of ln + cs + the gates -> h1        (mlp_gates)
-//   3 W_in + gelu -> h2                        (linear_rows)
-//   4 W_out -> h3                              (linear_rows)
-//   5 router of ln on h3 -> partial logits     (abby_router_tile)
-//   6 tail of ln on h3 + the residual -> out   (mlp_tail)
-// Six launches a call, against about a dozen PyTorch dispatches on the
-// module route.  Intermediates h1, h2, h3 (N x 5D values) stay in the L2.
-#include "abby_tail.cuh"
+// gates, W_in, W_out) against ~5.8 MB of bf16 weights at D = 512: at
+// decode widths (N = 8 x 9 .. 8 x 65 rows) the weights set the bytes, and
+// a CTA's time is the bytes it streams into its SM.  Each product needs
+// whole rows of its input, so a call is the chain of launches those
+// dependencies force, each spreading the weights over many CTAs:
+//   1 h0 = ln(x)            a cluster per 32-row tile (abby_cluster.cuh):
+//                           router slices on the CTAs, the tail once a row
+//   2 types and the gates   (32-row tile, 40 columns of each of 3 gates
+//                           and the 3 rows of cs in one product) -> h1
+//   3 W_in + gelu           (32-row tile, 64-column slice) -> h2
+//   4 W_out                 (32-row tile, 64-column slice) -> h3
+//   5 out = x + ln(h3)      as 1, the residual added in the tail
+// Five launches a call.  bf16 rows of 16-byte multiples take the tensor
+// cores (mma.sync.m16n8k16, f32 sums: the reference's own contraction)
+// through a cp.async ring (tc_gemm); f32, and bf16 rows of other widths,
+// take the same launches with CUDA-core products (gemm_rows16, full f32:
+// TF32 would not hold the f32 route's 1e-4).  h0 .. h3 (N x 6D values)
+// stay in the L2.
+#include "abby_cluster.cuh"
 
 constexpr int MLP_MAX_NT = 4;
-constexpr int MLP_WARPS = 8;               // rows per mlp_tail block
+constexpr int MLP_ROWS = 32;               // tensor-core tile: 32 x 64
+constexpr int MLP_COLS = 64;
+constexpr int MLP_ST = 3;                  // k chunks in flight
 
 struct MlpGates {
   const void* w[MLP_MAX_NT];               // (D, D) torch layout
   const void* b[MLP_MAX_NT];               // (D,)
 };
 
+// launches 1 and 5: out = [res +] ln(x) over the cluster's 32-row tile
 template <typename T>
-__global__ void __launch_bounds__(256)
-mlp_norm_router(const T* __restrict__ x, const T* __restrict__ w1,
-                const T* __restrict__ b1, const T* __restrict__ w2,
-                float* __restrict__ plog, int N, int D) {
-  extern __shared__ float smem[];
-  abby_router_tile<T>(x, w1, b1, w2, plog, N, D, blockIdx.x * GEMM_ROWS,
-                      blockIdx.y, smem);
+__global__ void __launch_bounds__(AB_THREADS)
+mlp_norm(const T* __restrict__ x, const T* __restrict__ w1,
+         const T* __restrict__ b1, const T* __restrict__ w2,
+         const T* __restrict__ b2, const T* __restrict__ res,
+         T* __restrict__ out, int N, int D, int size, float alpha, float k,
+         float beta, int vec) {
+  extern __shared__ __align__(128) unsigned char ab_smem[];
+  abby_cluster_tile<T>(x, w1, b1, w2, b2, res, out, N, D, size, alpha, k,
+                       beta, vec, blockIdx.y * AB_ROWS, ab_smem);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-mlp_gates(const T* __restrict__ x, const float* __restrict__ plog,
-          const T* __restrict__ ln_b2, const T* __restrict__ cs_w,
-          const T* __restrict__ cs_b, MlpGates gates, T* __restrict__ h1,
-          int N, int D, int nt, int size, float alpha, float k, float beta) {
-  extern __shared__ float smem[];
-  float* xs = smem;                          // [16][D]: x, then h0
-  float* wt = xs + GEMM_ROWS * D;
-  float* tys = wt + GEMM_WT_FLOATS;          // [16][MLP_MAX_NT]
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int r0 = blockIdx.x * GEMM_ROWS, n0 = blockIdx.y * GEMM_NT;
-  const int slices = (D + GEMM_NT - 1) / GEMM_NT;
-
-  for (int e = t; e < GEMM_ROWS * D; e += blockDim.x) {
-    const int r = e / D, j = e % D;
-    xs[e] = (r0 + r < N) ? to_f32(x[(size_t)(r0 + r) * D + j]) : 0.0f;
-  }
+// the softmax of each of `rows` rows of type logits tys [rows][MLP_MAX_NT]
+// in place; synchronises
+__device__ void mlp_softmax_types(float* tys, int rows, int nt) {
+  const int t = threadIdx.x;
   __syncthreads();
-  // h0 = ln(x), rounded; every slice's block runs the (cheap) tail of
-  // its rows again rather than wait on another launch
-  for (int r = warp; r < GEMM_ROWS && r0 + r < N; r += blockDim.x / 32) {
-    float lg[3];
-    abby_logits<T>(plog, N, slices, r0 + r, ln_b2, lg);
-    abby_row_tail_inplace<T, true>(xs + r * D, D, lg, size, alpha, k, beta,
-                                   lane);
-  }
-  __syncthreads();
-  // types = softmax(h0 cs^T + cs_b), one warp per (row, type)
-  for (int o = warp; o < GEMM_ROWS * nt; o += blockDim.x / 32) {
-    const int r = o / nt, c = o % nt;
-    float s = 0.0f;
-    for (int j = lane; j < D; j += 32)
-      s += xs[r * D + j] * to_f32(cs_w[(size_t)c * D + j]);
-    s = warp_sum(s);
-    if (lane == 0) tys[r * MLP_MAX_NT + c] = s + to_f32(cs_b[c]);
-  }
-  __syncthreads();
-  if (t < GEMM_ROWS) {
+  if (t < rows) {
     float* ty = tys + t * MLP_MAX_NT;
     float mx = ty[0];
     for (int c = 1; c < nt; ++c) mx = fmaxf(mx, ty[c]);
@@ -101,6 +75,135 @@ mlp_gates(const T* __restrict__ x, const float* __restrict__ plog,
     for (int c = 0; c < nt; ++c) ty[c] = ty[c] / z;
   }
   __syncthreads();
+}
+
+// types = softmax(h0 cs^T + cs_b) of `rows` rows held in shared memory
+// (f32, row stride ld) into tys [rows][MLP_MAX_NT]; synchronises
+template <typename T>
+__device__ void mlp_types(const float* hs, int ld, int rows, int D, int nt,
+                          const T* __restrict__ cs_w,
+                          const T* __restrict__ cs_b, float* tys) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int o = warp; o < rows * nt; o += blockDim.x / 32) {
+    const int r = o / nt, c = o % nt;
+    float s = 0.0f;
+    for (int j = lane; j < D; j += 32)
+      s += hs[r * ld + j] * to_f32(cs_w[(size_t)c * D + j]);
+    s = warp_sum(s);
+    if (lane == 0) tys[r * MLP_MAX_NT + c] = s + to_f32(cs_b[c]);
+  }
+  mlp_softmax_types(tys, rows, nt);
+}
+
+// the columns of each gate a CTA takes: nt slices of that width and the
+// nt rows of cs fill one 128-column tile (nt 3: 40 columns a gate)
+__host__ __device__ constexpr int mlp_gate_cols(int nt) {
+  return (128 - nt) / nt / 8 * 8;
+}
+
+// the ring, the gates' values [32][128] and the types [32][MLP_MAX_NT]
+__host__ __device__ constexpr size_t mlp_gates_tc_smem() {
+  return sizeof(bf16) * tc_ring_elems(2, 4, false, false, MLP_ST) +
+         sizeof(float) * MLP_ROWS * (128 + MLP_MAX_NT);
+}
+
+// launch 2, tensor cores: one product over the 32-row tile of h0 and 128
+// rows gathered from the gates (this CTA's mlp_gate_cols(nt) columns of
+// each) and cs, so that the type logits come with the gates; then types
+// = softmax(logits + cs_b) and h1 = sum_i sigmoid(gate_i) types_i, in
+// gate order
+__global__ void __launch_bounds__(256)
+mlp_gates_tc(const bf16* __restrict__ h0, const bf16* __restrict__ cs_w,
+             const bf16* __restrict__ cs_b, MlpGates gates,
+             bf16* __restrict__ h1, int N, int D, int nt) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  bf16* ring = reinterpret_cast<bf16*>(sm);
+  float* gv = reinterpret_cast<float*>(
+      ring + tc_ring_elems(2, 4, false, false, MLP_ST));
+  float* tys = gv + MLP_ROWS * 128;
+  const int t = threadIdx.x, sw = mlp_gate_cols(nt), ng = nt * sw;
+  const int r0 = blockIdx.x * MLP_ROWS, n0 = blockIdx.y * sw;
+  float acc[4][4];
+  tc_gemm_rows<2, 4, false, MLP_ST>(
+      h0 + (size_t)r0 * D, D, min(MLP_ROWS, N - r0),
+      [&](int n) -> const bf16* {
+        if (n < ng) {
+          const int col = n0 + n % sw;
+          return col < D ? (const bf16*)gates.w[n / sw] + (size_t)col * D
+                         : nullptr;
+        }
+        return n - ng < nt ? cs_w + (size_t)(n - ng) * D : nullptr;
+      },
+      cs_w, D, ring, acc);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = tc_row<2>(e), c = tc_col<2, 4>(j, e);
+      if (c < ng) {
+        const int col = n0 + c % sw;
+        const float b =
+            col < D ? to_f32(((const bf16*)gates.b[c / sw])[col]) : 0.0f;
+        gv[r * 128 + c] = sigmoidf_(acc[j][e] + b);
+      } else if (c - ng < nt) {
+        tys[r * MLP_MAX_NT + c - ng] = acc[j][e] + to_f32(cs_b[c - ng]);
+      }
+    }
+  mlp_softmax_types(tys, MLP_ROWS, nt);
+  for (int e = t; e < MLP_ROWS * sw; e += 256) {
+    const int r = e / sw, cc = e % sw, col = n0 + cc;
+    if (r0 + r >= N || col >= D) continue;
+    float h = 0.0f;
+    for (int g = 0; g < nt; ++g)
+      h += gv[r * 128 + g * sw + cc] * tys[r * MLP_MAX_NT + g];
+    h1[(size_t)(r0 + r) * D + col] = from_f32<bf16>(h);
+  }
+}
+
+// launches 3 and 4, tensor cores: out = epi(a W^T + bias) for one
+// (32-row tile, 64-column slice), a and W streamed together
+template <int EPI>
+__global__ void __launch_bounds__(256)
+mlp_linear_tc(const bf16* __restrict__ a, const bf16* __restrict__ w,
+              const bf16* __restrict__ bias, bf16* __restrict__ out, int N,
+              int K, int Nout) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  bf16* ring = reinterpret_cast<bf16*>(sm);
+  const int r0 = blockIdx.x * MLP_ROWS, n0 = blockIdx.y * MLP_COLS;
+  float acc[2][4];
+  tc_gemm<2, 2, false, false, MLP_ST>(a + (size_t)r0 * K, K, min(MLP_ROWS, N - r0),
+                              w + (size_t)n0 * K, K,
+                              min(MLP_COLS, Nout - n0), K, ring, acc);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + tc_row<2>(e), n = n0 + tc_col<2, 2>(j, e);
+      if (r >= N || n >= Nout) continue;
+      float v = acc[j][e] + to_f32(bias[n]);
+      if (EPI == LIN_GELU) v = gelu_erf(v);
+      out[(size_t)r * Nout + n] = from_f32<bf16>(v);
+    }
+}
+
+// launch 2 on the CUDA cores: one (16-row tile, 64-column slice)
+template <typename T>
+__global__ void __launch_bounds__(256)
+mlp_gates(const T* __restrict__ h0, const T* __restrict__ cs_w,
+          const T* __restrict__ cs_b, MlpGates gates, T* __restrict__ h1,
+          int N, int D, int nt) {
+  extern __shared__ float smem[];
+  float* xs = smem;                          // [16][D]: h0
+  float* wt = xs + GEMM_ROWS * D;
+  float* tys = wt + GEMM_WT_FLOATS;          // [16][MLP_MAX_NT]
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * GEMM_ROWS, n0 = blockIdx.y * GEMM_NT;
+  for (int e = t; e < GEMM_ROWS * D; e += blockDim.x) {
+    const int r = e / D, j = e % D;
+    xs[e] = (r0 + r < N) ? to_f32(h0[(size_t)(r0 + r) * D + j]) : 0.0f;
+  }
+  __syncthreads();
+  mlp_types(xs, D, GEMM_ROWS, D, nt, cs_w, cs_b, tys);
   // h1 = sum_i sigmoid(h0 G_i^T + g_i) * types_i for this column slice
   const int n = n0 + t % GEMM_NT;
   float hsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -123,97 +226,122 @@ mlp_gates(const T* __restrict__ x, const float* __restrict__ plog,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(256)
-mlp_tail(const T* __restrict__ x, const T* __restrict__ h3,
-         const float* __restrict__ plog, const T* __restrict__ ln_b2,
-         T* __restrict__ out, int N, int D, int size, float alpha, float k,
-         float beta) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int r = blockIdx.x * MLP_WARPS + warp;
-  if (r >= N) return;                        // no block-wide sync below
-  float* hr = smem + warp * D;
-  for (int j = lane; j < D; j += 32) hr[j] = to_f32(h3[(size_t)r * D + j]);
-  float lg[3];
-  abby_logits<T>(plog, N, (D + GEMM_NT - 1) / GEMM_NT, r, ln_b2, lg);
-  __syncwarp();
-  abby_row_tail_inplace<T, false>(hr, D, lg, size, alpha, k, beta, lane);
-  for (int j = lane; j < D; j += 32)
-    out[(size_t)r * D + j] = from_f32<T>(to_f32(x[(size_t)r * D + j]) + hr[j]);
-}
+static int launch_mlp(int dtype, const void* x, const void* ln_w1,
+                      const void* ln_b1, const void* ln_w2,
+                      const void* ln_b2, const void* cs_w, const void* cs_b,
+                      const MlpGates& gates, int nt, const void* in_w,
+                      const void* in_b, const void* out_w, const void* out_b,
+                      void* out, void* h0, void* h1, void* h2, void* h3,
+                      bool tc, int N, int D, int H, int size, float alpha,
+                      float k, float beta, cudaStream_t st) {
+  const int S = abby_cluster_size(D);
+  const dim3 grid_n(S, (N + AB_ROWS - 1) / AB_ROWS, 1);
+  const size_t smem_n = abby_smem_bytes(dtype, D);
+  const int vx = D % 8 == 0 && ((uintptr_t)x | (uintptr_t)ln_w1) % 16 == 0;
+  const int vh = D % 8 == 0 && ((uintptr_t)h3 | (uintptr_t)ln_w1) % 16 == 0;
+  cudaError_t e = launch_clusters(
+      mlp_norm<T>, grid_n, S, smem_n, st, (const T*)x, (const T*)ln_w1,
+      (const T*)ln_b1, (const T*)ln_w2, (const T*)ln_b2, (const T*)nullptr,
+      (T*)h0, N, D, size, alpha, k, beta, vx);
+  if (e != cudaSuccess) return (int)e;
 
-template <typename T>
-static int launch_mlp(const void* x, const void* ln_w1, const void* ln_b1,
-                      const void* ln_w2, const void* ln_b2, const void* cs_w,
-                      const void* cs_b, const MlpGates& gates, int nt,
-                      const void* in_w, const void* in_b, const void* out_w,
-                      const void* out_b, void* out, void* plog1, void* plog2,
-                      void* h1, void* h2, void* h3, int N, int D, int H,
-                      int size, float alpha, float k, float beta,
-                      cudaStream_t st) {
-  const int slices = (D + GEMM_NT - 1) / GEMM_NT;
-  const dim3 grid_d((N + GEMM_ROWS - 1) / GEMM_ROWS, slices);
-  const size_t smem_r = sizeof(float) * abby_router_smem_floats(D);
-  cudaFuncSetAttribute(mlp_norm_router<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_r);
-  mlp_norm_router<T><<<grid_d, 256, smem_r, st>>>(
-      (const T*)x, (const T*)ln_w1, (const T*)ln_b1, (const T*)ln_w2,
-      (float*)plog1, N, D);
+  if (tc) {
+    const int rt = (N + MLP_ROWS - 1) / MLP_ROWS;
+    const size_t smem_g = mlp_gates_tc_smem();
+    const int sw = mlp_gate_cols(nt);
+    cudaFuncSetAttribute(mlp_gates_tc,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_g);
+    mlp_gates_tc<<<dim3(rt, (D + sw - 1) / sw), 256, smem_g, st>>>((const bf16*)h0, (const bf16*)cs_w,
+                         (const bf16*)cs_b, gates, (bf16*)h1, N, D, nt);
+    const size_t smem_l =
+        sizeof(bf16) * tc_ring_elems(2, 2, false, false, MLP_ST);
+    cudaFuncSetAttribute(mlp_linear_tc<LIN_GELU>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_l);
+    cudaFuncSetAttribute(mlp_linear_tc<LIN_NONE>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_l);
+    mlp_linear_tc<LIN_GELU>
+        <<<dim3(rt, (H + MLP_COLS - 1) / MLP_COLS), 256, smem_l, st>>>(
+            (const bf16*)h1, (const bf16*)in_w, (const bf16*)in_b,
+            (bf16*)h2, N, D, H);
+    mlp_linear_tc<LIN_NONE>
+        <<<dim3(rt, (D + MLP_COLS - 1) / MLP_COLS), 256, smem_l, st>>>(
+            (const bf16*)h2, (const bf16*)out_w, (const bf16*)out_b,
+            (bf16*)h3, N, H, D);
+  } else {
+    const size_t smem_g =
+        sizeof(float) * (GEMM_ROWS * D + GEMM_WT_FLOATS +
+                         GEMM_ROWS * MLP_MAX_NT);
+    cudaFuncSetAttribute(mlp_gates<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_g);
+    mlp_gates<T><<<dim3((N + GEMM_ROWS - 1) / GEMM_ROWS,
+                        (D + GEMM_NT - 1) / GEMM_NT), 256, smem_g, st>>>(
+        (const T*)h0, (const T*)cs_w, (const T*)cs_b, gates, (T*)h1, N, D,
+        nt);
+    launch_linear_rows<T, LIN_GELU>(h1, in_w, in_b, h2, N, D, H, st);
+    launch_linear_rows<T, LIN_NONE>(h2, out_w, out_b, h3, N, H, D, st);
+  }
 
-  const size_t smem_g =
-      sizeof(float) * (GEMM_ROWS * D + GEMM_WT_FLOATS + GEMM_ROWS * MLP_MAX_NT);
-  cudaFuncSetAttribute(mlp_gates<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_g);
-  mlp_gates<T><<<grid_d, 256, smem_g, st>>>(
-      (const T*)x, (const float*)plog1, (const T*)ln_b2, (const T*)cs_w,
-      (const T*)cs_b, gates, (T*)h1, N, D, nt, size, alpha, k, beta);
-
-  launch_linear_rows<T, LIN_GELU>(h1, in_w, in_b, h2, N, D, H, st);
-  launch_linear_rows<T, LIN_NONE>(h2, out_w, out_b, h3, N, H, D, st);
-
-  mlp_norm_router<T><<<grid_d, 256, smem_r, st>>>(
-      (const T*)h3, (const T*)ln_w1, (const T*)ln_b1, (const T*)ln_w2,
-      (float*)plog2, N, D);
-
-  const size_t smem_t = sizeof(float) * MLP_WARPS * D;
-  mlp_tail<T><<<(N + MLP_WARPS - 1) / MLP_WARPS, 32 * MLP_WARPS, smem_t,
-                st>>>((const T*)x, (const T*)h3, (const float*)plog2,
-                      (const T*)ln_b2, (T*)out, N, D, size, alpha, k, beta);
+  e = launch_clusters(
+      mlp_norm<T>, grid_n, S, smem_n, st, (const T*)h3, (const T*)ln_w1,
+      (const T*)ln_b1, (const T*)ln_w2, (const T*)ln_b2, (const T*)x,
+      (T*)out, N, D, size, alpha, k, beta, vh);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// whether a bf16 call takes the tensor cores: rows of 16-byte multiples
+// and 16-byte aligned operands for the cp.async ring
+static bool mlp_tc_ok(const void* const* ptrs, int n, int D, int H) {
+  uintptr_t a = 0;
+  for (int i = 0; i < n; ++i) a |= (uintptr_t)ptrs[i];
+  return D % 8 == 0 && H % 8 == 0 && a % 16 == 0;
+}
+
 // x, out: (N, D); ln_w1 (D, D), ln_b1 (D,), ln_w2 (3, D), ln_b2 (3,): the
-// shared AbbyNormal router; cs_w (nt, D), cs_b (nt,); gate_w[i] (D, D),
+// shared AbbyNormal; cs_w (nt, D), cs_b (nt,); gate_w[i] (D, D),
 // gate_b[i] (D,) for i < nt; in_w (H, D), in_b (H,); out_w (D, H),
 // out_b (D,) -- torch (out, in) layouts, all of one dtype (0 = f32,
-// 1 = bf16).  Workspace from the caller: plog1, plog2 f32 of
-// ceil(D / 64) * N * 3 each; h1 (N, D), h2 (N, H), h3 (N, D) of the dtype.
-// D <= 1024, H <= 3072, nt <= 4.  Six launches.
+// 1 = bf16).  Workspace from the caller: h0, h1, h3 (N, D) and h2 (N, H)
+// of the dtype.  2 <= D <= 1024, H <= 3072, nt <= 4, window size <= 51,
+// N <= 65535 * 32.  Five launches.
 ASR_API int asr_fused_mlp_residual(
     int dtype, const void* x, const void* ln_w1, const void* ln_b1,
     const void* ln_w2, const void* ln_b2, const void* cs_w, const void* cs_b,
     const void* const* gate_w, const void* const* gate_b, int nt,
     const void* in_w, const void* in_b, const void* out_w, const void* out_b,
-    void* out, void* plog1, void* plog2, void* h1, void* h2, void* h3, int N,
-    int D, int H, int size, float alpha, float k, float beta, void* stream) {
+    void* out, void* h0, void* h1, void* h2, void* h3, int N, int D, int H,
+    int size, float alpha, float k, float beta, void* stream) {
   if (D < 2 || D > ABBY_MAX_D || H < 1 || H > 3 * ABBY_MAX_D || nt < 1 ||
-      nt > MLP_MAX_NT)
+      nt > MLP_MAX_NT || size < 1 || size > ABBY_MAX_TAPS ||
+      N > 65535 * AB_ROWS)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   MlpGates gates = {};
+  const void* ptrs[4 + 2 * MLP_MAX_NT] = {in_w, out_w, h0, h1};
   for (int i = 0; i < nt; ++i) {
     gates.w[i] = gate_w[i];
     gates.b[i] = gate_b[i];
+    ptrs[4 + i] = gate_w[i];
   }
+  ptrs[4 + nt] = h2;
+  ptrs[5 + nt] = h3;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ASR_F32)
-    return launch_mlp<float>(x, ln_w1, ln_b1, ln_w2, ln_b2, cs_w, cs_b, gates,
-                             nt, in_w, in_b, out_w, out_b, out, plog1, plog2,
-                             h1, h2, h3, N, D, H, size, alpha, k, beta, st);
-  return launch_mlp<__nv_bfloat16>(x, ln_w1, ln_b1, ln_w2, ln_b2, cs_w, cs_b,
-                                   gates, nt, in_w, in_b, out_w, out_b, out,
-                                   plog1, plog2, h1, h2, h3, N, D, H, size,
-                                   alpha, k, beta, st);
+    return launch_mlp<float>(dtype, x, ln_w1, ln_b1, ln_w2, ln_b2, cs_w,
+                             cs_b, gates, nt, in_w, in_b, out_w, out_b, out,
+                             h0, h1, h2, h3, false, N, D, H, size, alpha, k,
+                             beta, st);
+  return launch_mlp<bf16>(dtype, x, ln_w1, ln_b1, ln_w2, ln_b2, cs_w, cs_b,
+                          gates, nt, in_w, in_b, out_w, out_b, out, h0, h1,
+                          h2, h3, mlp_tc_ok(ptrs, 6 + nt, D, H), N, D, H,
+                          size, alpha, k, beta, st);
 }
+
+// the dynamic shared memory of the tensor-core gates launch, and the
+// columns of each gate its CTAs take
+ASR_API int asr_mlp_gates_tc_smem() { return (int)mlp_gates_tc_smem(); }
+ASR_API int asr_mlp_gate_cols(int nt) { return mlp_gate_cols(nt); }

@@ -23,24 +23,27 @@
 // What bounds it: the flagship cached call (x 8 x 65 x 512, K/V 8 x 4 x
 // 1001 x 128 bf16) needs ~0.9 GFLOP of q side and ~1.1 GFLOP of attention
 // against ~19 MB, K/V above all: bytes at tensor-core rates (~6 us), but
-// operations on the CUDA cores this version uses; a full call at width
-// 65 reads little and is bound by operations.  The Pallas kernel held a
-// batch row's whole K/V in VMEM (2 MB at the flagship, past shared
-// memory) with a grid of B = 8 programs; here a call is split over
+// operations on the CUDA cores the cached call uses.  A full call at
+// width 65 needs ~3.1 MB of bf16 weights against ~0.5 MB of activations:
+// its time is the bytes each CTA streams into its SM.  The Pallas kernel
+// held a batch row's whole K/V in VMEM (2 MB at the flagship, past
+// shared memory) with a grid of B = 8 programs; here a cached call (and
+// a full call in f32, or past XA_TC_MAX_KEYS keys) is split over
 // (16-row tile, head, batch) blocks (160 at the flagship) that stream K/V
-// in 32-key tiles, and the launches are those the row-wide dependencies
-// force:
+// in 32-key tiles, in the launches the row-wide dependencies force:
 //   1 the q_norm (and, full, kv_norm) router products -> partial logits
 //     (abby_router_tile over 64-column slices)
 //   2 full only: the kv side per (16-key tile, head, batch) -> K, V
 //   3 the q side per (16-row tile, head, batch): norm tail, the head's
 //     q columns, rotary, head_norm, then attention over K/V -> heads
 //   4 out_proj over (16-row tile, 64-column slice)      (linear_rows)
-// Three launches a cached call, four a full one.  Softmax runs in two
-// passes over the keys (running max and sum, then the normalised,
+// Three launches a cached call, four such a full one.  Softmax runs in
+// two passes over the keys (running max and sum, then the normalised,
 // rounded weights times V), so the weights are rounded as the reference
-// rounds them; the second pass recomputes the scores.
-#include "abby_tail.cuh"
+// rounds them; the second pass recomputes the scores.  A full call in
+// bf16 takes two launches on the tensor cores instead (below:
+// xattn_full_rows, xattn_full_attend).
+#include "abby_cluster.cuh"
 
 constexpr int XA_HD = 128;                 // head width the kernels take
 constexpr int XA_QLD = XA_HD + 1;          // padded row of a head tile
@@ -393,6 +396,379 @@ static int launch_xattn(bool full, const void* x, const void* xa,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// Full calls in bf16 on the tensor cores: two launches.
+//
+// Launch 1 (xattn_full_rows): a cluster of abby_cluster_size(D) CTAs per
+// 32-row tile of one side -- x with q_norm (tiles_q clusters), then xa
+// with kv_norm.  The cluster first norms its tile (abby_cluster_tile: the
+// router product sliced over the CTAs, the tail once a row) into xn;
+// after a cluster barrier each CTA takes whole heads of 128 columns
+// (units): a q or k head is its projection, the scale, the rotary and
+// the head's own AbbyNormal (router 128 x 128 on the tensor cores, tail
+// from the tile in shared memory), written to (B, H, S, 128); a v head
+// is its raw projection.  The q side has H units, the kv side 2H.
+// Launch 2 (xattn_full_attend): a cluster of H CTAs per (16-query tile,
+// batch row), one a head: the tile's scores against every key of the
+// head (at most XA_TC_MAX_KEYS, held in shared memory), the exact softmax
+// in one pass, the normalised weights rounded to bf16 as the reference
+// rounds them, the PV product, the head's rounded output pushed into
+// every CTA of the cluster (distributed shared memory), and after a
+// cluster barrier each CTA's 128 columns of out_proj.
+constexpr int XA_TC_MAX_KEYS = 1024;  // the gate admits Ta <= 1024 (D 128)
+constexpr int XA_TLD = XA_HD + 8;     // bf16 row of a head tile
+constexpr int XA_ST = 3;              // k chunks in flight
+
+// the second launch's ring: score blocks (K rows) and PV (V rows)
+__host__ __device__ constexpr int xa_att_ring_elems() {
+  return tc_ring_elems(1, 2, true, false, XA_ST) >
+                 tc_ring_elems(1, 2, true, true, XA_ST)
+             ? tc_ring_elems(1, 2, true, false, XA_ST)
+             : tc_ring_elems(1, 2, true, true, XA_ST);
+}
+
+__host__ __device__ constexpr size_t xa_align(size_t b) {
+  return (b + 127) / 128 * 128;
+}
+
+// launch 1's phase-2 buffers: the ring, the head tile [32][TLD] bf16,
+// ||row|| [32], the head norm's partial logits [4][32][3], routes [32]
+__host__ __device__ constexpr size_t xa_rows_unit_bytes() {
+  return xa_align(sizeof(bf16) * tc_ring_elems(2, 4, false, false, XA_ST)) +
+         xa_align(sizeof(bf16) * AB_ROWS * XA_TLD) +
+         sizeof(float) * (AB_ROWS + 4 * AB_ROWS * 3) + sizeof(int) * AB_ROWS;
+}
+__host__ __device__ constexpr size_t xa_rows_smem(int D) {
+  return abby_smem_bytes(ASR_BF16, D) > xa_rows_unit_bytes()
+             ? abby_smem_bytes(ASR_BF16, D)
+             : xa_rows_unit_bytes();
+}
+
+// keys padded to whole 128-key score blocks
+__host__ __device__ constexpr int xa_keys_pad(int Ta) {
+  return (Ta + 127) / 128 * 128;
+}
+// launch 2: the ring, Q [16][TLD], the heads [16][D + 8], the scores
+// [16][Tp] f32, the weights [16][Tp + 8] bf16
+__host__ __device__ constexpr size_t xa_attend_smem(int D, int Ta) {
+  return xa_align(sizeof(bf16) * xa_att_ring_elems()) +
+         xa_align(sizeof(bf16) * 16 * XA_TLD) +
+         xa_align(sizeof(bf16) * 16 * (D + 8)) +
+         xa_align(sizeof(float) * 16 * xa_keys_pad(Ta)) +
+         sizeof(bf16) * 16 * (xa_keys_pad(Ta) + 8);
+}
+
+struct XaRowsArgs {
+  const bf16* x[2];         // the sides' inputs: x, xa
+  int n[2], s[2];           // rows B * S and positions S of each side
+  bf16* xn[2];              // the normed rows
+  bf16* head[2];            // q (B, H, T, 128) and k (B, H, Ta, 128)
+  bf16* v;                  // (B, H, Ta, 128)
+  int tiles_q, vec[2];
+};
+
+// one unit of launch 1: head u of the side (kv: u >= H is v head u - H)
+// for the cluster's 32 rows from row r0
+__device__ void xa_rows_unit(const XaRowsArgs& a, const XaW<bf16>& w,
+                             const float* __restrict__ freqs, int kv, int u,
+                             int r0, const XaShape& sh,
+                             unsigned char* smem) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int D = sh.D, H = sh.H, N = a.n[kv], S = a.s[kv];
+  const int rows = min(AB_ROWS, N - r0);
+  const bool is_v = kv && u >= H;
+  const int h = is_v ? u - H : u;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* ts = reinterpret_cast<bf16*>(
+      smem + xa_align(sizeof(bf16) * tc_ring_elems(2, 4, false, false, XA_ST)));
+  float* mn = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(ts) +
+      xa_align(sizeof(bf16) * AB_ROWS * XA_TLD));
+  float* pl = mn + AB_ROWS;                  // [4][32][3]
+  int* chs = reinterpret_cast<int*>(pl + 4 * AB_ROWS * 3);
+  const bf16* wp = w.p[kv ? KP_W : QP_W];
+  const bf16* bp = w.p[kv ? KP_B : QP_B];
+  const int col0 = (is_v ? D : 0) + h * XA_HD;
+
+  // ||row|| of the side's input, for the rotary
+  if (!is_v)
+    for (int r = warp; r < AB_ROWS; r += 8) {
+      float sq = 0.0f;
+      if (r < rows)
+        for (int j = lane; j < D; j += 32) {
+          const float v = to_f32(a.x[kv][(size_t)(r0 + r) * D + j]);
+          sq += v * v;
+        }
+      sq = warp_sum(sq);
+      if (lane == 0) mn[r] = sq > 0.0f ? sqrtf(sq) : 0.0f;
+    }
+  float acc[4][4];
+  tc_gemm<2, 4, false, false, XA_ST>(a.xn[kv] + (size_t)r0 * D, D, rows,
+                              wp + (size_t)col0 * D, D, XA_HD, D, ring, acc);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int r = tc_row<2>(e), c = tc_col<2, 4>(j, e);
+      float v0 = acc[j][e] + to_f32(bp[col0 + c]);
+      float v1 = acc[j][e + 1] + to_f32(bp[col0 + c + 1]);
+      if (is_v) {
+        if (r < rows) {
+          const int g = r0 + r, b = g / S, p = g % S;
+          *reinterpret_cast<__nv_bfloat162*>(
+              a.v + (((size_t)b * H + h) * S + p) * XA_HD + c) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+        continue;
+      }
+      // scale, then the pair (c, c + 1) rotated at angle p f_(c / 2) by
+      // m = ||row||, rounded (xa_rotate)
+      v0 *= sh.qk_scale;
+      v1 *= sh.qk_scale;
+      const float f = (float)((r0 + r) % S) * freqs[c / 2];
+      const float mc = mn[r] * cosf(f), ms = mn[r] * sinf(f);
+      *reinterpret_cast<__nv_bfloat162*>(ts + r * XA_TLD + c) =
+          __floats2bfloat162_rn(v0 * mc + v1 * (-ms), v1 * mc + v0 * ms);
+    }
+  if (is_v) return;
+
+  // the head's AbbyNormal: h = silu(ts W1^T + b1) rounded, partial logits
+  // of the warp's 32 columns, summed over the 4 lanes of a row
+  tc_gemm<2, 4, true, false, XA_ST>(ts, XA_TLD, AB_ROWS, w.p[HN_W1], XA_HD, XA_HD,
+                             XA_HD, ring, acc);
+  const bf16* b1 = w.p[HN_B1];
+  const bf16* w2 = w.p[HN_W2];
+  float p[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = tc_col<2, 4>(j, e);
+      const float hv = to_f32(from_f32<bf16>(siluf_(acc[j][e] + to_f32(b1[c]))));
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        p[e >> 1][q] += hv * to_f32(w2[q * XA_HD + c]);
+    }
+  const int wn = warp / 2;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      float v = p[hh][q];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if ((lane & 3) == 0)
+        pl[(wn * AB_ROWS + tc_row<2>(2 * hh)) * 3 + q] = v;
+    }
+  __syncthreads();
+  // each row's route: argmax(logits + cv), the first maximum on ties
+  for (int r = warp; r < rows; r += 8) {
+    const float cv = abby_row_cv(ts + r * XA_TLD, XA_HD, lane);
+    if (lane == 0) {
+      int best = 0;
+      float bv = 0.0f;
+      for (int q = 0; q < 3; ++q) {
+        float s = 0.0f;
+        for (int g = 0; g < 4; ++g) s += pl[(g * AB_ROWS + r) * 3 + q];
+        const float v = (s + to_f32(w.p[HN_B2][q])) + cv;
+        if (q == 0 || v > bv) {
+          bv = v;
+          best = q;
+        }
+      }
+      chs[r] = best;
+    }
+  }
+  __syncthreads();
+  bf16* out = a.head[kv];
+  for (int it = t; it < rows * (XA_HD / 8); it += 256) {
+    const int r = it / (XA_HD / 8), j0 = (it % (XA_HD / 8)) * 8;
+    const int g = r0 + r, b = g / S, pp = g % S;
+    bf16* orow = out + (((size_t)b * H + h) * S + pp) * XA_HD;
+    if (sh.size_h == 7)             // window_size(128)
+      abby_tail8_sized<7>(ts + r * XA_TLD, j0, XA_HD, chs[r], sh.alpha, sh.k,
+                          sh.beta, orow, (const bf16*)nullptr);
+    else
+      abby_tail8<ABBY_MAX_TAPS>(ts + r * XA_TLD, j0, XA_HD, sh.size_h,
+                                chs[r], sh.alpha, sh.k, sh.beta, orow,
+                                (const bf16*)nullptr);
+  }
+}
+
+__global__ void __launch_bounds__(AB_THREADS, 2)
+xattn_full_rows(XaRowsArgs a, XaW<bf16> w, const float* __restrict__ freqs,
+                XaShape sh) {
+  extern __shared__ __align__(128) unsigned char xa_smem[];
+  const int kv = (int)blockIdx.y >= a.tiles_q;
+  const int r0 = (blockIdx.y - (kv ? a.tiles_q : 0)) * AB_ROWS;
+  const int S = (int)gridDim.x, rank = (int)blockIdx.x;
+  abby_cluster_tile<bf16>(a.x[kv], w.p[kv ? KN_W1 : QN_W1],
+                          w.p[kv ? KN_B1 : QN_B1], w.p[kv ? KN_W2 : QN_W2],
+                          w.p[kv ? KN_B2 : QN_B2], nullptr, a.xn[kv],
+                          a.n[kv], sh.D, sh.size_d, sh.alpha, sh.k, sh.beta,
+                          a.vec[kv], r0, xa_smem);
+  // every CTA's rows of the normed tile are written (and this CTA's
+  // shared memory is no longer read by the others)
+  __threadfence();
+  cluster_arrive();
+  cluster_wait();
+  const int units = kv ? 2 * sh.H : sh.H;
+  for (int u = rank; u < units; u += S)
+    xa_rows_unit(a, w, freqs, kv, u, r0, sh, xa_smem);
+}
+
+__global__ void __launch_bounds__(256)
+xattn_full_attend(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
+                  const bf16* __restrict__ vh,
+                  const uint8_t* __restrict__ valid, XaW<bf16> w,
+                  bf16* __restrict__ out, XaShape sh) {
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ __align__(128) unsigned char xa_smem[];
+  cluster_arrive_relaxed();             // waited on before the first push
+  const int t = threadIdx.x;
+  const int h = blockIdx.x, t0 = blockIdx.y * 16, b = blockIdx.z;
+  const int D = sh.D, H = sh.H, T = sh.T, Ta = sh.Tk;
+  const int Tp = xa_keys_pad(Ta), ldc = D + 8, ldp = Tp + 8;
+  const int rows = min(16, T - t0);
+  const size_t ring_b = xa_align(
+      sizeof(bf16) * xa_att_ring_elems());
+  bf16* ring = reinterpret_cast<bf16*>(xa_smem);
+  bf16* qs = reinterpret_cast<bf16*>(xa_smem + ring_b);
+  bf16* cat = reinterpret_cast<bf16*>(
+      reinterpret_cast<unsigned char*>(qs) +
+      xa_align(sizeof(bf16) * 16 * XA_TLD));
+  float* sc = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(cat) +
+      xa_align(sizeof(bf16) * 16 * ldc));
+  bf16* ps = reinterpret_cast<bf16*>(
+      reinterpret_cast<unsigned char*>(sc) +
+      xa_align(sizeof(float) * 16 * Tp));
+  const size_t hq = ((size_t)b * H + h) * T, hk = ((size_t)b * H + h) * Ta;
+
+  for (int e = t; e < 16 * (XA_HD / 8); e += 256) {
+    const int r = e / (XA_HD / 8), c = (e % (XA_HD / 8)) * 8;
+    const bool in = r < rows;
+    cp_async16(qs + r * XA_TLD + c, in ? qh + (hq + t0 + r) * XA_HD + c : qh,
+               in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+
+  // scores of the tile's rows against blocks of 128 keys, scaled and
+  // masked (-1e30); keys past Ta take no weight at all
+  const uint8_t* vrow = valid ? valid + (size_t)b * Ta : nullptr;
+  for (int k0 = 0; k0 < Ta; k0 += 128) {
+    float acc[2][4];
+    tc_gemm<1, 2, true, false, XA_ST>(qs, XA_TLD, 16, kh + (hk + k0) * XA_HD, XA_HD,
+                               min(128, Ta - k0), XA_HD, ring, acc);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = tc_row<1>(e), kj = k0 + tc_col<1, 2>(j, e);
+        float s = -INFINITY;
+        if (kj < Ta) {
+          bool masked = sh.causal && kj > t0 + r + Ta - T;
+          if (vrow && !vrow[kj]) masked = true;
+          s = masked ? XA_MASKED : acc[j][e] * sh.sm_scale;
+        }
+        sc[r * Tp + kj] = s;
+      }
+  }
+  __syncthreads();
+  // the exact softmax of each row, 16 threads a row; the normalised
+  // weights rounded to bf16 (zero past Ta, up to Tp)
+  {
+    const int r = t / 16, tx = t % 16;
+    const float* sr = sc + r * Tp;
+    float mx = -INFINITY;
+    for (int kj = tx; kj < Ta; kj += 16) mx = fmaxf(mx, sr[kj]);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.0f;
+    for (int kj = tx; kj < Ta; kj += 16) sum += expf(sr[kj] - mx);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    for (int kj = tx; kj < Tp; kj += 16)
+      ps[r * ldp + kj] = kj < Ta ? from_f32<bf16>(expf(sr[kj] - mx) / sum)
+                                 : from_f32<bf16>(0.0f);
+  }
+  // the head's output: weights times V (keys past Ta read as 0)
+  float acc[2][4];
+  tc_gemm<1, 2, true, true, XA_ST>(ps, ldp, 16, vh + hk * XA_HD, XA_HD, XA_HD, Ta,
+                            ring, acc);
+  // rounded, into every CTA's copy of the tile's heads
+  cluster_wait();                       // every CTA has started
+  for (int q = 0; q < H; ++q) {
+    bf16* dst = cl.map_shared_rank(cat, q);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = tc_row<1>(e), c = tc_col<1, 2>(j, e);
+        *reinterpret_cast<__nv_bfloat162*>(dst + r * ldc + h * XA_HD + c) =
+            __floats2bfloat162_rn(acc[j][e], acc[j][e + 1]);
+      }
+  }
+  cluster_arrive();
+  cluster_wait();
+  // out_proj: this CTA's 128 columns of the tile's rows
+  const int c0 = h * XA_HD;
+  tc_gemm<1, 2, true, false, XA_ST>(cat, ldc, 16, w.p[OP_W] + (size_t)c0 * D, D,
+                             XA_HD, D, ring, acc);
+  const bf16* ob = w.p[OP_B];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int r = tc_row<1>(e), c = c0 + tc_col<1, 2>(j, e);
+      if (r < rows)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + ((size_t)b * T + t0 + r) * D + c) =
+            __floats2bfloat162_rn(acc[j][e] + to_f32(ob[c]),
+                                  acc[j][e + 1] + to_f32(ob[c + 1]));
+    }
+}
+
+static int launch_xattn_full_tc(const void* x, const void* xa,
+                                const void* valid, const void* freqs,
+                                const void* const* wp, void* out, void* xn,
+                                void* xan, void* qh, void* kh, void* vh,
+                                const XaShape& sh, cudaStream_t st) {
+  XaW<bf16> w;
+  for (int i = 0; i < XA_NW; ++i) w.p[i] = (const bf16*)wp[i];
+  const int D = sh.D;
+  XaRowsArgs a;
+  a.x[0] = (const bf16*)x;
+  a.x[1] = (const bf16*)xa;
+  a.n[0] = sh.B * sh.T;
+  a.n[1] = sh.B * sh.Tk;
+  a.s[0] = sh.T;
+  a.s[1] = sh.Tk;
+  a.xn[0] = (bf16*)xn;
+  a.xn[1] = (bf16*)xan;
+  a.head[0] = (bf16*)qh;
+  a.head[1] = (bf16*)kh;
+  a.v = (bf16*)vh;
+  a.tiles_q = (a.n[0] + AB_ROWS - 1) / AB_ROWS;
+  a.vec[0] = ((uintptr_t)x | (uintptr_t)wp[QN_W1]) % 16 == 0;
+  a.vec[1] = ((uintptr_t)xa | (uintptr_t)wp[KN_W1]) % 16 == 0;
+  const int S = abby_cluster_size(D);
+  cudaError_t e = launch_clusters(
+      xattn_full_rows,
+      dim3(S, a.tiles_q + (a.n[1] + AB_ROWS - 1) / AB_ROWS, 1), S,
+      xa_rows_smem(D), st, a, w, (const float*)freqs, sh);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_clusters(xattn_full_attend, dim3(sh.H, (sh.T + 15) / 16, sh.B),
+                      sh.H, xa_attend_smem(D, sh.Tk), st, (const bf16*)qh,
+                      (const bf16*)kh, (const bf16*)vh,
+                      (const uint8_t*)valid, w, (bf16*)out, sh);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 static int xattn_checks(int D, int H, int T, int Tk) {
   if (H < 1 || D != H * XA_HD || D > ABBY_MAX_D || T < 1 || Tk < 1)
     return (int)cudaErrorInvalidValue;
@@ -442,28 +818,47 @@ ASR_API int asr_fused_attn_cached(int dtype, const void* x, const void* kc,
 // Full call.  x, out: (B, T, D); xa: (B, Ta, D) (xa = x for
 // self-attention); valid: (B, Ta) bytes or null; causal: bottom-right
 // mask; freqs: (64,) f32, the ladder of both sides; w: all XA_NW weights.
-// Workspace: plog_q and plog_kv f32 of ceil(D / 64) * B * T * 3 and
-// ceil(D / 64) * B * Ta * 3; kbuf, vbuf (B, H, Ta, 128) and o (B, T, D)
-// of the dtype.  Four launches.
-ASR_API int asr_fused_attn_full(int dtype, const void* x, const void* xa,
-                                const void* valid, const void* freqs,
-                                const void* const* w, void* out,
-                                void* plog_q, void* plog_kv, void* kbuf,
-                                void* vbuf, void* o, int B, int T, int Ta,
+// tc (bf16 only, Ta <= XA_TC_MAX_KEYS, 16-byte aligned operands): the two
+// tensor-core launches, workspace ws0, ws1 the normed rows (B, T, D) and
+// (B, Ta, D), ws2 q (B, H, T, 128), ws3 k and ws4 v (B, H, Ta, 128), all
+// bf16.  Else the four CUDA-core launches of the cached call's design
+// (xattn_routers, xattn_kv, xattn_q_attend, out_proj), workspace ws0 and
+// ws1 f32 of ceil(D / 64) * B * T * 3 and ceil(D / 64) * B * Ta * 3, ws2,
+// ws3 (B, H, Ta, 128) and ws4 (B, T, D) of the dtype.
+ASR_API int asr_fused_attn_full(int dtype, int tc, const void* x,
+                                const void* xa, const void* valid,
+                                const void* freqs, const void* const* w,
+                                void* out, void* ws0, void* ws1, void* ws2,
+                                void* ws3, void* ws4, int B, int T, int Ta,
                                 int D, int H, int causal, int size_d,
                                 int size_h, float alpha, float k, float beta,
                                 void* stream) {
   const int bad = xattn_checks(D, H, T, Ta);
   if (bad) return bad;
+  if (tc && (dtype != ASR_BF16 || Ta > XA_TC_MAX_KEYS || size_d < 1 ||
+             size_d > ABBY_MAX_TAPS || size_h < 1 ||
+             size_h > ABBY_MAX_TAPS || B > 65535 ||
+             ((long)B * T + AB_ROWS - 1) / AB_ROWS +
+                     ((long)B * Ta + AB_ROWS - 1) / AB_ROWS >
+                 65535))
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const XaShape sh = xa_shape(B, T, Ta, D, H, causal, size_d, size_h, alpha,
                               k, beta);
   cudaStream_t st = (cudaStream_t)stream;
+  if (tc)
+    return launch_xattn_full_tc(x, xa, valid, freqs, w, out, ws0, ws1, ws2,
+                                ws3, ws4, sh, st);
   if (dtype == ASR_F32)
     return launch_xattn<float>(true, x, xa, nullptr, nullptr, valid, freqs,
-                               w, out, plog_q, plog_kv, kbuf, vbuf, o, sh,
-                               st);
+                               w, out, ws0, ws1, ws2, ws3, ws4, sh, st);
   return launch_xattn<__nv_bfloat16>(true, x, xa, nullptr, nullptr, valid,
-                                     freqs, w, out, plog_q, plog_kv, kbuf,
-                                     vbuf, o, sh, st);
+                                     freqs, w, out, ws0, ws1, ws2, ws3, ws4,
+                                     sh, st);
+}
+
+// the dynamic shared memory of the two tensor-core launches
+ASR_API int asr_xattn_rows_smem(int D) { return (int)xa_rows_smem(D); }
+ASR_API int asr_xattn_attend_smem(int D, int Ta) {
+  return (int)xa_attend_smem(D, Ta);
 }

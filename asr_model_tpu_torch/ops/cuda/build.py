@@ -170,3 +170,17 @@ def workspace(device, nbytes):
         total += -(-int(n) // 256) * 256
     buf = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
     return buf, [buf.data_ptr() + o for o in offs]
+
+
+TC_KC = 64
+
+
+def tc_ring_bytes(mt: int, nj: int, a_smem: bool, w_kn: bool,
+                  stages: int) -> int:
+    """Bytes of the bf16 operand ring of ``csrc/mma.cuh:tc_gemm`` for a
+    tile of 16 mt rows and 64 nj / mt columns, ``stages`` k chunks deep
+    (``tc_ring_elems``)."""
+    cols = 64 * nj // mt
+    a = 0 if a_smem else 16 * mt * (TC_KC + 8)
+    w = TC_KC * (cols + 8) if w_kn else cols * (TC_KC + 8)
+    return 2 * stages * (a + w)

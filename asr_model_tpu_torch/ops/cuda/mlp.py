@@ -6,11 +6,13 @@ Replaces ``asr_model_tpu/ops/pallas/mlp_kernel.py:fused_mlp_residual``.
 The GELU is torch's exact erf form (the Pallas kernel built erf from a
 rational approximation, within 1.5e-7 of it).  Products take operands
 rounded to the storage type (h0, h1, h2, h3, where the Pallas kernel
-rounds) with f32 sums.  About 11 D^2 multiply-adds a row against ~5 MB
-of bf16 weights at D = 512: the weights stream through shared tiles, and
-each product needs whole rows of its input, so a call is six launches
-(two router products, the gates, W_in, W_out, the tail), each split over
-(16-row tile, 64-column slice) blocks.
+rounds) with f32 sums.  About 11 D^2 multiply-adds a row against ~5.8 MB
+of bf16 weights at D = 512, and each product needs whole rows of its
+input, so a call is five launches (``launch_plan``): ln(x) by a cluster
+per 32-row tile (the router sliced over its CTAs, the tail once a row),
+the gates, W_in + GELU, W_out, and x + ln(h3) as the first.  bf16 rows
+of 16-byte multiples take the tensor cores (32-row tiles x 64-column
+slices); f32 takes the CUDA cores in the same launches.
 """
 
 from __future__ import annotations
@@ -18,10 +20,49 @@ from __future__ import annotations
 import torch
 
 from asr_model_tpu_torch.ops.cuda import build as B
+from asr_model_tpu_torch.ops.cuda import abby
 from asr_model_tpu_torch.ops.cuda.abby import abby_values
 
-LAUNCHES = 6                     # a call's kernel launches (mlp.cu)
+LAUNCHES = 5                     # a call's kernel launches (mlp.cu)
 MAX_D, MAX_TYPES = 1024, 4
+ROWS, COLS = 32, 64              # the tensor-core tiles (mlp.cu)
+STAGES = 3                       # their k chunks in flight (MLP_ST)
+
+
+def gate_cols(nt: int) -> int:
+    """Columns of each gate a CTA of the tensor-core gates launch takes:
+    nt slices and the nt rows of cs fill one 128-column tile
+    (``csrc/mlp.cu:mlp_gate_cols``)."""
+    return (128 - nt) // nt // 8 * 8
+
+
+def gates_tc_smem() -> int:
+    """Dynamic shared memory of the tensor-core gates launch
+    (``csrc/mlp.cu:mlp_gates_tc_smem``): the ring, the gates' values
+    [32][128] and the types, f32."""
+    return (B.tc_ring_bytes(2, 4, False, False, STAGES)
+            + 4 * ROWS * (128 + MAX_TYPES))
+
+
+def launch_plan(n: int, d: int, hid: int, dtype, nt: int = 3) -> dict:
+    """What ``asr_fused_mlp_residual`` launches for (n, d) rows and a
+    hidden width ``hid``: the two norms' clusters (``abby.launch_plan``),
+    whether the products take the tensor cores (bf16, d and hid
+    multiples of 8, on aligned operands), their (row tile, column slice)
+    grids (``gate_cols(nt)`` columns of each of nt gates a CTA in the
+    tensor-core gates launch) and shared memory in bytes."""
+    norm = abby.launch_plan(n, d, dtype)
+    tc = dtype == torch.bfloat16 and d % 8 == 0 and hid % 8 == 0
+    rows = ROWS if tc else 16
+    return dict(launches=LAUNCHES, tc=tc, norm=norm, rows=rows,
+                tiles=-(-n // rows), slices_d=-(-d // COLS),
+                slices_hid=-(-hid // COLS),
+                gate_cols=gate_cols(nt) if tc else COLS,
+                slices_gates=-(-d // (gate_cols(nt) if tc else COLS)),
+                gates_smem=(gates_tc_smem() if tc
+                            else 4 * (16 * d + 32 * 65 + 16 * MAX_TYPES)),
+                linear_smem=(B.tc_ring_bytes(2, 2, False, False, STAGES) if tc
+                             else 4 * (16 * max(d, hid) + 32 * 65)))
 
 
 def mlp_residual_plain(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
@@ -70,7 +111,8 @@ def fused_mlp_residual(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
     weights = [*ln_w, cs_w, cs_b, *[t for g in gates for t in g], in_w,
                in_b, out_w, out_b]
     ok = (x2.dim() == 2 and 2 <= d <= MAX_D and 1 <= nt <= MAX_TYPES
-          and hid <= 3 * MAX_D and ln_w[0].shape == (d, d)
+          and hid <= 3 * MAX_D and 1 <= size_d <= abby.MAX_TAPS
+          and n <= 65535 * ROWS and ln_w[0].shape == (d, d)
           and ln_w[2].shape == (3, d) and cs_w.shape == (nt, d)
           and all(g[0].shape == (d, d) and g[1].shape == (d,) for g in gates)
           and in_w.shape == (hid, d) and out_w.shape == (d, hid)
@@ -79,25 +121,25 @@ def fused_mlp_residual(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
     if not ok:
         raise ValueError(
             "fused_mlp_residual kernels take contiguous (N, D<=1024) x and "
-            "torch-layout weights of its dtype and device, at most 4 gates; "
+            "torch-layout weights of its dtype and device, at most 4 gates "
+            f"and a window of at most {abby.MAX_TAPS}; "
             f"got x {tuple(x2.shape)} {x2.dtype}, in_w {tuple(in_w.shape)}, "
             f"{nt} gates")
     code = B.dtype_code(x2.dtype)
     es = x2.element_size()
-    plog = -(-d // 64) * n * 3 * 4
-    work, (p1, p2, h1, h2, h3) = B.workspace(
-        x2.device, [plog, plog, n * d * es, n * hid * es, n * d * es])
+    work, (h0, h1, h2, h3) = B.workspace(
+        x2.device, [n * d * es, n * d * es, n * hid * es, n * d * es])
     out = torch.empty_like(x2)
     fn = B.function("asr_fused_mlp_residual",
                     [B.I, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.PP, B.PP, B.I,
-                     B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.I,
-                     B.I, B.I, B.I, B.F, B.F, B.F, B.P])
+                     B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I,
+                     B.I, B.I, B.F, B.F, B.F, B.P])
     rc = fn(code, x2.data_ptr(), *(t.data_ptr() for t in ln_w),
             cs_w.data_ptr(), cs_b.data_ptr(),
             B.ptr_array([g[0].data_ptr() for g in gates]),
             B.ptr_array([g[1].data_ptr() for g in gates]), nt,
             in_w.data_ptr(), in_b.data_ptr(), out_w.data_ptr(),
-            out_b.data_ptr(), out.data_ptr(), p1, p2, h1, h2, h3, n, d, hid,
+            out_b.data_ptr(), out.data_ptr(), h0, h1, h2, h3, n, d, hid,
             int(size_d), float(alpha), float(k), float(beta),
             B.stream_of(x2))
     B.check(rc, "asr_fused_mlp_residual")

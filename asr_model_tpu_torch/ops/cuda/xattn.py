@@ -9,11 +9,16 @@ for self-attention).  A call is q_norm -> q_proj -> * hd^-0.25 -> rotary
 from xa in a full call (v raw), masked softmax attention (masked logits
 -1e30, causal mask aligned bottom-right), out_proj.  Products take
 operands rounded to the storage type with f32 sums, rounded where the
-Pallas kernel rounds.  The kernels split a call over (16-row tile, head,
-batch) blocks that stream K/V, in the launches the row-wide
-dependencies force: three a cached call (norm router, q side +
-attention, out_proj), four a full one (the kv side besides).  Head width
-128, D = 128 * heads <= 1024.
+Pallas kernel rounds.  Head width 128, D = 128 * heads <= 1024.
+
+A cached call is three launches on the CUDA cores (norm router, q side
++ attention per (16-row tile, head, batch), out_proj).  A full call in
+bf16 with at most 1024 keys (every call the model's gate admits) is two
+launches on the tensor cores (``launch_plan_full``): a cluster per
+32-row tile of x and of xa norms its rows once and projects, rotates and
+head-norms whole heads; a cluster of one CTA a head per 16-query tile
+takes the exact softmax in one pass, the PV product and out_proj.  Other
+full calls (f32, longer key sets) take four CUDA-core launches.
 """
 
 from __future__ import annotations
@@ -23,11 +28,17 @@ import math
 import torch
 
 from asr_model_tpu_torch.ops.cuda import build as B
+from asr_model_tpu_torch.ops.cuda import abby
 from asr_model_tpu_torch.ops.cuda.abby import abby_values
 
 NEG_INF = -1e30
 HEAD_DIM, MAX_D = 128, 1024
-LAUNCHES_CACHED, LAUNCHES_FULL = 3, 4
+LAUNCHES_CACHED = 3
+# a full call's launches: the tensor-core route, the CUDA-core one
+LAUNCHES_FULL, LAUNCHES_FULL_CC = 2, 4
+TC_MAX_KEYS = 1024               # csrc/xattn.cu XA_TC_MAX_KEYS
+ROWS, Q_ROWS = 32, 16            # the tiles of the two launches
+STAGES = 3                       # their k chunks in flight (XA_ST)
 NORM_KEYS = ("n_w1", "n_b1", "n_w2", "n_b2")
 PROJ_KEYS = ("proj_w", "proj_b")
 
@@ -212,12 +223,61 @@ def fused_attn_cached(x, kn, v, kv_valid, freqs, wq, wh, wo, head: int,
 fused_attn_cached.launches = 0
 
 
+def _align(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def rows_smem(d: int) -> int:
+    """Dynamic shared memory of the full call's first tensor-core launch
+    (``csrc/xattn.cu:xa_rows_smem``): the larger of the norm's and a
+    head unit's (ring, head tile, ||row||, partial logits, routes)."""
+    unit = (_align(B.tc_ring_bytes(2, 4, False, False, STAGES))
+            + _align(2 * ROWS * (HEAD_DIM + 8)) + 4 * (ROWS + 4 * ROWS * 3)
+            + 4 * ROWS)
+    return max(abby.launch_plan(1, d, torch.bfloat16)["smem"], unit)
+
+
+def attend_smem(d: int, ta: int) -> int:
+    """Dynamic shared memory of the second launch
+    (``csrc/xattn.cu:xa_attend_smem``): ring, Q tile, the heads, f32
+    scores and bf16 weights over the keys padded to 128."""
+    tp = -(-ta // 128) * 128
+    ring = max(B.tc_ring_bytes(1, 2, True, False, STAGES),
+               B.tc_ring_bytes(1, 2, True, True, STAGES))
+    return (_align(ring) + _align(2 * Q_ROWS * (HEAD_DIM + 8))
+            + _align(2 * Q_ROWS * (d + 8)) + _align(4 * Q_ROWS * tp)
+            + 2 * Q_ROWS * (tp + 8))
+
+
+def launch_plan_full(b: int, t: int, ta: int, d: int, dtype,
+                     operands_ok: bool = True) -> dict:
+    """What ``asr_fused_attn_full`` launches for x (b, t, d) against xa
+    (b, ta, d): the route ("tc": two tensor-core launches, bf16 with at
+    most TC_MAX_KEYS keys, where ``operands_ok`` -- 16-byte aligned
+    operands, windows of at most 51 taps, at most 65535 row tiles; else
+    "cc", four CUDA-core launches), and for "tc" the first launch's clusters (one a
+    32-row tile of x, then of xa; ``cluster`` CTAs each, the norm's) and
+    the second's (one CTA a head per (16-query tile, batch row)), with
+    their shared memory in bytes."""
+    head = d // HEAD_DIM
+    tiles = -(-b * t // ROWS) + -(-b * ta // ROWS)
+    if not (dtype == torch.bfloat16 and ta <= TC_MAX_KEYS and operands_ok
+            and tiles <= 65535 and b <= 65535):
+        return dict(route="cc", launches=LAUNCHES_FULL_CC)
+    return dict(route="tc", launches=LAUNCHES_FULL,
+                tiles_q=-(-b * t // ROWS), tiles_kv=-(-b * ta // ROWS),
+                rows=ROWS, cluster=abby.launch_plan(1, d, dtype)["cluster"],
+                units_q=head, units_kv=2 * head, rows_smem=rows_smem(d),
+                q_tiles=-(-t // Q_ROWS), q_rows=Q_ROWS, attend_cluster=head,
+                attend_smem=attend_smem(d, ta))
+
+
 def fused_attn_full(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head: int,
                     size_d: int, size_h: int, alpha: float, k: float,
                     beta: float, causal: bool):
     """One full attention call (arguments as in ``attn_full_plain``): the
     kernels on CUDA tensors (f32 or bf16), the plain version on CPU
-    tensors.  Four launches."""
+    tensors.  Two launches in bf16 (``launch_plan_full``), else four."""
     if x.device.type == "cpu":
         return attn_full_plain(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head,
                                size_d, size_h, alpha, k, beta, causal)
@@ -230,22 +290,31 @@ def fused_attn_full(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head: int,
         raise ValueError(f"fused_attn_full: xa {tuple(xa.shape)} for x "
                          f"{tuple(x.shape)}")
     es = x.element_size()
-    slices = -(-d // 64)
-    work, (pq, pkv, kb, vb, o) = B.workspace(
-        x.device, [slices * b_ * t_ * 12, slices * b_ * ta * 12,
-                   b_ * ta * d * es, b_ * ta * d * es, b_ * t_ * d * es])
+    ok = (all(p % 16 == 0 for p in [x.data_ptr(), xa.data_ptr(),
+                                    *(w.data_ptr() for w in ws)])
+          and max(size_d, size_h) <= abby.MAX_TAPS)
+    plan = launch_plan_full(b_, t_, ta, d, x.dtype, ok)
+    tc = plan["route"] == "tc"
+    if tc:                        # normed rows, then q, k, v heads
+        sizes = [b_ * t_ * d * es, b_ * ta * d * es, b_ * t_ * d * es,
+                 b_ * ta * d * es, b_ * ta * d * es]
+    else:                         # router logits, k, v heads, o
+        slices = -(-d // 64)
+        sizes = [slices * b_ * t_ * 12, slices * b_ * ta * 12,
+                 b_ * ta * d * es, b_ * ta * d * es, b_ * t_ * d * es]
+    work, pieces = B.workspace(x.device, sizes)
     out = torch.empty_like(x)
     fn = B.function("asr_fused_attn_full",
-                    [B.I, B.P, B.P, B.P, B.P, B.PP, B.P, B.P, B.P, B.P, B.P,
-                     B.P, B.I, B.I, B.I, B.I, B.I, B.I, B.I, B.I, B.F, B.F,
-                     B.F, B.P])
-    rc = fn(B.dtype_code(x.dtype), x.data_ptr(), xa.data_ptr(),
+                    [B.I, B.I, B.P, B.P, B.P, B.P, B.PP, B.P, B.P, B.P, B.P,
+                     B.P, B.P, B.I, B.I, B.I, B.I, B.I, B.I, B.I, B.I, B.F,
+                     B.F, B.F, B.P])
+    rc = fn(B.dtype_code(x.dtype), int(tc), x.data_ptr(), xa.data_ptr(),
             B.ptr(kv_valid), fr.data_ptr(),
-            B.ptr_array([w.data_ptr() for w in ws]), out.data_ptr(), pq, pkv,
-            kb, vb, o, b_, t_, ta, d, head, int(bool(causal)), int(size_d),
+            B.ptr_array([w.data_ptr() for w in ws]), out.data_ptr(), *pieces,
+            b_, t_, ta, d, head, int(bool(causal)), int(size_d),
             int(size_h), float(alpha), float(k), float(beta), B.stream_of(x))
     B.check(rc, "asr_fused_attn_full")
-    fused_attn_full.launches += LAUNCHES_FULL if b_ else 0
+    fused_attn_full.launches += plan["launches"] if b_ else 0
     return out
 
 

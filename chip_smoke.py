@@ -9,10 +9,10 @@
    the shapes of the decode paths, with the tolerance stated beside it,
    and times kernel, plain version and (where one PyTorch call computes
    the same function) that call, each as device time (``cuda_ms``); for
-   the mel, flash, AbbyNormal and MSheath kernels also the achieved
-   TFLOP/s and the share of the bound, and (where the toolkit has
-   ``cuobjdump``) the tensor-core instructions in the bf16 flash and
-   AbbyNormal kernels and the MSheath row kernel.
+   the mel, flash, AbbyNormal, MSheath, full-attention and residual-MLP
+   kernels also the achieved TFLOP/s and the share of the bound, and
+   (where the toolkit has ``cuobjdump``) the tensor-core instructions in
+   each kernel of ``MMA_KERNELS``.
 3. Drives the two decode paths at the flagship config (40k vocab, 512
    dims, 4 heads, 4 layers, bf16, the same seeded random weights): 8 x
    10 s synthetic tones -> log-mel + YIN pitch + frame-rate waveform ->
@@ -24,8 +24,8 @@
    must launch exactly its kernels and run no plain version; each
    prints its RTFx (median of 5 timed runs), decode ms per step and the
    device kernels of one decode step at width 65 (torch.profiler), where
-   the AbbyNormal and MSheath kernels the profiler sees must be the
-   launches their wrappers counted.
+   the kernels of each wrapper in ``PROFILED`` the profiler sees must be
+   the launches the wrapper counted.
 4. Checks the output ids, the first decode step's logits on each path's
    kernel route against its plain route on the card (bf16 and f32,
    argmax identical in every row), the fused path against the default
@@ -123,11 +123,17 @@ def rates(flops: float, ms: float, b_ms: float) -> dict:
 
 
 # the kernels that must run on the tensor cores: bf16 flash, the bf16
-# AbbyNormal and the MSheath row kernel (mangled-name patterns)
+# AbbyNormal, the MSheath row kernel, the bf16 full attention call's two
+# and the bf16 residual MLP's (mangled-name patterns)
 MMA_KERNELS = {
     "flash_tc_kernel": r"flash_tc_kernelILi(\d+)ELi(\d+)E",
     "abby_cluster_kernel<bf16>": r"abby_cluster_kernelI13__nv_bfloat16E",
     "sheath_rows": r"sheath_rowsI(\w+?)Li(\d+)E(\w+?)Lb([01])EEv",
+    "xattn_full_rows": r"_Z15xattn_full_rows",
+    "xattn_full_attend": r"_Z17xattn_full_attend",
+    "mlp_norm<bf16>": r"mlp_normI13__nv_bfloat16E",
+    "mlp_gates_tc": r"_Z12mlp_gates_tc",
+    "mlp_linear_tc": r"mlp_linear_tcILi(\d+)E",
 }
 
 
@@ -535,56 +541,74 @@ def check_fused_kernels(model, audio):
             plain_ms=cuda_ms(lambda: xattn.attn_cached_plain(*args, **kw)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)]))
 
-    # ---- fused_attn_full: self causal (a), self (b/c/d/g), g cross
+    # ---- fused_attn_full: self causal (a), self (b/c/d/g), g cross, at
+    # the last bucket's width and the first's (its prefix mask)
     entries = []
-    for label, causal, cross in [
-            ("self causal (8,65,512) + kv_valid", True, False),
-            ("self (8,65,512) + kv_valid", False, False),
-            ("g cross (8,65,512) x (8,65,512) + kv_valid", False, True)]:
-        x = rnd(BATCH, T, D)
-        xa = rnd(BATCH, T, D) if cross else x
+    for label, causal, cross, w in [
+            ("self causal (8,65,512) + kv_valid", True, False, T),
+            ("self (8,65,512) + kv_valid", False, False, T),
+            ("g cross (8,65,512) x (8,65,512) + kv_valid", False, True, T),
+            ("self causal (8,9,512) + kv_valid", True, False, 9),
+            ("g cross (8,9,512) x (8,9,512) + kv_valid", False, True, 9)]:
+        x = rnd(BATCH, w, D)
+        xa = rnd(BATCH, w, D) if cross else x
+        vw = valid[:, :w] if w == T else (
+            torch.arange(w, device=dev) < w - 1)[None].expand(
+                BATCH, w).contiguous()
         fr = at.rot.freqs(causal, torch.float32, dev)
         kw = at.fused_kw(bf, full=True)
-        args = (x, xa, valid, fr)
+        args = (x, xa, vw, fr)
         got = xattn.fused_attn_full(*args, causal=causal, **kw)
         want = xattn.attn_full_plain(*args, causal=causal, **kw)
-        e = _fused_close(f"fused_attn_full {label}", got, want, D)
-        pairs = _pairs(T, T, causal, valid)
-        ops = (q_side_ops(N) + _abby_ops(N, D, size_d) + 4.0 * N * D * D
-               + 6.0 * N * D + _abby_ops(N * H, hd, size_h)
+        plan = xattn.launch_plan_full(BATCH, w, w, D, bf)
+        e = _fused_close(f"fused_attn_full {label}, {plan['launches']} "
+                         f"launches ({plan['route']})", got, want, D)
+        n = BATCH * w
+        pairs = _pairs(w, w, causal, vw)
+        ops = (q_side_ops(n) + _abby_ops(n, D, size_d) + 4.0 * n * D * D
+               + 6.0 * n * D + _abby_ops(n * H, hd, size_h)
                + H * pairs * (4.0 * hd + 5))
-        b_ms, b_by = bound_ms(ops, nbytes(x, None if xa is x else xa, valid,
+        b_ms, b_by = bound_ms(ops, nbytes(x, None if xa is x else xa, vw,
                                           got) + wbytes(kw), BF16_PEAK)
+        ms = cuda_ms(lambda: xattn.fused_attn_full(*args, causal=causal,
+                                                   **kw))
         entries.append(dict(
-            shape=label, max_abs_err=e,
-            ms=cuda_ms(lambda: xattn.fused_attn_full(*args, causal=causal,
-                                                     **kw)),
+            shape=label, max_abs_err=e, ms=ms,
             plain_ms=cuda_ms(lambda: xattn.attn_full_plain(
                 *args, causal=causal, **kw)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **rates(ops, ms, b_ms)))
     out.append(_entry("fused_attn_full", "asr_model_tpu_torch/csrc/xattn.cu",
                       "asr_model_tpu/ops/pallas/xattn_kernel.py:333",
                       entries))
 
-    # ---- fused_mlp_residual (8*65, 512), the flagship block's MLP
-    args = blk.mlp_fused_args(rnd(N, D))
-    got = mlp.fused_mlp_residual(*args)
-    want = mlp.mlp_residual_plain(*args)
-    label = "decode (8*65, 512)"
-    e = _fused_close(f"fused_mlp_residual {label}", got, want, D)
-    nt, hid = len(args[4]), args[5].shape[0]
-    ops = (2 * _abby_ops(N, D, size_d) + 2.0 * N * D * nt * (D + 1)
-           + 4.0 * N * D * nt + 4.0 * N * D * hid + 10.0 * N * hid + N * D)
-    wb = nbytes(*args[1], args[2], args[3], *[t for gw in args[4]
-                                              for t in gw], *args[5:9])
-    b_ms, b_by = bound_ms(ops, nbytes(args[0], got) + wb, BF16_PEAK)
-    out.append(_entry(
-        "fused_mlp_residual", "asr_model_tpu_torch/csrc/mlp.cu",
-        "asr_model_tpu/ops/pallas/mlp_kernel.py:125", [dict(
-            shape=label, max_abs_err=e,
-            ms=cuda_ms(lambda: mlp.fused_mlp_residual(*args)),
+    # ---- fused_mlp_residual, the flagship block's MLP, at the last and
+    # the first bucket's width
+    entries = []
+    for label, n in [("decode (8*65, 512)", N), ("decode (8*9, 512)",
+                                                  BATCH * 9)]:
+        args = blk.mlp_fused_args(rnd(n, D))
+        got = mlp.fused_mlp_residual(*args)
+        want = mlp.mlp_residual_plain(*args)
+        nt, hid = len(args[4]), args[5].shape[0]
+        plan = mlp.launch_plan(n, D, hid, bf)
+        e = _fused_close(f"fused_mlp_residual {label}, {plan['launches']} "
+                         f"launches ({'tensor' if plan['tc'] else 'CUDA'} "
+                         "cores)", got, want, D)
+        ops = (2 * _abby_ops(n, D, size_d) + 2.0 * n * D * nt * (D + 1)
+               + 4.0 * n * D * nt + 4.0 * n * D * hid + 10.0 * n * hid
+               + n * D)
+        wb = nbytes(*args[1], args[2], args[3], *[t for gw in args[4]
+                                                  for t in gw], *args[5:9])
+        b_ms, b_by = bound_ms(ops, nbytes(args[0], got) + wb, BF16_PEAK)
+        ms = cuda_ms(lambda: mlp.fused_mlp_residual(*args))
+        entries.append(dict(
+            shape=label, max_abs_err=e, ms=ms,
             plain_ms=cuda_ms(lambda: mlp.mlp_residual_plain(*args)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)]))
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **rates(ops, ms, b_ms)))
+    out.append(_entry("fused_mlp_residual", "asr_model_tpu_torch/csrc/mlp.cu",
+                      "asr_model_tpu/ops/pallas/mlp_kernel.py:125", entries))
 
     # ---- fused_router_same (8*65, 512), n_mod 3
     args = blk.router.fused_args(rnd(N, D), blk.layer - 1)
@@ -729,10 +753,14 @@ def _device_us(evt) -> float:
 
 
 # kernels the profiler names (demangled) for the wrappers whose launches
-# one decode step checks against the wrapper's own count
+# one decode step checks against the wrapper's own count (on the paths
+# that run them)
 PROFILED = {"fused_abby": ("abby_cluster_kernel",),
             "fused_sheath_scan": ("sheath_rows", "sheath_mem_ctl",
-                                  "sheath_finish")}
+                                  "sheath_finish"),
+            "fused_attn_full": ("xattn_full_rows", "xattn_full_attend"),
+            "fused_mlp_residual": ("mlp_norm", "mlp_gates_tc",
+                                   "mlp_linear_tc")}
 
 
 def step_profile(model, audio, ids):
@@ -837,6 +865,8 @@ def drive_path(model, audio, label: str, expect, runs: int = 5):
     rtfx = BATCH * UTT_SEC / total
     launches, dev_ms, copies, top, seen = step_profile(model, audio, ids)
     for w, (prof_n, wrap_n) in seen.items():
+        if w not in expect:
+            continue
         # the profiler may drop an event (a run read 15 of 16), never add
         check(0 < prof_n <= wrap_n, f"{label} path, one decode step: the "
               f"profiler saw {prof_n} {w} kernel launches, the wrapper "

@@ -157,6 +157,17 @@ def test_launch_plans_match_kernels(dev):
             plan = abby.launch_plan(1, d, dtype)
             assert abby_smem(code, d) == plan["smem"]
             assert abby_cluster(d) == plan["cluster"]
+    rows_smem = B.function("asr_xattn_rows_smem", [B.I])
+    attend_smem = B.function("asr_xattn_attend_smem", [B.I, B.I])
+    gates_smem = B.function("asr_mlp_gates_tc_smem", [])
+    gate_cols = B.function("asr_mlp_gate_cols", [B.I])
+    for d in (128, 512, 1024):
+        assert rows_smem(d) == xattn.rows_smem(d)
+        for ta in (9, 65, 256, 1024):
+            assert attend_smem(d, ta) == xattn.attend_smem(d, ta)
+    assert gates_smem() == mlp.gates_tc_smem()
+    for nt in range(1, mlp.MAX_TYPES + 1):
+        assert gate_cols(nt) == mlp.gate_cols(nt)
     for d in (100, 256, 512, 1024):
         for rows in sheath.ROW_TILES:
             for passes in (1, 2, 3):
@@ -223,20 +234,45 @@ def test_router_kernel(dev, dtype, n_mod):
     assert _rel(got, want) < _tol(dtype)
 
 
+def _mlp_args(r, n, d, hid=None, nt=3):
+    hid = hid or 3 * d
+    return (r(n, d), tuple(_norm_w(r, d).values()), r(nt, d, sc=d ** -0.5),
+            r(nt, sc=0.1), [(r(d, d, sc=d ** -0.5), r(d, sc=0.1))
+                            for _ in range(nt)],
+            r(hid, d, sc=d ** -0.5), r(hid, sc=0.1),
+            r(d, hid, sc=hid ** -0.5), r(d, sc=0.1),
+            abby.window_size(d), 1e-4, 1.0, 0.75)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [12, 8 * 65])
+@pytest.mark.parametrize("n", [12, 8 * 65, 8 * 9])
 def test_mlp_kernel(dev, dtype, n):
     r = _rand(dev, 7, dtype)
-    d = 512
-    args = (r(n, d), tuple(_norm_w(r, d).values()), r(3, d, sc=d ** -0.5),
-            r(3, sc=0.1), [(r(d, d, sc=d ** -0.5), r(d, sc=0.1))
-                           for _ in range(3)],
-            r(3 * d, d, sc=d ** -0.5), r(3 * d, sc=0.1),
-            r(d, 3 * d, sc=(3 * d) ** -0.5), r(d, sc=0.1),
-            abby.window_size(d), 1e-4, 1.0, 0.75)
+    args = _mlp_args(r, n, 512)
     got = mlp.fused_mlp_residual(*args)
     want = mlp.mlp_residual_plain(*args)
     assert _rel(got, want) < _tol(dtype)
+
+
+# rows no 16-byte multiple (the CUDA-core products in bf16 too), one and
+# four gates, a hidden width of no 64-column multiple
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,hid,nt", [(40, 100, 300, 1), (33, 256, 776, 4),
+                                        (70, 1024, 3072, 2)])
+def test_mlp_kernel_other_widths(dev, dtype, n, d, hid, nt):
+    r = _rand(dev, 15, dtype)
+    args = _mlp_args(r, n, d, hid, nt)
+    got = mlp.fused_mlp_residual(*args)
+    want = mlp.mlp_residual_plain(*args)
+    assert _rel(got, want) < _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_kernel_deterministic(dev, dtype):
+    """Sums in a fixed order, no float atomics: two calls, same bits."""
+    args = _mlp_args(_rand(dev, 16, dtype), 8 * 65, 512)
+    assert torch.equal(mlp.fused_mlp_residual(*args),
+                       mlp.fused_mlp_residual(*args))
 
 
 def _attn_weights(r, d, heads):
@@ -423,3 +459,54 @@ def test_sheath_kernel_wide(dev, d, mem):
         assert _rel(got, want) < 1e-4
         assert act_g.tolist() == act_w.tolist()
         assert js_g.tolist() == js_w.tolist()
+
+
+def _full_args(dev, dtype, b, t, ta, d, cross, causal, masked, seed=17):
+    r = _rand(dev, seed, dtype)
+    heads = d // 128
+    wq, wkv, wh, wo = _attn_weights(r, d, heads)
+    x = r(b, t, d, sc=0.5)
+    xa = r(b, ta, d, sc=0.5) if cross else x
+    valid = None
+    if masked:                     # the decode's prefix mask, one row empty
+        lens = (ta - torch.arange(b, device=dev)).clamp(min=1)
+        lens[-1] = 0
+        valid = torch.arange(ta, device=dev)[None] < lens[:, None]
+    args = (x, xa, valid, _freqs(dev, d, heads, causal), wq, wkv, wh, wo)
+    kw = dict(KW, head=heads, size_d=abby.window_size(d))
+    return args, kw
+
+
+# the fused decode's full calls at the flagship width: the self calls
+# (causal with the prefix mask, non-causal) and the g block's cross call,
+# at the last and the first bucket's width
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [65, 9])
+@pytest.mark.parametrize("causal,cross", [(True, False), (False, False),
+                                          (False, True)])
+def test_attn_full_kernel_flagship(dev, dtype, width, causal, cross):
+    args, kw = _full_args(dev, dtype, 8, width, width, 512, cross, causal,
+                          True)
+    got = xattn.fused_attn_full(*args, causal=causal, **kw)
+    want = xattn.attn_full_plain(*args, causal=causal, **kw)
+    assert _rel(got, want) < _tol(dtype)
+
+
+# the longest key sets the gate admits (256 at D 512, 1024 at D 128), one
+# past the one-pass limit (the CUDA-core launches), D 1024 (8 heads)
+@pytest.mark.parametrize("b,t,ta,d", [(2, 65, 256, 512), (2, 33, 1024, 128),
+                                      (2, 9, 1025, 128), (2, 20, 40, 1024)])
+def test_attn_full_kernel_long_keys(dev, b, t, ta, d):
+    args, kw = _full_args(dev, torch.bfloat16, b, t, ta, d, True, False,
+                          True)
+    got = xattn.fused_attn_full(*args, causal=False, **kw)
+    want = xattn.attn_full_plain(*args, causal=False, **kw)
+    assert _rel(got, want) < _tol(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attn_full_kernel_deterministic(dev, dtype):
+    """Sums in a fixed order, no float atomics: two calls, same bits."""
+    args, kw = _full_args(dev, dtype, 8, 65, 65, 512, False, True, True)
+    assert torch.equal(xattn.fused_attn_full(*args, causal=True, **kw),
+                       xattn.fused_attn_full(*args, causal=True, **kw))

@@ -1,13 +1,14 @@
 """Host-side pieces of the cluster kernels, on the CPU: the tile and
-cluster each wrapper launches (``launch_plan``, whose shared-memory
-formulas the card test ``test_launch_plans_match_kernels`` holds against
-the kernels' own) and the sheath kernel's cached weight layout."""
+cluster each wrapper launches (``launch_plan``, ``launch_plan_full``,
+whose shared-memory formulas the card test
+``test_launch_plans_match_kernels`` holds against the kernels' own) and
+the sheath kernel's cached weight layout."""
 
 import numpy as np
 import pytest
 import torch
 
-from asr_model_tpu_torch.ops.cuda import abby, sheath
+from asr_model_tpu_torch.ops.cuda import abby, mlp, sheath, xattn
 
 SMEM_MAX = 232448            # dynamic shared memory a block may use (H100)
 SMEM_SM = 233472             # shared memory of a multiprocessor
@@ -158,3 +159,100 @@ def test_sheath_kernel_weights_cache_and_exactness():
     kw2 = sheath.kernel_weights(w, 4)
     assert kw2 is not kw and kw2["split"]
     assert torch.equal(kw2["wad"][:, :, :64], w["adapt_w"])
+
+
+DECODE_WIDTHS = list(range(9, 66, 8))
+
+
+def _tiles_once(n: int, tiles: int, rows: int) -> bool:
+    """Tiles of ``rows`` from row 0 hold every one of n rows once."""
+    owner = np.arange(n) // rows
+    return owner.max() == tiles - 1 and \
+        np.bincount(owner, minlength=tiles).sum() == n
+
+
+# (B, T, Ta, D) of the full calls: the decode widths' self calls and the
+# g block's cross call, the gate's longest key sets at D 512 (256) and at
+# D 128 (1024), and D 1024
+FULL_SHAPES = ([(8, w, w, 512) for w in DECODE_WIDTHS]
+               + [(8, 65, 256, 512), (2, 33, 1024, 128), (3, 33, 47, 512),
+                  (4, 20, 128, 1024)])
+
+
+@pytest.mark.parametrize("b,t,ta,d", FULL_SHAPES)
+def test_attn_full_launch_plan(b, t, ta, d):
+    p = xattn.launch_plan_full(b, t, ta, d, torch.bfloat16)
+    head = d // 128
+    assert p["route"] == "tc" and p["launches"] == 2
+    # launch 1: every row of x and of xa in one cluster's tile, every
+    # head unit (q; k and v) on one CTA of its cluster
+    assert _tiles_once(b * t, p["tiles_q"], p["rows"])
+    assert _tiles_once(b * ta, p["tiles_kv"], p["rows"])
+    assert p["cluster"] <= 8 and p["attend_cluster"] == head <= 8
+    for units in (p["units_q"], p["units_kv"]):
+        owners = sorted(u for r in range(p["cluster"])
+                        for u in range(r, units, p["cluster"]))
+        assert owners == list(range(units))
+    # launch 2: every query row of every batch row in one tile
+    assert _tiles_once(t, p["q_tiles"], p["q_rows"])
+    assert p["rows_smem"] <= SMEM_MAX and p["attend_smem"] <= SMEM_MAX
+    if d <= 512:
+        assert _two_per_sm(p["rows_smem"])
+
+
+def test_attn_full_launch_plan_routes():
+    """f32, key sets past the one-pass limit and unaligned operands take
+    the four CUDA-core launches."""
+    tc = xattn.launch_plan_full(8, 65, 65, 512, torch.bfloat16)
+    assert tc["route"] == "tc" and tc["launches"] == xattn.LAUNCHES_FULL
+    for args in [(8, 65, 65, 512, torch.float32),
+                 (2, 9, xattn.TC_MAX_KEYS + 1, 128, torch.bfloat16)]:
+        p = xattn.launch_plan_full(*args)
+        assert p["route"] == "cc" and p["launches"] == 4
+    assert xattn.launch_plan_full(8, 65, 65, 512, torch.bfloat16,
+                                  False)["route"] == "cc"
+    # more row tiles than a grid dimension takes
+    assert xattn.launch_plan_full(4096, 300, 256, 512,
+                                  torch.bfloat16)["route"] == "cc"
+    # the shared memory of the second launch grows with the keys, and the
+    # longest key set it takes still fits
+    assert xattn.attend_smem(128, 1024) <= SMEM_MAX
+    assert xattn.attend_smem(512, 65) < xattn.attend_smem(512, 256)
+
+
+@pytest.mark.parametrize("n", [8 * w for w in DECODE_WIDTHS] + [12, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_launch_plan(n, dtype):
+    d, hid = 512, 1536
+    p = mlp.launch_plan(n, d, hid, dtype)
+    assert p["launches"] == 5 < 6
+    assert p["tc"] == (dtype == torch.bfloat16)
+    assert _tiles_once(n, p["norm"]["tiles"], p["norm"]["rows"])
+    assert p["norm"]["cluster"] <= 8
+    assert _tiles_once(n, p["tiles"], p["rows"])
+    assert p["slices_d"] * mlp.COLS >= d and p["slices_hid"] * mlp.COLS >= hid
+    # every column of every gate on one CTA, gates and cs rows in 128
+    assert (p["slices_gates"] - 1) * p["gate_cols"] < d \
+        <= p["slices_gates"] * p["gate_cols"]
+    if p["tc"]:
+        assert 3 * p["gate_cols"] + 3 <= 128
+    for smem in (p["norm"]["smem"], p["gates_smem"], p["linear_smem"]):
+        assert smem <= SMEM_MAX
+    if p["tc"]:
+        assert _two_per_sm(p["gates_smem"])
+        assert _two_per_sm(p["linear_smem"])
+
+
+@pytest.mark.parametrize("nt", [1, 2, 3, 4])
+def test_mlp_gate_columns_fill_one_tile(nt):
+    sw = mlp.gate_cols(nt)
+    assert sw % 8 == 0 and nt * sw + nt <= 128 < nt * (sw + 8) + nt
+
+
+def test_mlp_launch_plan_ragged_widths_take_the_cuda_cores():
+    assert not mlp.launch_plan(72, 100, 300, torch.bfloat16)["tc"]
+    assert not mlp.launch_plan(72, 512, 1540, torch.bfloat16)["tc"]
+    assert mlp.launch_plan(72, 1024, 3072, torch.bfloat16)["gates_smem"] \
+        <= SMEM_MAX
+    assert mlp.launch_plan(72, 512, 1536, torch.bfloat16, 4)["gate_cols"] \
+        == 24

@@ -49,7 +49,8 @@ def test_every_kernel_source_is_built():
     assert names == {"abby.cu", "flash_attention.cu", "mel.cu", "sheath.cu",
                      "xattn.cu", "mlp.cu", "router.cu"}
     headers = {p.name for p in build.CSRC.glob("*.cuh")}
-    assert headers == {"common.cuh", "abby_tail.cuh", "mma.cuh"}
+    assert headers == {"common.cuh", "abby_tail.cuh", "abby_cluster.cuh",
+                       "mma.cuh"}
     assert "-gencode" in build.CFLAGS and \
         "arch=compute_90a,code=sm_90a" in build.CFLAGS
     assert len(build.source_hash()) == 16
