@@ -20,8 +20,9 @@
 // with one block per row tile would leave most of the 132 SMs idle.
 //
 // Design: one launch.  A thread-block cluster per 32-row tile, one CTA
-// per 64-column slice of W1 (128-column slices past D = 512, so a
-// cluster has at most 8 CTAs: 8 at D = 512, 2 at D = 128).  Each CTA
+// per 64-column slice of W1 (128-column slices past D = 512, and past
+// D = 1024 the 64-column multiple of D / 8, so a cluster has at most 8
+// CTAs: 8 at D = 512, 2 at D = 128, 7 at D = 1280).  Each CTA
 // computes its slice of h = silu(x W1^T + b1), rounds it to the storage
 // type as the reference does, and its partial router logits h_slice
 // W2_slice^T, and pushes each row's partials into the shared memory of
@@ -36,10 +37,16 @@
 //   f32 accumulate: the Pallas kernel's own contraction) with ldmatrix
 //   fragments; the x tile and the W1 slice arrive through cp.async in
 //   64-column chunks, one commit group each, so the products of a chunk
-//   start while the later chunks are in flight.
+//   start while the later chunks are in flight (all of a pass's chunks
+//   at once up to D = 1024, a ring of 8 past it, where 64 rows of W1 no
+//   longer fit beside the x tile).
 //   f32: the product stays on the CUDA cores in full f32 (gemm_rows16;
 //   TF32 would not hold the f32 route's 1e-4), in the same one-launch
-//   structure.
+//   structure; past D = 1024 the tile's rows are held half at a time and
+//   the tail reads them from device memory (32 f32 rows of 2048 would
+//   not fit in shared memory).
+// Windows of up to 51 taps (D <= 1024) run from registers, wider ones
+// (up to 103, D = 2048) from the row.
 // x is read once per CTA of the cluster (from L2 after the first) and
 // written once; the (N, D) hidden never reaches device memory.
 #include "abby_cluster.cuh"
@@ -76,7 +83,7 @@ static int launch_abby(int dtype, const void* x, const void* w1,
 
 // x, out: (N, D); w1: (D, D) torch (out, in) layout; b1: (D,);
 // w2: (3, D); b2: (3,) -- all of one dtype (0 = f32, 1 = bf16);
-// 2 <= D <= 1024, N <= 65535 * 32, window 1 <= size <= 51.  One launch.
+// 2 <= D <= 2048, N <= 65535 * 32, window 1 <= size <= 103.  One launch.
 ASR_API int asr_fused_abby(int dtype, const void* x, const void* w1,
                            const void* b1, const void* w2, const void* b2,
                            void* out, int N, int D, int size, float alpha,

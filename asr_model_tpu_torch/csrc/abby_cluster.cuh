@@ -16,12 +16,20 @@ namespace cg = cooperative_groups;
 
 constexpr int AB_ROWS = 32;       // rows of a cluster's tile
 constexpr int AB_THREADS = 256;
-// the widest window the kernel takes: window_size(1024)
-constexpr int ABBY_MAX_TAPS = 51;
+// the widest window the kernel takes: window_size(ABBY_MAX_D); windows of
+// up to ABBY_REG_TAPS (window_size(1024)) run from registers
+constexpr int ABBY_MAX_TAPS = 103;
+constexpr int ABBY_REG_TAPS = 51;
+// W1's 64-column chunks of a pass held at once: every chunk up to D 1024,
+// past that a ring of this many
+constexpr int AB_WRING = 8;
+// f32 rows a CTA holds in shared memory at once past D 1024: half a tile
+constexpr int AB_F32_WIDE_D = 1024;
 
-// columns of W1 a CTA owns, and the CTAs of a cluster
+// columns of W1 a CTA owns, and the CTAs of a cluster (at most 8 up to
+// D 4096: 64-column multiples of D / 8 past D 1024)
 __host__ __device__ constexpr int abby_slice_cols(int D) {
-  return D <= 512 ? 64 : 128;
+  return D <= 512 ? 64 : D <= 1024 ? 128 : 64 * ((D + 511) / 512);
 }
 __host__ __device__ constexpr int abby_cluster_size(int D) {
   return (D + abby_slice_cols(D) - 1) / abby_slice_cols(D);
@@ -32,18 +40,30 @@ __host__ __device__ constexpr int abby_chunks(int D) { return (D + 63) / 64; }
 __host__ __device__ constexpr int abby_ld(int D) {
   return 64 * abby_chunks(D) + 8;
 }
+// W1's chunks of a pass in shared memory: all of them, [64][abby_ld] (up
+// to 16 chunks, D 1024), else a ring of AB_WRING slots [64][72]
+__host__ __device__ constexpr int abby_wbuf_elems(int D) {
+  return abby_chunks(D) <= 16 ? 64 * abby_ld(D) : AB_WRING * 64 * 72;
+}
+// f32 x rows held at once: the tile, or half of it past AB_F32_WIDE_D
+__host__ __device__ constexpr int abby_f32_rows(int D) {
+  return D <= AB_F32_WIDE_D ? AB_ROWS : AB_ROWS / 2;
+}
 
 // dynamic shared memory of abby_cluster_kernel<T>: the x tile (bf16 rows
-// or f32 rows), one 64-row pass of W1 (bf16) or gemm_rows16's weight tile
-// (f32), then f32: h of the slice [32][cols], the slices of W2 [3][cols]
-// and b1 [cols], the partial logits its rows receive [32 + 8][3], their
-// cv [32] and routes [32]
+// or f32 rows) and W1's chunks of a pass (bf16) or gemm_rows16's weight
+// tile (f32), then f32: the router's partial logits [4][32][3] (bf16) or
+// h of the slice [32][cols] (f32), the slices of W2 [3][cols] and b1
+// [cols], the partial logits its rows receive [32 + 8][3], their cv [32]
+// and routes [32]
 __host__ __device__ constexpr size_t abby_smem_bytes(int dtype, int D) {
   return (dtype == ASR_BF16
-              ? sizeof(bf16) * (AB_ROWS + 64) * abby_ld(D)
-              : sizeof(float) * (AB_ROWS * D + GEMM_WT_FLOATS)) +
-         sizeof(float) * ((AB_ROWS + 4) * abby_slice_cols(D) +
-                          (AB_ROWS + 8) * 3 + 2 * AB_ROWS);
+              ? sizeof(bf16) * (AB_ROWS * abby_ld(D) + abby_wbuf_elems(D))
+              : sizeof(float) * (abby_f32_rows(D) * D + GEMM_WT_FLOATS)) +
+         sizeof(float) * ((dtype == ASR_BF16 ? 4 * AB_ROWS * 3
+                                             : AB_ROWS * abby_slice_cols(D)) +
+                          4 * abby_slice_cols(D) + (AB_ROWS + 8) * 3 +
+                          2 * AB_ROWS);
 }
 
 // h = silu(x W1^T + b1) for the tile's 32 rows and the columns [c0, c0 +
@@ -144,24 +164,132 @@ __device__ void abby_router_tc(const bf16* __restrict__ x,
   }
 }
 
-// the same product in full f32 on the CUDA cores: the x tile to xf [32][D]
-// f32, W1 through gemm_rows16's tile
+// The same past D 1024 (more than 16 chunks), where 64 rows of W1 no
+// longer fit beside the x tile: a pass's chunks of W1 stream through a
+// ring of AB_WRING slots ws [AB_WRING][64][72], each refilled once every
+// warp is done with it.
+template <typename Stage>
+__device__ void abby_router_tc_ring(const bf16* __restrict__ x,
+                                    const bf16* __restrict__ w1,
+                                    const float* b1s, const float* w2s,
+                                    Stage stage, int N, int D, int r0,
+                                    int c0, int ncols, int ldh, bool vec,
+                                    bf16* xs, bf16* ws, float* pl) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tg = lane & 3, lm = lane >> 3, lr = lane & 7;
+  const int nch = abby_chunks(D), ld = abby_ld(D);
+  constexpr int nslot = AB_WRING, wld = 72, soff = 64 * wld;
+  const int mt = warp & 1, nq = warp >> 1;
+  for (int n0 = c0; n0 < c0 + ncols; n0 += 64) {
+    // chunk ch: columns [64 ch, 64 ch + 64) of the x tile (first pass
+    // only) and of W1's rows n0 .. n0 + 63, one commit group
+    auto load = [&](int ch) {
+      bf16* wsl = ws + (ch % nslot) * soff;
+      for (int e = t; e < (n0 == c0 ? AB_ROWS + 64 : 64) * 8;
+           e += AB_THREADS) {
+        const bool is_w = n0 != c0 || e >= AB_ROWS * 8;
+        const int ee = (n0 == c0 && is_w) ? e - AB_ROWS * 8 : e;
+        const int r = ee >> 3, col = ch * 64 + (ee & 7) * 8;
+        const int grow = is_w ? n0 + r : r0 + r;
+        const bool row_in = is_w ? grow < D : grow < N;
+        const bf16* src = (is_w ? w1 : x) + (size_t)grow * D + col;
+        bf16* dst = is_w ? wsl + r * wld + (ee & 7) * 8 : xs + r * ld + col;
+        if (vec) {
+          const bool in = row_in && col < D;
+          cp_async16(dst, in ? src : (is_w ? w1 : x), in);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            dst[i] = (row_in && col + i < D) ? src[i]
+                                             : __float2bfloat16(0.0f);
+        }
+      }
+      cp_async_commit();
+    };
+    for (int ch = 0; ch < nslot; ++ch) load(ch);
+    if (n0 == c0) stage();                // b1s is read after a barrier
+    // two accumulator chains a column tile (even and odd k16 steps)
+    float acc[2][2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[h][j][e] = 0.0f;
+    for (int ch = 0; ch < nch; ++ch) {
+      // chunk ch has landed (groups issued: min(nch, ch + nslot) before
+      // this chunk's wait) ...
+      cp_async_wait_upto(min(nch, ch + nslot) - 1 - ch);
+      __syncthreads();                    // ... for every thread
+      const bf16* wsl = ws + (ch % nslot) * soff;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = ch * 64 + kk * 16;
+        uint32_t af[4], bf[4];
+        ldsm_x4(af, xs + (16 * mt + (lane & 15)) * ld + k + (lane >> 4) * 8);
+        ldsm_x4(bf, wsl + (16 * nq + (lm >> 1) * 8 + lr) * wld + kk * 16 +
+                        (lm & 1) * 8);
+        mma_bf16(acc[kk & 1][0], af, bf[0], bf[1]);
+        mma_bf16(acc[kk & 1][1], af, bf[2], bf[3]);
+      }
+      if (ch + nslot < nch) {             // the ring: the slot is free
+        __syncthreads();
+        load(ch + nslot);
+      }
+    }
+    // h (rounded to bf16) times this slice of W2, summed over the
+    // thread's columns, then over the 4 lanes of a row; pl [4][32][3]
+    // holds each column quarter's partial logits, added over the passes
+    float p[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + 16 * nq + 8 * j + 2 * tg + (e & 1);
+        const float v = acc[0][j][e] + acc[1][j][e];
+        const float h =
+            n < D ? to_f32(from_f32<bf16>(siluf_(v + b1s[n - c0]))) : 0.0f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) p[e >> 1][c] += h * w2s[c * ldh + n - c0];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float v = p[h][c];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (tg == 0) {
+          float* o = pl + (nq * AB_ROWS + 16 * mt + g + 8 * h) * 3 + c;
+          *o = n0 == c0 ? v : *o + v;
+        }
+      }
+    __syncthreads();                      // ws is free for the next pass
+  }
+}
+
+// the same product in full f32 on the CUDA cores: the x tile's rows to xf
+// (abby_f32_rows(D) of them at once: [32][D], or [16][D] a half at a time
+// past AB_F32_WIDE_D), W1 through gemm_rows16's tile
 static __device__ void abby_router_f32(const float* __restrict__ x,
                                 const float* __restrict__ w1,
                                 const float* b1s, int N, int D,
                                 int r0, int c0, int ncols, int ldh, float* xf,
                                 float* wt, float* hs) {
-  const int t = threadIdx.x;
-  for (int e = t; e < AB_ROWS * D; e += AB_THREADS) {
-    const int r = e / D, j = e % D;
-    xf[e] = r0 + r < N ? x[(size_t)(r0 + r) * D + j] : 0.0f;
-  }
-  __syncthreads();
-  for (int n0 = c0; n0 < c0 + ncols; n0 += GEMM_NT)
-    for (int half = 0; half < 2; ++half) {
+  const int t = threadIdx.x, xr = abby_f32_rows(D);
+  for (int half = 0; half < 2; ++half) {
+    const int xr0 = xr == AB_ROWS ? 0 : half * GEMM_ROWS;
+    if (half == 0 || xr < AB_ROWS) {
+      for (int e = t; e < xr * D; e += AB_THREADS) {
+        const int r = e / D, j = e % D, row = r0 + xr0 + r;
+        xf[e] = row < N ? x[(size_t)row * D + j] : 0.0f;
+      }
+      __syncthreads();
+    }
+    const float* xa = xf + (half * GEMM_ROWS - xr0) * D;
+    for (int n0 = c0; n0 < c0 + ncols; n0 += GEMM_NT) {
       float acc[4];
-      gemm_rows16<float, false>(xf + half * GEMM_ROWS * D, D, D, w1, D, n0,
-                                D, wt, acc);
+      gemm_rows16<float, false>(xa, D, D, w1, D, n0, D, wt, acc);
       const int n = n0 + t % GEMM_NT;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -169,6 +297,7 @@ static __device__ void abby_router_f32(const float* __restrict__ x,
         hs[row * ldh + n - c0] = n < D ? siluf_(acc[i] + b1s[n - c0]) : 0.0f;
       }
     }
+  }
 }
 
 // cv = unbiased std / (mean |x| + 1e-6) of a row in shared memory (bf16
@@ -235,6 +364,35 @@ __device__ __forceinline__ void abby_tail8(const TS* xr, int j0, int D,
   }
 }
 
+// The same for windows wider than ABBY_REG_TAPS, from the row itself
+// (each window summed and maxed in channel order, as abby_tail8 does)
+template <typename TS, typename T>
+__device__ __forceinline__ void abby_tail8_wide(const TS* xr, int j0, int D,
+                                                int size, int choice,
+                                                float alpha, float k,
+                                                float beta, T* orow,
+                                                const T* rrow) {
+  const int pad = size / 2;
+  for (int q = 0; q < 8 && j0 + q < D; ++q) {
+    float s = 0.0f, mx = -1.0f;
+    for (int o = 0; o < size; ++o) {
+      const int jj = j0 + q - pad + o;
+      float sq = -1.0f;
+      if (jj >= 0 && jj < D) {
+        const float xv = to_f32(xr[jj]);
+        sq = xv * xv;
+      }
+      s += fmaxf(sq, 0.0f);
+      mx = fmaxf(mx, sq);
+    }
+    const float avg = s / (float)size;
+    const float div2 = mx > 2.0f * avg ? mx : avg;
+    const float mix = choice == 1 ? div2 : avg;
+    const float y = to_f32(xr[j0 + q]) / expf(beta * logf(mix * alpha + k));
+    orow[j0 + q] = from_f32<T>(rrow ? to_f32(rrow[j0 + q]) + y : y);
+  }
+}
+
 // The same for a window of exactly SIZE taps, with less arithmetic: the
 // windows' maxima share the taps all eight windows hold (the sums keep
 // the tap order, and so abby_tail_at's rounding).
@@ -295,10 +453,10 @@ __device__ __forceinline__ void abby_tail8_sized(const TS* xr, int j0, int D,
   }
 }
 
-// the tail of `nrows` rows of the tile held in shared memory (row stride
-// ld, rows lr0 ..), one thread per 8 channels of a row
-// (SIZE > 0: windows of exactly SIZE taps, else up to ABBY_MAX_TAPS);
-// with `res`, out = res + the tail (in f32, rounded once)
+// the tail of `nrows` rows of the tile (row stride ld, rows lr0 ..; in
+// shared memory, or f32 rows in device memory), one thread per 8 channels
+// of a row (SIZE > 0: windows of exactly SIZE taps, else up to
+// ABBY_MAX_TAPS); with `res`, out = res + the tail (in f32, rounded once)
 template <int SIZE, typename TS, typename T>
 __device__ void abby_tail_rows(const TS* xs, int ld, int lr0, int nrows,
                                int r0, int N, int D, int size,
@@ -313,11 +471,15 @@ __device__ void abby_tail_rows(const TS* xs, int ld, int lr0, int nrows,
       abby_tail8_sized<SIZE>(xs + (lr0 + rr) * ld, j0, D, choice[rr], alpha,
                              k, beta, out + (size_t)row * D,
                              res ? res + (size_t)row * D : nullptr);
-    else
-      abby_tail8<ABBY_MAX_TAPS>(xs + (lr0 + rr) * ld, j0, D, size,
+    else if (size <= ABBY_REG_TAPS)
+      abby_tail8<ABBY_REG_TAPS>(xs + (lr0 + rr) * ld, j0, D, size,
                                 choice[rr], alpha, k, beta,
                                 out + (size_t)row * D,
                                 res ? res + (size_t)row * D : nullptr);
+    else
+      abby_tail8_wide(xs + (lr0 + rr) * ld, j0, D, size, choice[rr], alpha,
+                      k, beta, out + (size_t)row * D,
+                      res ? res + (size_t)row * D : nullptr);
   }
 }
 
@@ -349,19 +511,24 @@ __device__ void abby_cluster_tile(const T* __restrict__ x,
   const TS* xrows;                      // the tile's rows, storage values
   int ldx;
   float* hs;  // f32: h of the slice [32][sc]; bf16: partial logits [4][32][3]
+  float* w2s;                           // [3][sc] this slice of W2
   if constexpr (sizeof(T) == 2) {
     bf16* xs = reinterpret_cast<bf16*>(ab_smem);
     bf16* ws = xs + AB_ROWS * abby_ld(D);
-    hs = reinterpret_cast<float*>(ws + 64 * abby_ld(D));
+    hs = reinterpret_cast<float*>(ws + abby_wbuf_elems(D));
+    w2s = hs + 4 * AB_ROWS * 3;
     xrows = xs;
     ldx = abby_ld(D);
   } else {
+    // past AB_F32_WIDE_D the tile is not held whole: the tail reads the
+    // rows from device memory
     float* xf = reinterpret_cast<float*>(ab_smem);
-    hs = xf + AB_ROWS * D + GEMM_WT_FLOATS;
-    xrows = xf;
+    hs = xf + abby_f32_rows(D) * D + GEMM_WT_FLOATS;
+    w2s = hs + AB_ROWS * sc;
+    const bool whole = abby_f32_rows(D) == AB_ROWS;
+    xrows = whole ? xf : reinterpret_cast<const float*>(x) + (size_t)r0 * D;
     ldx = D;
   }
-  float* w2s = hs + AB_ROWS * sc;       // [3][sc] this slice of W2
   float* b1s = w2s + 3 * sc;            // [sc] this slice of b1
   // [S][rows of this CTA][3]: the partial logits of this CTA's rows, as
   // each CTA of the cluster pushed them
@@ -380,16 +547,22 @@ __device__ void abby_cluster_tile(const T* __restrict__ x,
   };
   if constexpr (sizeof(T) == 2) {
     bf16* xs = reinterpret_cast<bf16*>(ab_smem);
-    abby_router_tc(reinterpret_cast<const bf16*>(x),
-                   reinterpret_cast<const bf16*>(w1), b1s, w2s, stage, N, D,
-                   r0, c0, scw, sc, vec != 0, xs, xs + AB_ROWS * abby_ld(D),
-                   hs);
+    if (abby_chunks(D) <= 16)
+      abby_router_tc(reinterpret_cast<const bf16*>(x),
+                     reinterpret_cast<const bf16*>(w1), b1s, w2s, stage, N,
+                     D, r0, c0, scw, sc, vec != 0, xs,
+                     xs + AB_ROWS * abby_ld(D), hs);
+    else
+      abby_router_tc_ring(reinterpret_cast<const bf16*>(x),
+                          reinterpret_cast<const bf16*>(w1), b1s, w2s, stage,
+                          N, D, r0, c0, scw, sc, vec != 0, xs,
+                          xs + AB_ROWS * abby_ld(D), hs);
   } else {
     float* xf = reinterpret_cast<float*>(ab_smem);
     stage();
     abby_router_f32(reinterpret_cast<const float*>(x),
                     reinterpret_cast<const float*>(w1), b1s, N, D, r0, c0,
-                    scw, sc, xf, xf + AB_ROWS * D, hs);
+                    scw, sc, xf, xf + abby_f32_rows(D) * D, hs);
   }
   __syncthreads();
 

@@ -112,12 +112,14 @@ __device__ void gemm_rows16(const float* A, int lda, int K, const TW* w,
 // Row products with an epilogue: out = epi(a W^T + bias) rounded to the
 // storage type, for a (N, K) x W (Nout, K) in torch (out, in) layout.
 // One block per (16-row tile, 64-column slice): the tile's rows go to
-// shared memory once (f32 of the storage values) and W streams through
-// gemm_rows16.  Shared floats: linear_rows_smem_floats(K).
+// shared memory (f32 of the storage values), LIN_KCH columns at a time
+// (once, for K <= LIN_KCH), and W streams through gemm_rows16.  Shared
+// floats: linear_rows_smem_floats(K).
 enum LinearEpilogue { LIN_NONE = 0, LIN_GELU = 1 };
+constexpr int LIN_KCH = 2048;
 
 __host__ __device__ constexpr int linear_rows_smem_floats(int K) {
-  return GEMM_ROWS * K + GEMM_WT_FLOATS;
+  return GEMM_ROWS * (K < LIN_KCH ? K : LIN_KCH) + GEMM_WT_FLOATS;
 }
 
 // torch's exact GELU: 0.5 x (1 + erf(x / sqrt(2)))
@@ -131,17 +133,24 @@ linear_rows(const T* __restrict__ a, const T* __restrict__ w,
             const T* __restrict__ bias, T* __restrict__ out, int N, int K,
             int Nout) {
   extern __shared__ float smem[];
-  float* as = smem;                          // [16][K]
-  float* wt = as + GEMM_ROWS * K;
+  const int kch = K < LIN_KCH ? K : LIN_KCH;
+  float* as = smem;                          // [16][kch]
+  float* wt = as + GEMM_ROWS * kch;
   const int t = threadIdx.x;
   const int r0 = blockIdx.x * GEMM_ROWS, n0 = blockIdx.y * GEMM_NT;
-  for (int e = t; e < GEMM_ROWS * K; e += blockDim.x) {
-    const int r = e / K, j = e % K;
-    as[e] = (r0 + r < N) ? to_f32(a[(size_t)(r0 + r) * K + j]) : 0.0f;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k0 = 0; k0 < K; k0 += kch) {
+    const int kc = min(kch, K - k0);
+    for (int e = t; e < GEMM_ROWS * kc; e += blockDim.x) {
+      const int r = e / kc, j = e % kc;
+      as[e] = (r0 + r < N) ? to_f32(a[(size_t)(r0 + r) * K + k0 + j]) : 0.0f;
+    }
+    __syncthreads();
+    float part[4];
+    gemm_rows16<T, false>(as, kc, kc, w + k0, K, n0, Nout, wt, part);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] += part[i];
   }
-  __syncthreads();
-  float acc[4];
-  gemm_rows16<T, false>(as, K, K, w, K, n0, Nout, wt, acc);
   const int n = n0 + t % GEMM_NT;
   if (n >= Nout) return;
   const float b = to_f32(bias[n]);

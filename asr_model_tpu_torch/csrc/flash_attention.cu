@@ -32,7 +32,8 @@
 // ldmatrix.trans); the row sum takes the f32 P, as the Pallas kernel
 // does (p.astype(v.dtype) only for the product).  Shared rows are padded
 // by 16 bytes so ldmatrix reads are free of bank conflicts; the head dim
-// is zero-padded to 64 or 128 (exact).  No register cap: 220 registers
+// is zero-padded to 64, 128 or 256 (exact; 256 takes 64-row tiles only,
+// one block an SM by its 203 KB ring).  No register cap: 220 registers
 // and no spills fit two 4-warp blocks an SM, which measured faster than
 // three blocks at a 168-register cap with spills.  Causal key tiles
 // wholly above the diagonal are skipped unless a row of the query tile is
@@ -55,10 +56,12 @@
 
 constexpr int FA_BQ = 64;   // query rows per block
 constexpr int FA_BK = 32;   // keys per tile (f32)
-constexpr int FA_HD = 128;  // largest head dim
+constexpr int FA_HD = 256;  // largest head dim
 constexpr float FA_MASKED = -1e30f;
 
-template <typename T>
+// NJ: output channels a thread holds (tx + 16 j): 8 up to hd 128, 16 up
+// to 256
+template <typename T, int NJ>
 __global__ void __launch_bounds__(256)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ kv_valid,
@@ -86,14 +89,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         (q0 + r < Tq) ? to_f32(q[qbase + (size_t)(q0 + r) * hd + d]) : 0.0f;
   }
 
-  float acc[4][8];
+  float acc[4][NJ];
   float m_run[4], l_run[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m_run[i] = -INFINITY;
     l_run[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
   }
   const int shift = Tk - Tq;  // bottom-right causal alignment
 
@@ -159,15 +162,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l_run[i] = l_run[i] * alpha + rsum;
       m_run[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
 
     const int kmax = min(FA_BK, Tk - k0);
     for (int c = 0; c < kmax; ++c) {
-      float vv[8];
+      float vv[NJ];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int d = tx + 16 * j;
         vv[j] = d < hd ? vs[c * hd + d] : 0.0f;
       }
@@ -175,7 +178,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         const float p = ps[(ty + 16 * i) * (FA_BK + 1) + c];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
       }
     }
   }
@@ -186,7 +189,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= Tq) continue;
     const float inv = 1.0f / fmaxf(l_run[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
       if (d < hd)
         out[qbase + (size_t)qi * hd + d] = from_f32<T>(acc[i][j] * inv);
@@ -576,7 +579,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (tid == 0) counters[tile] = 0;  // ready for the next call
 }
 
-template <typename T>
+template <typename T, int NJ>
 static int launch_flash_f32(const void* q, const void* k, const void* v,
                             const void* kv_valid, void* out, int B, int H,
                             int Tq, int Tk, int hd, float scale, int causal,
@@ -584,11 +587,11 @@ static int launch_flash_f32(const void* q, const void* k, const void* v,
   const int hdp = hd + 1;
   const size_t smem = sizeof(float) * ((FA_BQ + FA_BK) * hdp + FA_BK * hd +
                                        FA_BQ * (FA_BK + 1));
-  cudaFuncSetAttribute(flash_fwd_kernel<T>,
+  cudaFuncSetAttribute(flash_fwd_kernel<T, NJ>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   const dim3 grid((Tq + FA_BQ - 1) / FA_BQ, B * H);
-  flash_fwd_kernel<T><<<grid, 256, smem, st>>>(
+  flash_fwd_kernel<T, NJ><<<grid, 256, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kv_valid,
       (T*)out, H, Tq, Tk, hd, scale, causal);
   return (int)cudaGetLastError();
@@ -616,11 +619,11 @@ static int launch_flash_tc(const void* q, const void* k, const void* v,
 }
 
 // q: (B, H, Tq, hd); k, v: (B, H, Tk, hd); out like q; kv_valid: (B, Tk)
-// bytes or null.  hd <= 128, Tk >= 1.  dtype 0 = f32, 1 = bf16.
+// bytes or null.  hd <= 256, Tk >= 1.  dtype 0 = f32, 1 = bf16.
 // bf16 only: nsplit (1..16) blocks share each (b * h, query tile)'s keys,
-// the query tile bq = 16 * tc_warps(Tq) rows; with nsplit > 1, part_o
-// holds B*H*ceil(Tq/bq)*nsplit*bq*hdp f32 (hdp = 64 for hd <= 64, else
-// 128), part_ml B*H*ceil(Tq/bq)*nsplit*bq*2 f32, and counters
+// the query tile bq = 16 * tc_warps(Tq) rows (64 past hd 128); with
+// nsplit > 1, part_o holds B*H*ceil(Tq/bq)*nsplit*bq*hdp f32 (hdp = 64
+// for hd <= 64, 128 for hd <= 128, else 256), part_ml B*H*ceil(Tq/bq)*nsplit*bq*2 f32, and counters
 // B*H*ceil(Tq/bq) ints that are zero on entry (the kernel leaves them
 // zero; calls that share counters must run in order, on one stream).
 ASR_API int asr_flash_attention(int dtype, const void* q, const void* k,
@@ -633,8 +636,12 @@ ASR_API int asr_flash_attention(int dtype, const void* q, const void* k,
   if (B * H == 0 || Tq == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ASR_F32)
-    return launch_flash_f32<float>(q, k, v, kv_valid, out, B, H, Tq, Tk, hd,
-                                   scale, causal, st);
+    return hd <= 128 ? launch_flash_f32<float, 8>(q, k, v, kv_valid, out, B,
+                                                  H, Tq, Tk, hd, scale,
+                                                  causal, st)
+                     : launch_flash_f32<float, 16>(q, k, v, kv_valid, out,
+                                                   B, H, Tq, Tk, hd, scale,
+                                                   causal, st);
   if (nsplit < 1 || nsplit > TC_MAX_SPLIT ||
       (nsplit > 1 && (!part_o || !part_ml || !counters)))
     return (int)cudaErrorInvalidValue;
@@ -642,6 +649,7 @@ ASR_API int asr_flash_attention(int dtype, const void* q, const void* k,
   return launch_flash_tc<hdp, w>(q, k, v, kv_valid, out, part_o, part_ml,  \
                                  counters, B, H, Tq, Tk, hd, scale, causal, \
                                  nsplit, st)
+  if (hd > 128) FA_TC(256, 4);
   if (tc_warps(Tq) == 5) {
     if (hd <= 64) FA_TC(64, 5);
     FA_TC(128, 5);

@@ -8,7 +8,8 @@
 // centre zero-padded signal (frame t starts at sample t * hop - n_fft /
 // 2), the periodic Hann window, the real FFT's power |X[k]|^2 for k = 0
 // .. n_fft / 2, and the HTK filterbank: out (B, n_mels, T), T = 1 + N /
-// hop.
+// hop (one fewer for an odd n_fft whose last frame would run past the
+// padding, as the reference's framing gives).
 //
 // What bounds it: the function needs a real FFT, the power and the
 // filterbank's nonzero entries, about 60k operations per 1024-sample
@@ -39,7 +40,7 @@
 
 constexpr int MEL_TF = 16;        // frames per block
 constexpr int MEL_THREADS = 256;
-constexpr int MEL_MAXM = 128;
+constexpr int MEL_MAXM = 256;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -209,9 +210,10 @@ mel_fft_kernel(const float* __restrict__ audio, const float* __restrict__ win,
     __syncthreads();
     // mel product over each filter's band: lanes 2m and 2m + 1 take the
     // two halves of mel m's bins for every frame of the round (one
-    // weight load per bin), summed by one shuffle in a fixed order
-    {
-      const int m = t >> 1, half = t & 1;
+    // weight load per bin), summed by one shuffle in a fixed order; 128
+    // mels a pass
+    for (int m0 = 0; m0 < n_mels; m0 += MEL_THREADS / 2) {
+      const int m = m0 + (t >> 1), half = t & 1;
       int lo = 0, n = 0, off = 0;
       if (m < n_mels) {
         lo = __ldg(&band[3 * m]);
@@ -261,19 +263,134 @@ static int launch_mel(const void* audio, const void* win, const void* tw,
   return (int)cudaGetLastError();
 }
 
-// audio: (B, N) f32; win: (n_fft,) f32 Hann window; tw: (n_fft,) complex
-// f32 exp(-2 pi i k / n_fft); band: (n_mels, 3) int32 (first bin, length,
-// offset into bw); bw: the filters' nonzero weights, packed; out: (B,
-// n_mels, T) f32 with T = 1 + N / hop.  n_fft a power of two, 64..4096;
-// 1 <= n_mels <= 128.
+// ---------------------------------------------------------------------
+// Any other n_fft (64..4096, odd included): Bluestein's algorithm, so the
+// frame's n_fft-point DFT is a circular convolution of power-of-two
+// length L >= 2 n_fft - 1 (L <= 8192), done by two L-point FFTs.  With
+// the chirp b[m] = exp(i pi m^2 / n_fft), X[k] = conj(b[k]) (a (*) b)[k]
+// for a[n] = x[n] win[n] conj(b[n]); |X[k]|^2 = |(a (*) b)[k]|^2, so the
+// power needs no final chirp.  The wrapper makes the tables in float64:
+// wc[n] = win[n] conj(b[n]), bf = FFT_L(b wrapped to length L) / L and
+// the twiddles exp(-2 pi i k / L).  One block per (16-frame tile,
+// utterance), one frame at a time: a radix-2 Stockham FFT of L points
+// in shared memory (the inverse with conjugate twiddles), the power of
+// bins 0 .. n_fft / 2, and the mel product over each filter's band, a
+// thread a mel.  Frames are read straight from the waveform.  The same
+// f32 arithmetic as the power-of-two kernel; about 4 L log2(L) / (n_fft
+// log2(n_fft)) times its operations.
+
+// one L-point radix-2 Stockham FFT (tw[k] = exp(-2 pi i k / L), k < L /
+// 2; conjugated for the inverse): src ends on the transform
+__device__ void mel_fft_pow2(float2*& src, float2*& dst, int L,
+                             const float2* __restrict__ tw, bool inv) {
+  const int h = L / 2;
+  for (int ns = 1; ns < L; ns <<= 1) {
+    __syncthreads();
+    const int step = h / ns;
+    for (int j = threadIdx.x; j < h; j += MEL_THREADS) {
+      const int k = j & (ns - 1);
+      float2 w = __ldg(&tw[k * step]);
+      if (inv) w.y = -w.y;
+      const float2 a = src[j], b = cmul(src[j + h], w);
+      const int d = ((j - k) << 1) + k;
+      dst[d] = make_float2(a.x + b.x, a.y + b.y);
+      dst[d + ns] = make_float2(a.x - b.x, a.y - b.y);
+    }
+    float2* t = src;
+    src = dst;
+    dst = t;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(MEL_THREADS)
+mel_bluestein_kernel(const float* __restrict__ audio,
+                     const float2* __restrict__ wc,
+                     const float2* __restrict__ bf,
+                     const float2* __restrict__ tw,
+                     const int* __restrict__ band,
+                     const float* __restrict__ bw, float* __restrict__ out,
+                     int N, int T, int hop, int n_fft, int L, int n_mels) {
+  extern __shared__ __align__(16) float msm[];
+  float2* b0 = reinterpret_cast<float2*>(msm);   // [L]
+  float2* b1 = b0 + L;                           // [L]
+  float* outs = reinterpret_cast<float*>(b1 + L);  // [n_mels][TF]
+  const int t = threadIdx.x, b = blockIdx.y;
+  const int f0t = blockIdx.x * MEL_TF;
+  const float* x = audio + (size_t)b * N;
+  const int nb = n_fft / 2 + 1;
+  for (int f = 0; f < MEL_TF && f0t + f < T; ++f) {
+    const long long start = (long long)(f0t + f) * hop - n_fft / 2;
+    __syncthreads();              // the previous frame's power is read
+    for (int n = t; n < L; n += MEL_THREADS) {
+      float2 v = make_float2(0.0f, 0.0f);
+      if (n < n_fft) {
+        const long long s = start + n;
+        const float xv = (s >= 0 && s < N) ? x[s] : 0.0f;
+        const float2 c = __ldg(&wc[n]);
+        v = make_float2(xv * c.x, xv * c.y);
+      }
+      b0[n] = v;
+    }
+    float2 *src = b0, *dst = b1;
+    mel_fft_pow2(src, dst, L, tw, false);
+    for (int n = t; n < L; n += MEL_THREADS) src[n] = cmul(src[n], __ldg(&bf[n]));
+    mel_fft_pow2(src, dst, L, tw, true);
+    // the power of bins 0 .. n_fft / 2 into the free buffer
+    float* pw = reinterpret_cast<float*>(dst);
+    for (int k = t; k < nb; k += MEL_THREADS) {
+      const float2 c = src[k];
+      pw[k] = c.x * c.x + c.y * c.y;
+    }
+    __syncthreads();
+    for (int m = t; m < n_mels; m += MEL_THREADS) {
+      const int lo = __ldg(&band[3 * m]), len = __ldg(&band[3 * m + 1]);
+      const int off = __ldg(&band[3 * m + 2]);
+      float acc = 0.0f;
+      for (int i = 0; i < len; ++i)
+        acc = fmaf(pw[lo + i], __ldg(&bw[off + i]), acc);
+      outs[m * MEL_TF + f] = acc;
+    }
+  }
+  __syncthreads();
+  for (int e = t; e < n_mels * MEL_TF; e += MEL_THREADS) {
+    const int m = e / MEL_TF, f = e % MEL_TF;
+    if (f0t + f < T) out[((size_t)b * n_mels + m) * T + f0t + f] = outs[e];
+  }
+}
+
+// the Bluestein length for n_fft, and the kernel's dynamic shared memory
+__host__ __device__ constexpr int mel_bluestein_len(int n_fft) {
+  int L = 1;
+  while (L < 2 * n_fft - 1) L <<= 1;
+  return L;
+}
+__host__ __device__ constexpr size_t mel_bluestein_smem(int n_fft,
+                                                       int n_mels) {
+  return sizeof(float) * (4 * (size_t)mel_bluestein_len(n_fft) +
+                          (size_t)n_mels * MEL_TF);
+}
+
+// audio: (B, N) f32; band: (n_mels, 3) int32 (first bin, length, offset
+// into bw); bw: the filters' nonzero weights, packed; out: (B, n_mels,
+// T) f32 with T = 1 + (N + 2 (n_fft / 2) - n_fft) / hop (1 + N / hop for
+// an even n_fft).  1 <= n_mels <= 256, 64 <= n_fft <= 4096.
+// n_fft a power of two: win (n_fft,) f32 Hann window, tw (n_fft,)
+// complex f32 exp(-2 pi i k / n_fft) (wc, bf unused).  Any other n_fft:
+// the Bluestein tables of length L = mel_bluestein_len(n_fft): wc
+// (n_fft,) complex, bf (L,) complex, tw (L / 2,) complex exp(-2 pi i k /
+// L) (win unused).
 ASR_API int asr_mel_spectrogram(const void* audio, const void* win,
-                                const void* tw, const void* band,
+                                const void* tw, const void* wc,
+                                const void* bf, const void* band,
                                 const void* bw, void* out, int B, int N,
                                 int hop, int n_fft, int n_mels,
                                 void* stream) {
-  if (n_mels > MEL_MAXM || n_mels < 1 || hop < 1)
+  if (n_mels > MEL_MAXM || n_mels < 1 || hop < 1 || n_fft < 64 ||
+      n_fft > 4096)
     return (int)cudaErrorInvalidValue;
-  const int T = 1 + N / hop;
+  // frames of the centre-padded signal (n_fft / 2 zeros a side)
+  const int T = 1 + (N + 2 * (n_fft / 2) - n_fft) / hop;
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (n_fft) {
@@ -285,5 +402,17 @@ ASR_API int asr_mel_spectrogram(const void* audio, const void* win,
     MEL_CASE(2048) MEL_CASE(4096)
 #undef MEL_CASE
   }
-  return (int)cudaErrorInvalidValue;
+  if (!wc || !bf) return (int)cudaErrorInvalidValue;
+  const int L = mel_bluestein_len(n_fft);
+  const size_t smem = mel_bluestein_smem(n_fft, n_mels);
+  cudaError_t e = cudaFuncSetAttribute(
+      mel_bluestein_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  mel_bluestein_kernel<<<dim3((T + MEL_TF - 1) / MEL_TF, B), MEL_THREADS,
+                         smem, st>>>(
+      (const float*)audio, (const float2*)wc, (const float2*)bf,
+      (const float2*)tw, (const int*)band, (const float*)bw, (float*)out, N,
+      T, hop, n_fft, L, n_mels);
+  return (int)cudaGetLastError();
 }

@@ -116,6 +116,7 @@ constexpr int SH_KC = 32;         // weight rows (k) a ring stage
 constexpr int SH_NST = 3;         // ring stages
 constexpr int SH_LDW = 72;        // ring row stride: 64 columns + 8
 constexpr int SH_MAX_CLUSTER = 8;
+constexpr int SH_MEM_GROUP = 64;  // batch rows a pass of the memory EMA
 
 // row stride of the x tile: k padded to whole KC chunks, + 4 so that a
 // fragment's 8 rows x 4 columns fall in 32 banks
@@ -607,12 +608,13 @@ sheath_rows(SheathArgs a, int step) {
 }
 
 // per-batch masked mean of x_new (a block per (batch, 32 channels)), then
-// in the last block to finish the step's scalar control
+// in the last block to finish the step's scalar control and the working
+// memory's EMA (any batch: SH_MEM_GROUP rows a pass)
 __global__ void __launch_bounds__(256) sheath_mem_ctl(SheathArgs a,
                                                       int step) {
   __shared__ float ps[8][32], pn[8][32];
   __shared__ float red_s[8], red_n[8];
-  __shared__ float mem_v[64];
+  __shared__ float mem_v[SH_MEM_GROUP];
   __shared__ int s_last;
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
   const int i = step == 0 ? 0 : a.ctl[0];
@@ -665,40 +667,46 @@ __global__ void __launch_bounds__(256) sheath_mem_ctl(SheathArgs a,
     red_s[warp] = s;
     red_n[warp] = n;
   }
-  // working-memory gate per batch row: sigmoid(mem . memgate_w + b)
-  for (int b = warp; b < a.B; b += 8) {
-    float d = 0.0f;
-    for (int j = lane; j < a.D; j += 32)
-      d += __ldcg(a.mem + (size_t)b * a.D + j) * a.memgate_w[j];
-    d = warp_sum(d);
-    if (lane == 0) mem_v[b] = sigmoidf_(d + a.memgate_b[0]);
-  }
-  __syncthreads();
-  if (t == 0) {
-    float ss = 0.0f, nn = 0.0f;
-    for (int w = 0; w < 8; ++w) {
-      ss += red_s[w];
-      nn += red_n[w];
+  // the working memory's EMA, SH_MEM_GROUP batch rows at a time: the gate
+  // per batch row, sigmoid(mem . memgate_w + b), then its rows; thread 0
+  // takes the step's scalar control while the first group's rows run
+  for (int g0 = 0; g0 < a.B; g0 += SH_MEM_GROUP) {
+    const int nbg = min(SH_MEM_GROUP, a.B - g0);
+    for (int bb = warp; bb < nbg; bb += 8) {
+      float d = 0.0f;
+      for (int j = lane; j < a.D; j += 32)
+        d += __ldcg(a.mem + (size_t)(g0 + bb) * a.D + j) * a.memgate_w[j];
+      d = warp_sum(d);
+      if (lane == 0) mem_v[bb] = sigmoidf_(d + a.memgate_b[0]);
     }
-    const float potential = ss / fmaxf(nn, 1.0f);
-    const bool last = i >= a.L - 1;
-    const bool forced = potential < 0.1f && !last;
-    const int action = last ? 0 : (forced ? 1 : a.sampled[0]);
-    const int widx = min(max(action - 1, 0), 2);
-    a.jump_w[0] = a.jump_s[widx];
-    a.ctl[0] = action > 0 ? min(i + action + 1, a.L) : i + 1;
-    a.ctl[1] = action > 0;
-    a.actions[step] = action;
-    if (step == 0)
-      for (int c = 0; c < 3; ++c) a.jstat[c] = 0;
-    a.jstat[action] += a.B;
-    *a.counter = 0;                 // ready for the next step
-  }
-  for (int e = t; e < a.B * a.D; e += blockDim.x) {
-    const int b = e / a.D;
-    const float v = mem_v[b];
-    const float prev = step == 0 ? a.mem0[e % a.D] : a.mem_w[e];
-    a.mem_w[e] = v * prev + (1.0f - v) * __ldcg(a.mem + e);
+    __syncthreads();
+    if (g0 == 0 && t == 0) {
+      float ss = 0.0f, nn = 0.0f;
+      for (int w = 0; w < 8; ++w) {
+        ss += red_s[w];
+        nn += red_n[w];
+      }
+      const float potential = ss / fmaxf(nn, 1.0f);
+      const bool last = i >= a.L - 1;
+      const bool forced = potential < 0.1f && !last;
+      const int action = last ? 0 : (forced ? 1 : a.sampled[0]);
+      const int widx = min(max(action - 1, 0), 2);
+      a.jump_w[0] = a.jump_s[widx];
+      a.ctl[0] = action > 0 ? min(i + action + 1, a.L) : i + 1;
+      a.ctl[1] = action > 0;
+      a.actions[step] = action;
+      if (step == 0)
+        for (int c = 0; c < 3; ++c) a.jstat[c] = 0;
+      a.jstat[action] += a.B;
+      *a.counter = 0;               // ready for the next step
+    }
+    for (int e = t; e < nbg * a.D; e += blockDim.x) {
+      const size_t o = (size_t)g0 * a.D + e;
+      const float v = mem_v[e / a.D];
+      const float prev = step == 0 ? a.mem0[e % a.D] : a.mem_w[o];
+      a.mem_w[o] = v * prev + (1.0f - v) * __ldcg(a.mem + o);
+    }
+    __syncthreads();                // mem_v is free for the next group
   }
 }
 
@@ -781,7 +789,7 @@ ASR_API int asr_fused_sheath_scan(
     void* ctl, void* counter, void* jump_w, void* actions, void* jstat,
     int N, int B, int C, int D, int D2, int M, int L, int SCP, int DP,
     int wdtype, int rows, float thresh, void* stream) {
-  if (B < 1 || B > 64 || M < 1 || SCP % 64 || DP % 64 ||
+  if (B < 1 || M < 1 || SCP % 64 || DP % 64 ||
       SCP < M + D2 || DP < D || L < 1 || D < 1 || (rows != 16 && rows != 64) ||
       (sh_passes(SCP, DP) > 1 && rows != 16))
     return (int)cudaErrorInvalidValue;

@@ -73,23 +73,33 @@ abby_plain.calls = 0
 
 
 ROWS = 32               # rows of a cluster's tile (abby.cu AB_ROWS)
-MAX_TAPS = 51           # widest window: window_size(1024)
+MAX_D = 2048
+MAX_TAPS = 103          # widest window: window_size(2048)
+W_RING = 8              # W1 chunks in flight past 16 (AB_WRING)
 
 
 def launch_plan(n: int, d: int, dtype) -> dict:
     """What ``abby.cu`` launches for (n, d) rows of ``dtype``: the
-    columns of the router each CTA owns, the CTAs of a cluster (one row
-    tile), the tiles, and the dynamic shared memory of a CTA in bytes
-    (the formula of ``abby_smem_bytes``)."""
-    cols = 64 if d <= 512 else 128
+    columns of the router each CTA owns (64, 128 past D 512, the
+    64-column multiple of D / 8 past 1024), the CTAs of a cluster (one
+    row tile), the tiles, the W1 chunks a bf16 pass holds (every chunk,
+    or a ring of 8 past 16 chunks), the f32 rows held at once (the
+    tile, half of it past D 1024) and the dynamic shared memory of a CTA
+    in bytes (the formula of ``abby_smem_bytes``)."""
+    cols = 64 if d <= 512 else 128 if d <= 1024 else 64 * -(-d // 512)
     cluster = -(-d // cols)
+    chunks = -(-d // 64)
+    ld = 64 * chunks + 8
+    slots = chunks if chunks <= 16 else W_RING
+    f32_rows = ROWS if d <= 1024 else ROWS // 2
     if dtype == torch.bfloat16:
-        smem = 2 * (ROWS + 64) * (64 * -(-d // 64) + 8)
+        wbuf = 64 * ld if chunks <= 16 else W_RING * 64 * 72
+        smem = 2 * (ROWS * ld + wbuf) + 4 * 4 * ROWS * 3
     else:
-        smem = 4 * (ROWS * d + 32 * 65)
-    smem += 4 * ((ROWS + 4) * cols + (ROWS + 8) * 3 + 2 * ROWS)
+        smem = 4 * (f32_rows * d + 32 * 65) + 4 * ROWS * cols
+    smem += 4 * (4 * cols + (ROWS + 8) * 3 + 2 * ROWS)
     return dict(cols=cols, cluster=cluster, tiles=-(-n // ROWS),
-                rows=ROWS, smem=smem)
+                rows=ROWS, w_slots=slots, f32_rows=f32_rows, smem=smem)
 
 
 def _launch():
@@ -101,14 +111,14 @@ def _launch():
 def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
                beta: float):
     """The whole eval AbbyNormal over the rows of x2 (N, D): the kernel
-    on CUDA tensors (f32 or bf16, weights in x2's dtype, D <= 1024, N <=
-    65535 * 32, size <= 51), the plain version on CPU tensors."""
+    on CUDA tensors (f32 or bf16, weights in x2's dtype, D <= 2048, N <=
+    65535 * 32, size <= 103), the plain version on CPU tensors."""
     if x2.device.type == "cpu":
         return abby_plain(x2, w1, b1, w2, b2, size, alpha, k, beta)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_abby: unsupported device {x2.device}")
     n, d = x2.shape
-    ok = (x2.dim() == 2 and 2 <= d <= 1024 and n <= 65535 * ROWS
+    ok = (x2.dim() == 2 and 2 <= d <= MAX_D and n <= 65535 * ROWS
           and 1 <= size <= MAX_TAPS and w1.shape == (d, d)
           and b1.shape == (d,) and w2.shape == (3, d) and b2.shape == (3,)
           and all(t.dtype == x2.dtype and t.is_contiguous()
@@ -116,7 +126,7 @@ def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
                   for t in (x2, w1, b1, w2, b2)))
     if not ok:
         raise ValueError(
-            "fused_abby kernel takes contiguous (N, D<=1024) x with "
+            f"fused_abby kernel takes contiguous (N, D<={MAX_D}) x with "
             "(D, D), (D,), (3, D), (3,) weights of its dtype and device and "
             f"a window of at most {MAX_TAPS}; "
             f"got x {tuple(x2.shape)} {x2.dtype}, w1 {tuple(w1.shape)} "

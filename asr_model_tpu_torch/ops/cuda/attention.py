@@ -8,7 +8,8 @@ JAX package's plain route (``attention._sdpa_xla``): masked logits are
 -1e30, so a fully masked row is the uniform mean of V, and the causal
 mask is aligned bottom-right.  bf16 runs on the tensor cores
 (``mma.sync``, 64- or 80-query x 64-key tiles, a 3-4 stage cp.async
-ring, P rounded to bf16 for the PV product as the Pallas kernel does);
+ring, P rounded to bf16 for the PV product as the Pallas kernel does;
+head widths up to 256, past 128 in 64-query tiles);
 when a call has too few (batch * head, query tile) blocks to fill the
 card, the keys are split over ``splits`` blocks whose partials the last
 one merges in the same launch (a workspace per call, tile counters per
@@ -56,29 +57,30 @@ def _launch():
 
 
 TILE = 64          # keys per tile of the bf16 kernel
+MAX_HD = 256
 MAX_SPLIT = 16
 MIN_SPLIT_TILES = 4
 
 
-def q_tile(tq: int) -> int:
+def q_tile(tq: int, hd: int = 128) -> int:
     """Query rows per block of the bf16 kernel (``tc_warps`` in the
-    source): 80 when Tq is 65..80, the decode width 65 in one tile; else
-    64."""
-    return 80 if 64 < tq <= 80 else 64
+    source): 80 when Tq is 65..80 and hd <= 128, the decode width 65 in
+    one tile; else 64."""
+    return 80 if 64 < tq <= 80 and hd <= 128 else 64
 
 
-def splits(bh: int, tq: int, tk: int, sms: int) -> int:
+def splits(bh: int, tq: int, tk: int, sms: int, hd: int = 128) -> int:
     """Key splits of the bf16 kernel: 1 when the (batch * head, query
     tile) blocks fill the card's ``sms`` SMs; else enough for the blocks
     an SM holds (two of 64 rows, one of 80), with at least 4 key tiles a
     split (a split's start and its share of the merge cost about as much
     as a few tiles, measured on the H100), at most 16."""
-    bq = q_tile(tq)
+    bq = q_tile(tq, hd)
     blocks = bh * -(-tq // bq)
     nkt = -(-tk // TILE)
     if blocks >= sms:
         return 1
-    per_sm = 2 if bq == 64 else 1
+    per_sm = 2 if bq == 64 and hd <= 128 else 1
     n = max(1, min(MAX_SPLIT, nkt // MIN_SPLIT_TILES,
                    -(-per_sm * sms // blocks)))
     return -(-nkt // -(-nkt // n))      # no split left without a tile
@@ -108,7 +110,7 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
                     scale: float | None = None):
     """(B, H, Tq, hd) x (B, H, Tk, hd) -> (B, H, Tq, hd); ``kv_valid``
     (B, Tk) bool.  The flash kernel on CUDA tensors (f32 or bf16,
-    hd <= 128), on the current stream, the plain version on CPU tensors.
+    hd <= 256), on the current stream, the plain version on CPU tensors.
     The split merge's tile counters are kept per stream, so calls on
     two streams may run at once."""
     if scale is None:
@@ -120,7 +122,8 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
     b, h, tq, hd = q.shape
     tk = k.shape[2]
     ok = (q.dim() == 4 and k.shape == (b, h, tk, hd) and v.shape == k.shape
-          and q.dtype == k.dtype == v.dtype and 1 <= hd <= 128 and tk >= 1
+          and q.dtype == k.dtype == v.dtype and 1 <= hd <= MAX_HD
+          and tk >= 1
           and all(t.is_contiguous() and t.device == q.device
                   for t in (q, k, v)))
     if kv_valid is not None:
@@ -130,7 +133,8 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
                      and kv_valid.device == q.device)
     if not ok:
         raise ValueError(
-            "flash_attention kernel takes contiguous (B, H, T, hd<=128) "
+            "flash_attention kernel takes contiguous "
+            f"(B, H, T, hd<={MAX_HD}) "
             "q/k/v of one dtype on one device and a (B, Tk) bool mask; "
             f"got q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
             f"{q.dtype}")
@@ -139,11 +143,11 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
     stream = B.stream_of(q)
     nsplit, part_o, part_ml, counters, ws = 1, None, None, None, None
     if code == 1:
-        nsplit = splits(b * h, tq, tk, _sm_count(q.device.index or 0))
+        nsplit = splits(b * h, tq, tk, _sm_count(q.device.index or 0), hd)
     if nsplit > 1:
-        bq = q_tile(tq)
+        bq = q_tile(tq, hd)
         tiles = b * h * -(-tq // bq)
-        hdp = 64 if hd <= 64 else 128
+        hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
         ws, (part_o, part_ml) = B.workspace(
             q.device, [4 * tiles * nsplit * bq * hdp,
                        4 * tiles * nsplit * bq * 2])

@@ -10,8 +10,11 @@ does the real FFT in shared memory instead (a half-length complex
 Stockham FFT and the real split), reads frames straight from the
 waveform at the hop stride, and takes the mel product over each
 filter's nonzero band (``mel_bands``).  Only the waveform and the mel
-output cross device memory.  The kernel takes ``n_fft`` a power of two
-from 64 to 4096 and ``n_mels <= 128``.  See the source for the design.
+output cross device memory.  Any other ``n_fft`` from 64 to 4096 (odd
+included; Whisper's 400) takes Bluestein's algorithm: the DFT as a
+circular convolution of power-of-two length done by two FFTs
+(``bluestein_tables``).  ``n_mels <= 256``.  See the source for the
+design.
 """
 
 from __future__ import annotations
@@ -31,6 +34,40 @@ def fft_twiddles(n_fft: int) -> np.ndarray:
     return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
 
 
+MIN_FFT, MAX_FFT, MAX_MELS = 64, 4096, 256
+
+
+def is_pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def bluestein_len(n_fft: int) -> int:
+    """The convolution length of Bluestein's algorithm: the least power
+    of two >= 2 n_fft - 1 (``csrc/mel.cu:mel_bluestein_len``)."""
+    return 1 << (2 * n_fft - 2).bit_length()
+
+
+def bluestein_tables(n_fft: int):
+    """The Bluestein kernel's tables, made in float64 and stored as
+    (., 2) float32 (real, imaginary): wc[n] = win[n] exp(-i pi n^2 /
+    n_fft) for n < n_fft, bf = FFT_L(b) / L of the chirp b[m] = exp(i pi
+    m^2 / n_fft) wrapped to length L (b[L - m] = b[m] for 0 < m <
+    n_fft), and the twiddles exp(-2 pi i k / L) for k < L / 2."""
+    from asr_model_tpu_torch.ops.mel import hann_window
+    n_len = bluestein_len(n_fft)
+    n = np.arange(n_fft, dtype=np.int64)
+    ph = np.pi * ((n * n) % (2 * n_fft)) / n_fft      # exact n^2 mod 2N
+    win = hann_window(n_fft).astype(np.float64)
+    wc = win * np.exp(-1j * ph)
+    chirp = np.zeros(n_len, dtype=np.complex128)
+    chirp[:n_fft] = np.exp(1j * ph)
+    chirp[n_len - n_fft + 1:] = np.exp(1j * ph[1:])[::-1]
+    bf = np.fft.fft(chirp) / n_len
+    tw = np.exp(-2j * np.pi * np.arange(n_len // 2) / n_len)
+    pack = lambda z: np.stack([z.real, z.imag], axis=-1).astype(np.float32)
+    return pack(wc), pack(bf), pack(tw)
+
+
 def mel_bands(fb: np.ndarray):
     """The (F, n_mels) filterbank as the kernel's band table: (n_mels, 3)
     int32 rows (first nonzero bin, band length, offset into the weights)
@@ -47,14 +84,24 @@ def mel_bands(fb: np.ndarray):
 
 
 def _consts(device, sample_rate, n_fft, n_mels, f_min, f_max):
+    """The kernel's tables on the device: (win, tw, wc, bf, band, bw);
+    win and tw of the power-of-two kernel, or None, wc, bf and tw of the
+    Bluestein one."""
     from asr_model_tpu_torch.ops.mel import hann_window, mel_filterbank
     key = (str(device), sample_rate, n_fft, n_mels, f_min, f_max)
     if key not in _DEVICE_CONSTS:
         band, bw = mel_bands(mel_filterbank(n_fft // 2 + 1, f_min, f_max,
                                             n_mels, sample_rate))
+        if is_pow2(n_fft):
+            win, tw, wc, bf = (hann_window(n_fft), fft_twiddles(n_fft),
+                               None, None)
+        else:
+            win = None
+            wc, bf, tw = bluestein_tables(n_fft)
         _DEVICE_CONSTS[key] = tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (hann_window(n_fft), fft_twiddles(n_fft), band, bw))
+            None if a is None
+            else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (win, tw, wc, bf, band, bw))
     return _DEVICE_CONSTS[key]
 
 
@@ -78,15 +125,16 @@ mel_spectrogram_plain.calls = 0
 
 def _launch():
     return B.function("asr_mel_spectrogram",
-                      [B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I, B.I, B.I,
-                       B.P])
+                      [B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I,
+                       B.I, B.I, B.P])
 
 
 def mel_spectrogram(audio, sample_rate: int = 16000, n_fft: int = 1024,
                     hop_length: int = 160, n_mels: int = 128,
                     f_min: float = 50.0, f_max: float = 8000.0):
-    """(B, N) float32 audio -> (B, n_mels, 1 + N // hop_length) power mel
-    spectrogram (center=True, zero padding; HTK filterbank).  One kernel
+    """(B, N) float32 audio -> (B, n_mels, T) power mel spectrogram
+    (center=True, n_fft // 2 zeros a side: T = 1 + N // hop_length for an
+    even n_fft; HTK filterbank).  One kernel
     launch for the whole batch on a CUDA tensor; the plain version on a
     CPU tensor."""
     if audio.device.type == "cpu":
@@ -99,19 +147,19 @@ def mel_spectrogram(audio, sample_rate: int = 16000, n_fft: int = 1024,
         raise ValueError("mel_spectrogram kernel takes contiguous (B, N) "
                          f"float32 audio, got {tuple(audio.shape)} "
                          f"{audio.dtype}")
-    if not 1 <= n_mels <= 128 or not 64 <= n_fft <= 4096 \
-            or n_fft & (n_fft - 1):
-        raise ValueError("mel_spectrogram kernel takes n_mels <= 128 and "
-                         f"n_fft a power of two in 64..4096, got n_mels "
+    if not 1 <= n_mels <= MAX_MELS or not MIN_FFT <= n_fft <= MAX_FFT:
+        raise ValueError(f"mel_spectrogram kernel takes n_mels <= {MAX_MELS}"
+                         f" and n_fft in {MIN_FFT}..{MAX_FFT}, got n_mels "
                          f"{n_mels}, n_fft {n_fft}")
-    win, tw, band, bw = _consts(audio.device, sample_rate, n_fft, n_mels,
-                                f_min, f_max)
+    win, tw, wc, bf, band, bw = _consts(audio.device, sample_rate, n_fft,
+                                        n_mels, f_min, f_max)
     b, n = audio.shape
-    out = torch.empty(b, n_mels, 1 + n // hop_length, device=audio.device,
+    frames = 1 + (n + 2 * (n_fft // 2) - n_fft) // hop_length
+    out = torch.empty(b, n_mels, frames, device=audio.device,
                       dtype=torch.float32)
-    rc = _launch()(audio.data_ptr(), win.data_ptr(), tw.data_ptr(),
-                   band.data_ptr(), bw.data_ptr(), out.data_ptr(), b, n,
-                   hop_length, n_fft, n_mels, B.stream_of(audio))
+    rc = _launch()(audio.data_ptr(), B.ptr(win), tw.data_ptr(), B.ptr(wc),
+                   B.ptr(bf), band.data_ptr(), bw.data_ptr(), out.data_ptr(),
+                   b, n, hop_length, n_fft, n_mels, B.stream_of(audio))
     B.check(rc, "asr_mel_spectrogram")
     mel_spectrogram.launches += 1 if b else 0
     return out

@@ -24,7 +24,7 @@ from asr_model_tpu_torch.ops.cuda import abby
 from asr_model_tpu_torch.ops.cuda.abby import abby_values
 
 LAUNCHES = 5                     # a call's kernel launches (mlp.cu)
-MAX_D, MAX_TYPES = 1024, 4
+MAX_D, MAX_TYPES = 2048, 8
 ROWS, COLS = 32, 64              # the tensor-core tiles (mlp.cu)
 STAGES = 3                       # their k chunks in flight (MLP_ST)
 
@@ -62,7 +62,15 @@ def launch_plan(n: int, d: int, hid: int, dtype, nt: int = 3) -> dict:
                 gates_smem=(gates_tc_smem() if tc
                             else 4 * (16 * d + 32 * 65 + 16 * MAX_TYPES)),
                 linear_smem=(B.tc_ring_bytes(2, 2, False, False, STAGES) if tc
-                             else 4 * (16 * max(d, hid) + 32 * 65)))
+                             else 4 * (16 * min(max(d, hid), 2048)
+                                       + 32 * 65)))
+
+
+def supports(d: int, nt: int) -> bool:
+    """The widths the kernels take: 2 <= D <= MAX_D, 1..MAX_TYPES gates,
+    the window of D within abby.MAX_TAPS."""
+    return (2 <= d <= MAX_D and 1 <= nt <= MAX_TYPES
+            and abby.window_size(d) <= abby.MAX_TAPS)
 
 
 def mlp_residual_plain(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
@@ -96,7 +104,7 @@ def fused_mlp_residual(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
                        out_b, size_d: int, alpha: float, k: float,
                        beta: float):
     """``x2 + mlp(x2)`` over the rows of x2 (N, D): the kernels on CUDA
-    tensors (f32 or bf16, weights of x2's dtype, D <= 1024, at most 4
+    tensors (f32 or bf16, weights of x2's dtype, D <= 2048, at most 8
     gates), the plain version on CPU tensors.  Arguments as in
     ``mlp_residual_plain``."""
     args = (x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w, out_b, size_d,
@@ -110,8 +118,8 @@ def fused_mlp_residual(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
     nt, hid = len(gates), in_w.shape[0]
     weights = [*ln_w, cs_w, cs_b, *[t for g in gates for t in g], in_w,
                in_b, out_w, out_b]
-    ok = (x2.dim() == 2 and 2 <= d <= MAX_D and 1 <= nt <= MAX_TYPES
-          and hid <= 3 * MAX_D and 1 <= size_d <= abby.MAX_TAPS
+    ok = (x2.dim() == 2 and supports(d, nt) and hid >= 1
+          and 1 <= size_d <= abby.MAX_TAPS
           and n <= 65535 * ROWS and ln_w[0].shape == (d, d)
           and ln_w[2].shape == (3, d) and cs_w.shape == (nt, d)
           and all(g[0].shape == (d, d) and g[1].shape == (d,) for g in gates)
@@ -120,8 +128,10 @@ def fused_mlp_residual(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
                   and t.device == x2.device for t in [x2, *weights]))
     if not ok:
         raise ValueError(
-            "fused_mlp_residual kernels take contiguous (N, D<=1024) x and "
-            "torch-layout weights of its dtype and device, at most 4 gates "
+            "fused_mlp_residual kernels take contiguous "
+            f"(N, D<={MAX_D}) x and "
+            "torch-layout weights of its dtype and device, at most "
+            f"{MAX_TYPES} gates "
             f"and a window of at most {abby.MAX_TAPS}; "
             f"got x {tuple(x2.shape)} {x2.dtype}, in_w {tuple(in_w.shape)}, "
             f"{nt} gates")

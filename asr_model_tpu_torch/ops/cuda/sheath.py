@@ -97,7 +97,8 @@ sheath_scan_plain.calls = 0
 
 
 MAX_CLUSTER = 8          # CTAs of a cluster (portable size)
-MAX_D = 1024
+MEM_GROUP = 64           # batch rows a pass of the memory EMA (SH_MEM_GROUP)
+MAX_D = 2048
 ROW_TILES = (16, 64)
 SMEM_MAX = 232448        # dynamic shared memory a block may use (H100)
 _MAX_CLUSTERS: dict = {}  # (device, rows, d, cluster) -> at once
@@ -114,7 +115,7 @@ def smem_bytes(rows: int, d: int, passes: int) -> int:
 
 
 def launch_plan(n: int, d: int, d2: int, m_keys: int,
-                max_clusters: dict | None = None) -> dict:
+                max_clusters: dict | None = None, batch: int = 1) -> dict:
     """The row kernel's launch for n rows: score columns (M + D2) and
     adapter columns (D) padded to 64-column slices, a cluster of one CTA
     a slice (at most 8) per row tile of 16 rows when the clusters all run
@@ -122,7 +123,8 @@ def launch_plan(n: int, d: int, d2: int, m_keys: int,
     none given: 64 rows), else 64 (each CTA streams its slices of the
     weights once per tile, so fewer, taller tiles stream less).  Past 8
     slices each CTA takes every 8th slice, one pass each, on 16-row
-    tiles."""
+    tiles.  The memory kernel runs a block per (batch row, 32 channels)
+    and takes the EMA in the last block MEM_GROUP batch rows a pass."""
     scp = 64 * -(-(m_keys + d2) // 64)
     dp = 64 * -(-d // 64)
     slices = max(scp, dp) // 64
@@ -135,7 +137,9 @@ def launch_plan(n: int, d: int, d2: int, m_keys: int,
             rows = r
             break
     return dict(scp=scp, dp=dp, cluster=cluster, passes=passes, rows=rows,
-                tiles=-(-n // rows), smem=smem_bytes(rows, d, passes))
+                tiles=-(-n // rows), smem=smem_bytes(rows, d, passes),
+                mem_blocks=batch * -(-d // 32),
+                mem_groups=-(-batch // MEM_GROUP))
 
 
 def max_clusters_on(dev, d: int, cluster: int) -> dict:
@@ -209,9 +213,10 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
                       weights: dict, L: int, thresh: float):
     """The MSheath eval scan over x2 (N = batch * C rows, D): the kernel
     sequence on CUDA tensors (x2 f32 or bf16; ``sampled`` a device int32
-    scalar; mem0, jump_s and the weights f32; D <= 1024), the plain
-    version on CPU tensors.  Returns (x, actions (L,) int32, jstat (3,)
-    int32)."""
+    scalar; mem0, jump_s and the weights f32; any batch; D <= 2048 where
+    the row kernel's shared memory (``launch_plan``) fits), the plain
+    version on CPU tensors.  Returns (x, actions (L,)
+    int32, jstat (3,) int32)."""
     if x2.device.type == "cpu":
         return sheath_scan_plain(x2, batch, valid, mem0, sampled, jump_s,
                                  weights, L, thresh)
@@ -230,7 +235,7 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
               "memgate_w": (d,), "memgate_b": (1,)}
     f32 = [mem0, jump_s] + [w[k] for k in WEIGHT_NAMES]
     plan = launch_plan(n, d, d2, m_keys)
-    ok = (x2.dim() == 2 and 1 <= batch <= 64 and c * batch == n
+    ok = (x2.dim() == 2 and 1 <= batch and c * batch == n
           and 1 <= d <= MAX_D and x2.is_contiguous() and L >= 1
           and m_keys >= 1 and plan["smem"] <= SMEM_MAX
           and -(-n // ROW_TILES[0]) <= 65535
@@ -247,7 +252,7 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
     if not ok:
         raise ValueError(
             "fused_sheath_scan kernel takes contiguous (batch * C, "
-            f"D<={MAX_D}) x, a (batch<=64, C) bool mask, an int32 device "
+            f"D<={MAX_D}) x, a (batch, C) bool mask, an int32 device "
             "scalar action and the f32 per-slot "
             f"stacks of WEIGHT_NAMES; got x {tuple(x2.shape)} {x2.dtype}, "
             f"batch {batch}, M {m_keys}, D2 {d2}")

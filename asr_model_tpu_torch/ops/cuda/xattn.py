@@ -9,16 +9,23 @@ for self-attention).  A call is q_norm -> q_proj -> * hd^-0.25 -> rotary
 from xa in a full call (v raw), masked softmax attention (masked logits
 -1e30, causal mask aligned bottom-right), out_proj.  Products take
 operands rounded to the storage type with f32 sums, rounded where the
-Pallas kernel rounds.  Head width 128, D = 128 * heads <= 1024.
+Pallas kernel rounds.  Head width 128 or 256, D = hd * heads <= 2048.
 
-A cached call is three launches on the CUDA cores (norm router, q side
-+ attention per (16-row tile, head, batch), out_proj).  A full call in
+A cached call in bf16 is two launches on the tensor cores
+(``launch_plan_cached``): the q side as a full call's first launch (a
+cluster per 32-row tile norms its rows once and projects, rotates and
+head-norms whole heads), then a cluster of ``ns`` CTAs per (query tile,
+head, batch row) that splits the cached keys, takes the exact softmax in
+one pass (row maxima and sums exchanged over distributed shared memory),
+sums the PV partials in rank order and takes the head's share of
+out_proj; the last cluster per (query tile, batch row) adds the heads'
+shares.  f32 takes three CUDA-core launches (norm router, q side +
+attention per (16-row tile, head, batch), out_proj).  A full call in
 bf16 with at most 1024 keys (every call the model's gate admits) is two
-launches on the tensor cores (``launch_plan_full``): a cluster per
-32-row tile of x and of xa norms its rows once and projects, rotates and
-head-norms whole heads; a cluster of one CTA a head per 16-query tile
-takes the exact softmax in one pass, the PV product and out_proj.  Other
-full calls (f32, longer key sets) take four CUDA-core launches.
+launches on the tensor cores (``launch_plan_full``): the rows launch for
+x and xa, then a cluster of one CTA a head per 16-query tile takes the
+exact softmax in one pass, the PV product and out_proj.  Other full
+calls (f32, longer key sets) take four CUDA-core launches.
 """
 
 from __future__ import annotations
@@ -29,16 +36,24 @@ import torch
 
 from asr_model_tpu_torch.ops.cuda import build as B
 from asr_model_tpu_torch.ops.cuda import abby
+from asr_model_tpu_torch.ops.cuda.attention import _counters, _sm_count
 from asr_model_tpu_torch.ops.cuda.abby import abby_values
 
 NEG_INF = -1e30
-HEAD_DIM, MAX_D = 128, 1024
-LAUNCHES_CACHED = 3
+HEAD_DIMS, MAX_D = (128, 256), 2048
+# a cached call's launches: the tensor-core route, the CUDA-core one
+LAUNCHES_CACHED, LAUNCHES_CACHED_CC = 2, 3
 # a full call's launches: the tensor-core route, the CUDA-core one
 LAUNCHES_FULL, LAUNCHES_FULL_CC = 2, 4
 TC_MAX_KEYS = 1024               # csrc/xattn.cu XA_TC_MAX_KEYS
 ROWS, Q_ROWS = 32, 16            # the tiles of the two launches
 STAGES = 3                       # their k chunks in flight (XA_ST)
+# the cached call's second launch (csrc/xattn.cu XC_*): keys a ring
+# block, query rows a CTA at most
+C_KB, C_MAXQR = 128, 80
+MAX_CLUSTER = 8
+SMEM_MAX = 232448                # dynamic shared memory a block may use
+SMEM_SM = 233472                 # shared memory of a multiprocessor
 NORM_KEYS = ("n_w1", "n_b1", "n_w2", "n_b2")
 PROJ_KEYS = ("proj_w", "proj_b")
 
@@ -159,10 +174,17 @@ def _weights(wq, wkv, wh, wo):
     return out
 
 
+def supports(d: int, head: int) -> bool:
+    """The widths the kernels take: D = hd * heads <= MAX_D with head
+    width hd in HEAD_DIMS."""
+    return (head >= 1 and d % head == 0 and d // head in HEAD_DIMS
+            and d <= MAX_D)
+
+
 def _check(name, x, tensors, head, weights, kv_valid, tk):
     b_, t_, d = x.shape
     ws = [w for w in weights if w is not None]
-    ok = (x.dim() == 3 and d == HEAD_DIM * head and d <= MAX_D
+    ok = (x.dim() == 3 and supports(d, head)
           and all(t.dtype == x.dtype and t.is_contiguous()
                   and t.device == x.device for t in [x, *tensors, *ws]))
     if kv_valid is not None:
@@ -172,7 +194,8 @@ def _check(name, x, tensors, head, weights, kv_valid, tk):
                      and kv_valid.device == x.device)
     if not ok:
         raise ValueError(
-            f"{name} kernels take contiguous (B, T, D = 128 heads <= 1024) "
+            f"{name} kernels take contiguous (B, T, D = hd * heads <= "
+            f"{MAX_D}, hd in {HEAD_DIMS}) "
             "inputs and torch-layout weights of one dtype on one device and "
             f"a (B, Tk) bool mask; got x {tuple(x.shape)} {x.dtype}, "
             f"{head} heads")
@@ -186,12 +209,85 @@ def _cuda_freqs(x, freqs):
     return freqs.to(device=x.device, dtype=torch.float32).contiguous()
 
 
+def cached_kpc(tk: int, ns: int) -> int:
+    """Keys a CTA of the cached call's second launch takes: its share of
+    Tk in whole 128-key blocks (``csrc/xattn.cu:xc_kpc``)."""
+    share = -(-tk // ns)
+    return -(-share // C_KB) * C_KB
+
+
+def cached_smem(qr: int, tk: int, ns: int, hd: int = 128) -> int:
+    """Dynamic shared memory of the cached call's second launch
+    (``csrc/xattn.cu:xc_attend_smem``): the Q tile, the K/V ring (two
+    128-key slots, one where a CTA takes at most 128 keys), the score
+    region (f32 scores, then the bf16 weights in place, later the pushed
+    partial outputs), nineteen values a row."""
+    kpc = cached_kpc(tk, ns)
+    per = -(-qr // ns)
+    slots = 2 if kpc > C_KB else 1
+    sc = _align(max(4 * qr * (kpc + 4), 4 * ns * per * hd))
+    return (_align(2 * qr * (hd + 8)) + _align(2 * slots * C_KB * (hd + 8))
+            + sc + 4 * 19 * qr)
+
+
+def _per_sm(smem: int) -> int:
+    """CTAs of ``smem`` bytes a multiprocessor holds (two at most; the
+    runtime reserves 1 KB a block)."""
+    return 2 if 2 * (smem + 1024) <= SMEM_SM else 1
+
+
+def launch_plan_cached(b: int, t: int, tk: int, d: int, dtype,
+                       operands_ok: bool = True, sms: int = 132,
+                       head: int | None = None) -> dict:
+    """What ``asr_fused_attn_cached`` launches for x (b, t, d) against a
+    cache of tk keys a head: the route ("tc", two tensor-core launches,
+    for bf16 where ``operands_ok`` -- 16-byte aligned operands, windows of
+    at most 103 taps; else "cc", three CUDA-core launches) and, for "tc",
+    the query rows a CTA (``qr``: the whole width up to 80 rows, else
+    64-row tiles; smaller where the scores would not fit), the CTAs a
+    cluster that split the keys (``ns``, 1..8: the most that still run
+    in one wave on the card's ``sms``, no more than the 128-key blocks,
+    none left without keys; where none does, the fewest whose scores
+    fit), the grid (ns, q_tiles, b * heads), the second launch's shared
+    memory in bytes and its f32 workspace of the heads' out_proj shares.
+    ``head`` defaults to heads of 128 columns."""
+    head = head or d // 128
+    hd = d // head
+    tiles_rows = -(-b * t // ROWS)
+    if not (dtype == torch.bfloat16 and operands_ok and tiles_rows <= 65535
+            and b * head <= 65535):
+        return dict(route="cc", launches=LAUNCHES_CACHED_CC)
+    want = 16 * -(-t // 16) if t <= C_MAXQR else 64
+    blocks = -(-tk // C_KB)
+    for qr in range(want, 0, -16):
+        q_tiles = -(-t // qr)
+        clusters = b * head * q_tiles
+        fit = [n for n in (1, 2, 4, 8) if n <= max(1, blocks)
+               and cached_smem(qr, tk, n, hd) <= SMEM_MAX]
+        if not fit:
+            continue
+        wave = [n for n in fit
+                if clusters * n <= sms * _per_sm(cached_smem(qr, tk, n, hd))]
+        ns = max(wave) if wave else min(fit)
+        ns = min(ns, -(-tk // cached_kpc(tk, ns)))    # no CTA without keys
+        return dict(route="tc", launches=LAUNCHES_CACHED,
+                    tiles_rows=tiles_rows, rows=ROWS,
+                    cluster=abby.launch_plan(1, d, dtype)["cluster"],
+                    units=head, rows_smem=rows_smem(d, hd), qr=qr, ns=ns,
+                    kpc=cached_kpc(tk, ns), q_tiles=q_tiles,
+                    grid=(ns, q_tiles, b * head),
+                    smem=cached_smem(qr, tk, ns, hd),
+                    part_bytes=4 * b * q_tiles * head * qr * d)
+    return dict(route="cc", launches=LAUNCHES_CACHED_CC)
+
+
 def fused_attn_cached(x, kn, v, kv_valid, freqs, wq, wh, wo, head: int,
                       size_d: int, size_h: int, alpha: float, k: float,
                       beta: float):
     """One cached cross-attention call (arguments as in
     ``attn_cached_plain``): the kernels on CUDA tensors (f32 or bf16),
-    the plain version on CPU tensors.  Three launches."""
+    the plain version on CPU tensors.  Two launches in bf16
+    (``launch_plan_cached``), else three."""
     if x.device.type == "cpu":
         return attn_cached_plain(x, kn, v, kv_valid, freqs, wq, wh, wo, head,
                                  size_d, size_h, alpha, k, beta)
@@ -200,23 +296,39 @@ def fused_attn_cached(x, kn, v, kv_valid, freqs, wq, wh, wo, head: int,
     tk = kn.shape[2]
     ws = _weights(wq, None, wh, wo)
     _check("fused_attn_cached", x, (kn, v), head, ws, kv_valid, tk)
-    if kn.shape != (b_, head, tk, HEAD_DIM) or v.shape != kn.shape:
+    if kn.shape != (b_, head, tk, d // head) or v.shape != kn.shape:
         raise ValueError(f"fused_attn_cached: K/V {tuple(kn.shape)} / "
                          f"{tuple(v.shape)} for x {tuple(x.shape)}")
     es = x.element_size()
-    work, (plog, o) = B.workspace(           # 3 f32 logits per row, slice
-        x.device, [-(-d // 64) * b_ * t_ * 12, b_ * t_ * d * es])
+    ok = (all(p % 16 == 0 for p in [x.data_ptr(), kn.data_ptr(),
+                                    v.data_ptr(),
+                                    *(w.data_ptr() for w in ws
+                                      if w is not None)])
+          and max(size_d, size_h) <= abby.MAX_TAPS)
+    plan = launch_plan_cached(b_, t_, tk, d, x.dtype, ok,
+                              _sm_count(x.device.index or 0), head)
+    tc = plan["route"] == "tc"
+    stream = B.stream_of(x)
+    if tc:                        # normed rows, q heads, out_proj shares
+        sizes = [b_ * t_ * d * es, b_ * t_ * d * es, plan["part_bytes"]]
+        qr, ns = plan["qr"], plan["ns"]
+        counters = _counters(x.device, stream, b_ * plan["q_tiles"])
+    else:                         # router logits, -, o
+        sizes = [-(-d // 64) * b_ * t_ * 12, 0, b_ * t_ * d * es]
+        qr, ns, counters = 0, 0, None
+    work, pieces = B.workspace(x.device, sizes)
     out = torch.empty_like(x)
     fn = B.function("asr_fused_attn_cached",
-                    [B.I, B.P, B.P, B.P, B.P, B.P, B.PP, B.P, B.P, B.P, B.I,
-                     B.I, B.I, B.I, B.I, B.I, B.I, B.F, B.F, B.F, B.P])
-    rc = fn(B.dtype_code(x.dtype), x.data_ptr(), kn.data_ptr(), v.data_ptr(),
-            B.ptr(kv_valid), fr.data_ptr(),
-            B.ptr_array([B.ptr(w) for w in ws]), out.data_ptr(), plog, o,
-            b_, t_, tk, d, head, int(size_d), int(size_h), float(alpha),
-            float(k), float(beta), B.stream_of(x))
+                    [B.I, B.I, B.P, B.P, B.P, B.P, B.P, B.PP, B.P, B.P, B.P,
+                     B.P, B.P, B.I, B.I, B.I, B.I, B.I, B.I, B.I, B.F, B.F,
+                     B.F, B.I, B.I, B.P])
+    rc = fn(B.dtype_code(x.dtype), int(tc), x.data_ptr(), kn.data_ptr(),
+            v.data_ptr(), B.ptr(kv_valid), fr.data_ptr(),
+            B.ptr_array([B.ptr(w) for w in ws]), out.data_ptr(), *pieces,
+            B.ptr(counters), b_, t_, tk, d, head, int(size_d), int(size_h),
+            float(alpha), float(k), float(beta), qr, ns, stream)
     B.check(rc, "asr_fused_attn_cached")
-    fused_attn_cached.launches += LAUNCHES_CACHED if b_ else 0
+    fused_attn_cached.launches += plan["launches"] if b_ else 0
     return out
 
 
@@ -227,39 +339,42 @@ def _align(n: int) -> int:
     return -(-n // 128) * 128
 
 
-def rows_smem(d: int) -> int:
+def rows_smem(d: int, hd: int = 128) -> int:
     """Dynamic shared memory of the full call's first tensor-core launch
     (``csrc/xattn.cu:xa_rows_smem``): the larger of the norm's and a
     head unit's (ring, head tile, ||row||, partial logits, routes)."""
     unit = (_align(B.tc_ring_bytes(2, 4, False, False, STAGES))
-            + _align(2 * ROWS * (HEAD_DIM + 8)) + 4 * (ROWS + 4 * ROWS * 3)
+            + _align(2 * ROWS * (hd + 8)) + 4 * (ROWS + 4 * ROWS * 3)
             + 4 * ROWS)
     return max(abby.launch_plan(1, d, torch.bfloat16)["smem"], unit)
 
 
-def attend_smem(d: int, ta: int) -> int:
+def attend_smem(d: int, ta: int, hd: int = 128) -> int:
     """Dynamic shared memory of the second launch
     (``csrc/xattn.cu:xa_attend_smem``): ring, Q tile, the heads, f32
     scores and bf16 weights over the keys padded to 128."""
     tp = -(-ta // 128) * 128
     ring = max(B.tc_ring_bytes(1, 2, True, False, STAGES),
                B.tc_ring_bytes(1, 2, True, True, STAGES))
-    return (_align(ring) + _align(2 * Q_ROWS * (HEAD_DIM + 8))
+    return (_align(ring) + _align(2 * Q_ROWS * (hd + 8))
             + _align(2 * Q_ROWS * (d + 8)) + _align(4 * Q_ROWS * tp)
             + 2 * Q_ROWS * (tp + 8))
 
 
 def launch_plan_full(b: int, t: int, ta: int, d: int, dtype,
-                     operands_ok: bool = True) -> dict:
+                     operands_ok: bool = True,
+                     head: int | None = None) -> dict:
     """What ``asr_fused_attn_full`` launches for x (b, t, d) against xa
     (b, ta, d): the route ("tc": two tensor-core launches, bf16 with at
     most TC_MAX_KEYS keys, where ``operands_ok`` -- 16-byte aligned
-    operands, windows of at most 51 taps, at most 65535 row tiles; else
-    "cc", four CUDA-core launches), and for "tc" the first launch's clusters (one a
-    32-row tile of x, then of xa; ``cluster`` CTAs each, the norm's) and
-    the second's (one CTA a head per (16-query tile, batch row)), with
-    their shared memory in bytes."""
-    head = d // HEAD_DIM
+    operands, windows of at most 103 taps, at most 65535 row tiles; else
+    "cc", four CUDA-core launches), and for "tc" the first launch's
+    clusters (one a 32-row tile of x, then of xa; ``cluster`` CTAs each,
+    the norm's) and the second's (one CTA a head, at most 8, per
+    (16-query tile, batch row)), with their shared memory in bytes.
+    ``head`` defaults to heads of 128 columns."""
+    head = head or d // 128
+    hd = d // head
     tiles = -(-b * t // ROWS) + -(-b * ta // ROWS)
     if not (dtype == torch.bfloat16 and ta <= TC_MAX_KEYS and operands_ok
             and tiles <= 65535 and b <= 65535):
@@ -267,9 +382,11 @@ def launch_plan_full(b: int, t: int, ta: int, d: int, dtype,
     return dict(route="tc", launches=LAUNCHES_FULL,
                 tiles_q=-(-b * t // ROWS), tiles_kv=-(-b * ta // ROWS),
                 rows=ROWS, cluster=abby.launch_plan(1, d, dtype)["cluster"],
-                units_q=head, units_kv=2 * head, rows_smem=rows_smem(d),
-                q_tiles=-(-t // Q_ROWS), q_rows=Q_ROWS, attend_cluster=head,
-                attend_smem=attend_smem(d, ta))
+                units_q=head, units_kv=2 * head,
+                rows_smem=rows_smem(d, hd),
+                q_tiles=-(-t // Q_ROWS), q_rows=Q_ROWS,
+                attend_cluster=min(head, MAX_CLUSTER),
+                attend_smem=attend_smem(d, ta, hd))
 
 
 def fused_attn_full(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head: int,
@@ -293,7 +410,7 @@ def fused_attn_full(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head: int,
     ok = (all(p % 16 == 0 for p in [x.data_ptr(), xa.data_ptr(),
                                     *(w.data_ptr() for w in ws)])
           and max(size_d, size_h) <= abby.MAX_TAPS)
-    plan = launch_plan_full(b_, t_, ta, d, x.dtype, ok)
+    plan = launch_plan_full(b_, t_, ta, d, x.dtype, ok, head)
     tc = plan["route"] == "tc"
     if tc:                        # normed rows, then q, k, v heads
         sizes = [b_ * t_ * d * es, b_ * ta * d * es, b_ * t_ * d * es,

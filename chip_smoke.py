@@ -6,7 +6,9 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    CUDA kernels from ``asr_model_tpu_torch/csrc`` (nvcc, sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at
-   the shapes of the decode paths, with the tolerance stated beside it,
+   the shapes of the decode paths (and at shapes past the flagship's:
+   B 128, D 1280, head width 256, the mel at Whisper's n_fft 400 and at
+   256 mels, a cache of 4096 keys), with the tolerance stated beside it,
    and times kernel, plain version and (where one PyTorch call computes
    the same function) that call, each as device time (``cuda_ms``); for
    the mel, flash, AbbyNormal, MSheath, full-attention and residual-MLP
@@ -27,10 +29,10 @@
    the kernels of each wrapper in ``PROFILED`` the profiler sees must be
    the launches the wrapper counted.
 4. Checks the output ids, the first decode step's logits on each path's
-   kernel route against its plain route on the card (bf16 and f32,
-   argmax identical in every row), the fused path against the default
-   path (f32), and small f32 models (both paths) on the card against
-   the same models' plain route on the CPU.
+   kernel route against its plain route on the card (bf16 and f32, and
+   bf16 at B 128; argmax identical in every row), the fused path against
+   the default path (f32), and small f32 models (both paths) on the card
+   against the same models' plain route on the CPU.
 5. Prints the paths' JSON line, the ``kernels`` JSON line, the card
    line, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -123,14 +125,16 @@ def rates(flops: float, ms: float, b_ms: float) -> dict:
 
 
 # the kernels that must run on the tensor cores: bf16 flash, the bf16
-# AbbyNormal, the MSheath row kernel, the bf16 full attention call's two
-# and the bf16 residual MLP's (mangled-name patterns)
+# AbbyNormal, the MSheath row kernel, the bf16 whole attention calls'
+# (the rows launch serves both, then the full and the cached call's
+# attention) and the bf16 residual MLP's (mangled-name patterns)
 MMA_KERNELS = {
     "flash_tc_kernel": r"flash_tc_kernelILi(\d+)ELi(\d+)E",
     "abby_cluster_kernel<bf16>": r"abby_cluster_kernelI13__nv_bfloat16E",
     "sheath_rows": r"sheath_rowsI(\w+?)Li(\d+)E(\w+?)Lb([01])EEv",
-    "xattn_full_rows": r"_Z15xattn_full_rows",
-    "xattn_full_attend": r"_Z17xattn_full_attend",
+    "xattn_full_rows": r"_Z15xattn_full_rowsILi(\d+)E",
+    "xattn_full_attend": r"_Z17xattn_full_attendILi(\d+)E",
+    "xattn_cached_attend": r"_Z19xattn_cached_attendILi(\d+)E",
     "mlp_norm<bf16>": r"mlp_normI13__nv_bfloat16E",
     "mlp_gates_tc": r"_Z12mlp_gates_tc",
     "mlp_linear_tc": r"mlp_linear_tcILi(\d+)E",
@@ -262,28 +266,66 @@ def check_kernels(model):
     flops = BATCH * T * (2.5 * 1024 * 10 + 3 * 513 + 2.0 * nnz)
     b_ms, b_by = bound_ms(flops, nbytes(audio, got), F32_PEAK)
     ms = cuda_ms(lambda: mel.mel_spectrogram(audio))
-    out.append(dict(
-        name="mel_spectrogram", route="cuda",
-        source="asr_model_tpu_torch/csrc/mel.cu",
-        replaces="asr_model_tpu/ops/pallas/mel_kernel.py:119",
-        max_abs_err=float(err.max()), ms=ms,
+    entries = [dict(shape="audio (8, 160000) f32", max_abs_err=float(
+        err.max()), ms=ms,
         plain_ms=cuda_ms(lambda: mel.mel_spectrogram_plain(audio)),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_mel),
-        **rates(flops, ms, b_ms), shape="audio (8, 160000) f32"))
+        **rates(flops, ms, b_ms))]
+    # other frontends: Whisper's n_fft 400 at 80 mels (Bluestein's
+    # algorithm) and n_fft 1024 at 256 mels, held as the card tests hold
+    # them (2e-3 |plain| + 2e-3 on every bin)
+    for n_fft, n_mels in ((400, 80), (1024, 256)):
+        kw = dict(n_fft=n_fft, hop_length=HOP, n_mels=n_mels)
+        got = mel.mel_spectrogram(audio, **kw)
+        want = mel.mel_spectrogram_plain(audio, **kw)
+        err = (got - want).abs()
+        check(bool((err <= 2e-3 * want.abs() + 2e-3).all()),
+              f"mel_spectrogram (8, 160000) n_fft {n_fft}, {n_mels} mels: "
+              f"max abs err {float(err.max()):.3e}, max rel "
+              f"{float((err / want.abs().clamp(min=1e-3)).max()):.2e} "
+              "(tolerance 2e-3 |plain| + 2e-3 on every bin, the card "
+              "tests')")
+        fbk = torch.from_numpy(mel_filterbank(n_fft // 2 + 1, 50.0, 8000.0,
+                                              n_mels)).to(dev)
+        win_k = torch.hann_window(n_fft, device=dev)
+
+        def lib_k():
+            sp = torch.stft(audio, n_fft, HOP, window=win_k, center=True,
+                            pad_mode="constant", return_complex=True)
+            return torch.einsum("bft,fm->bmt", sp.real ** 2 + sp.imag ** 2,
+                                fbk)
+
+        nnz = int(np.count_nonzero(fbk.cpu().numpy()))
+        flops = BATCH * T * (2.5 * n_fft * np.log2(n_fft)
+                             + 3 * (n_fft // 2 + 1) + 2.0 * nnz)
+        b_ms, b_by = bound_ms(flops, nbytes(audio, got), F32_PEAK)
+        ms = cuda_ms(lambda: mel.mel_spectrogram(audio, **kw))
+        entries.append(dict(
+            shape=f"audio (8, 160000) f32, n_fft {n_fft}, {n_mels} mels",
+            max_abs_err=float(err.max()), ms=ms,
+            plain_ms=cuda_ms(lambda: mel.mel_spectrogram_plain(audio, **kw)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_k),
+            **rates(flops, ms, b_ms)))
+    out.append(_entry("mel_spectrogram", "asr_model_tpu_torch/csrc/mel.cu",
+                      "asr_model_tpu/ops/pallas/mel_kernel.py:119", entries))
 
     # ---- flash attention, bf16: encoder, decode self, cached cross at the
     # last bucket's width and at the first's (widths under 64: a query tile
     # mostly empty, key splits)
-    H, hd = 4, 128
-    shapes = [("encoder self (8,4,1001,128)", 1001, 1001, False, False),
+    shapes = [("encoder self (8,4,1001,128)", 1001, 1001, False, False, 4),
               ("decode self causal (8,4,65,128) + kv_valid", 65, 65, True,
-               True),
+               True, 4),
               ("decode cached cross (8,4,65,128)x(8,4,1001,128)", 65, 1001,
-               False, False),
+               False, False, 4),
               ("decode cached cross (8,4,9,128)x(8,4,1001,128)", 9, 1001,
-               False, False)]
+               False, False, 4),
+              # head width 256: 2 heads of a 512-wide model
+              ("encoder self (8,2,1001,256)", 1001, 1001, False, False, 2),
+              ("decode cached cross (8,2,65,256)x(8,2,1001,256)", 65, 1001,
+               False, False, 2)]
     entries = []
-    for label, tq, tk, causal, masked in shapes:
+    for label, tq, tk, causal, masked, H in shapes:
+        hd = 512 // H
         q = torch.randn(BATCH, H, tq, hd, device=dev, generator=g).bfloat16()
         k = torch.randn(BATCH, H, tk, hd, device=dev, generator=g).bfloat16()
         v = torch.randn(BATCH, H, tk, hd, device=dev, generator=g).bfloat16()
@@ -297,7 +339,7 @@ def check_kernels(model):
         e, bad, rows = close_rows(got, want, 0.0, FLASH_TOL, hd)
         check(bad == 0, f"flash_attention {label}: max abs err {e:.3e} = "
               f"{e / float(want.abs().max()):.2e} max|plain|, {bad}/{rows} "
-              f"rows out, {attention.splits(BATCH * H, tq, tk, sms)} key "
+              f"rows out, {attention.splits(BATCH * H, tq, tk, sms, hd)} key "
               f"split(s) (tolerance {FLASH_TOL:g} max|plain|: the softmax "
               "weights and the output rounded to bf16; about twice the "
               "largest reading, 2.7e-3)")
@@ -360,6 +402,26 @@ def check_kernels(model):
                                                      0.75)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             **rates(flops, ms, b_ms)))
+    # a D 1280 block's norm (random weights): 7 CTAs a cluster, W1 through
+    # the ring, a 65-tap window
+    d, n = 1280, BATCH * 65
+    x = (2 * torch.randn(n, d, device=dev, generator=g)).bfloat16()
+    w = _norm_weights(g, d)
+    size = abby.window_size(d)
+    got = abby.fused_abby(x, *w, size, 1e-4, 1.0, 0.75)
+    want = abby.abby_plain(x, *w, size, 1e-4, 1.0, 0.75)
+    e, bad, rows = close_rows(got, want, 8e-3, 1e-3, d)
+    check(bad <= rows // 1000, f"fused_abby D 1280 (8*65, 1280): max abs "
+          f"err {e:.3e}, {bad}/{rows} rows out (the tolerance above)")
+    flops = _abby_ops(n, d, size)
+    b_ms, b_by = bound_ms(flops, nbytes(x, got, *w), BF16_PEAK)
+    ms = cuda_ms(lambda: abby.fused_abby(x, *w, size, 1e-4, 1.0, 0.75))
+    entries.append(dict(
+        shape="D 1280 block (8*65, 1280)", max_abs_err=e, ms=ms,
+        plain_ms=cuda_ms(lambda: abby.abby_plain(x, *w, size, 1e-4, 1.0,
+                                                 0.75)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **rates(flops, ms, b_ms)))
     out.append(dict(name="fused_abby", route="cuda",
                     source="asr_model_tpu_torch/csrc/abby.cu",
                     replaces="asr_model_tpu/ops/pallas/abby_kernel.py:180",
@@ -376,27 +438,40 @@ def check_kernels(model):
     # two TF32 products give f32 accuracy, else three
     kw = sheath.kernel_weights(sw, jump.layer)
     n_prod = 3 if kw["split"] else 2
+    wide = _wide_sheath(dev)          # a D 1280 block's MSheath, random
     entries = []
-    for label, ctx, lens in [("decode (8*65, 512) + valid", 65, 40),
-                             ("decode (8*9, 512)", 9, None),
-                             ("encoder (8*1001, 512)", 1001, None)]:
-        x = torch.randn(BATCH, ctx, 512, device=dev, generator=g).bfloat16()
+    for label, bsz, ctx, lens, jm in [
+            ("decode (8*65, 512) + valid", BATCH, 65, 40, jump),
+            ("decode (8*9, 512)", BATCH, 9, None, jump),
+            ("encoder (8*1001, 512)", BATCH, 1001, None, jump),
+            # past one pass of the memory EMA (64 batch rows)
+            ("decode B 128 (128*9, 512)", 128, 9, None, jump),
+            ("D 1280 block (8*65, 1280) + valid", BATCH, 65, 40, wide)]:
+        d = jm.dims
+        if jm is not jump:
+            w = jm.scan_weights()
+            sw = {kk: w[kk] for kk in sheath.WEIGHT_NAMES}
+            kw = sheath.kernel_weights(sw, jm.layer)
+            n_prod = 3 if kw["split"] else 2
+        x = torch.randn(bsz, ctx, d, device=dev, generator=g).bfloat16()
         valid = None
         if lens is not None:
             valid = (torch.arange(ctx, device=dev)[None]
-                     < (torch.arange(BATCH, device=dev)[:, None] + lens))
+                     < (torch.arange(bsz, device=dev)[:, None] % 20 + lens))
         pooled = masked_mean(x, valid, dim=1)[:, 0]
-        sampled = torch.argmax(jump.pnet(pooled).mean(0)).to(torch.int32)
-        args = (x.reshape(-1, 512), BATCH, valid, w["mem0"], sampled,
-                w["jump_s"], sw, jump.layer, jump.thresh)
+        sampled = torch.argmax(jm.pnet(pooled).mean(0)).to(torch.int32)
+        args = (x.reshape(-1, d), bsz, valid, w["mem0"], sampled,
+                w["jump_s"], sw, jm.layer, jm.thresh)
         got, act_k, js_k = sheath.fused_sheath_scan(*args)
         want, act_p, js_p = sheath.sheath_scan_plain(*args)
-        e, bad, rows = close_rows(got, want, 8e-3, 1e-3, 512)
+        e, bad, rows = close_rows(got, want, 8e-3, 1e-3, d)
         same = act_k.tolist() == act_p.tolist() \
             and js_k.tolist() == js_p.tolist()
-        n, d, d2, m = BATCH * ctx, 512, 256, jump.mem
-        plan = sheath.launch_plan(n, d, d2, m, sheath.max_clusters_on(
-            dev, d, sheath.launch_plan(n, d, d2, m)["cluster"]))
+        n, d2, m = bsz * ctx, d // 2, jm.mem
+        plan = sheath.launch_plan(n, d, d2, m)
+        if plan["passes"] == 1:
+            plan = sheath.launch_plan(n, d, d2, m, sheath.max_clusters_on(
+                dev, d, plan["cluster"]))
         check(bad <= rows // 1000 and same,
               f"fused_sheath_scan {label}: max abs err {e:.3e}, {bad}/{rows} "
               f"rows out, actions {act_k.tolist()} vs {act_p.tolist()}, "
@@ -408,10 +483,10 @@ def check_kernels(model):
         # executed slots, from this run's actions
         slots, i = [], 0
         for a in act_k.tolist():
-            if i >= jump.layer:
+            if i >= jm.layer:
                 break
             slots.append(i)
-            i = min(i + a + 1, jump.layer) if a > 0 else i + 1
+            i = min(i + a + 1, jm.layer) if a > 0 else i + 1
         flops = sum(2.0 * n * d * (m + d2) + (2.0 * n * d * d if s % 2 == 0
                                              else 0) + 30.0 * n * d
                     for s in slots)
@@ -432,6 +507,25 @@ def check_kernels(model):
                        if k not in ("shape", "slots")},
                     shape=entries[0]["shape"], shapes=entries))
     return out
+
+
+def _norm_weights(g, d: int):
+    """Random AbbyNormal router weights for width d, bf16 on the card."""
+    import torch
+    r = lambda *sh, sc=1.0: (sc * torch.randn(*sh, device=DEV, generator=g)
+                             ).bfloat16()
+    return (r(d, d, sc=d ** -0.5), r(d, sc=0.1), r(3, d, sc=d ** -0.5),
+            r(3, sc=0.1))
+
+
+def _wide_sheath(dev):
+    """A D 1280 block's MSheath (10 heads, 4 slots) from a seed, bf16."""
+    import torch
+    from asr_model_tpu_torch.models.sheath import MSheath
+    from asr_model_tpu_torch.models.tlayers import reset_all
+    m = MSheath(1280, 10, 4, device=dev)
+    reset_all(m, torch.Generator(device=dev).manual_seed(27))
+    return m.to(torch.bfloat16)
 
 
 def _sheath_weight_bytes(w: dict, kw: dict, slots: list) -> int:
@@ -520,26 +614,41 @@ def check_fused_kernels(model, audio):
                 + _abby_ops(n * H, hd, size_h) + 2.0 * n * D * D)
 
     # ---- fused_attn_cached: the b/c/d calls against a slot's real cache
+    # at the last and the first bucket's width, and a cache of 4096 keys
+    # (the longest the gate admits at D 512)
     mel_, f0, wav = frontend(audio)
     kn, v = prepare_cross(model, modality_slots(f0, mel_, wav))["b"]
-    x = rnd(BATCH, T, D)
     fr = at.rot.freqs(False, torch.float32, dev)
     kw = at.fused_kw(bf, full=False)
-    args = (x, kn, v, None, fr)
-    got = xattn.fused_attn_cached(*args, **kw)
-    want = xattn.attn_cached_plain(*args, **kw)
-    label = "cached cross (8,65,512) x K/V (8,4,1001,128)"
-    e = _fused_close(f"fused_attn_cached {label}", got, want, D)
-    tk = kn.shape[2]
-    ops = q_side_ops(N) + BATCH * H * T * tk * (4.0 * hd + 5)
-    b_ms, b_by = bound_ms(ops, nbytes(x, kn, v, got) + wbytes(kw), BF16_PEAK)
-    out.append(_entry(
-        "fused_attn_cached", "asr_model_tpu_torch/csrc/xattn.cu",
-        "asr_model_tpu/ops/pallas/xattn_kernel.py:275", [dict(
-            shape=label, max_abs_err=e,
-            ms=cuda_ms(lambda: xattn.fused_attn_cached(*args, **kw)),
+    kn4, v4 = rnd(BATCH, H, 4096, hd), rnd(BATCH, H, 4096, hd)
+    entries = []
+    for label, w, kc, vc in [
+            ("cached cross (8,65,512) x K/V (8,4,1001,128)", T, kn, v),
+            ("cached cross (8,9,512) x K/V (8,4,1001,128)", 9, kn, v),
+            ("cached cross (8,65,512) x K/V (8,4,4096,128)", T, kn4, v4)]:
+        x = rnd(BATCH, w, D)
+        args = (x, kc, vc, None, fr)
+        got = xattn.fused_attn_cached(*args, **kw)
+        want = xattn.attn_cached_plain(*args, **kw)
+        tk = kc.shape[2]
+        plan = xattn.launch_plan_cached(BATCH, w, tk, D, bf)
+        e = _fused_close(f"fused_attn_cached {label}, {plan['launches']} "
+                         f"launches ({plan['route']}: {plan['ns']} CTAs a "
+                         f"cluster over the keys, {plan['qr']}-row query "
+                         "tiles)", got, want, D)
+        n = BATCH * w
+        ops = q_side_ops(n) + BATCH * H * w * tk * (4.0 * hd + 5)
+        b_ms, b_by = bound_ms(ops, nbytes(x, kc, vc, got) + wbytes(kw),
+                              BF16_PEAK)
+        ms = cuda_ms(lambda: xattn.fused_attn_cached(*args, **kw))
+        entries.append(dict(
+            shape=label, max_abs_err=e, ms=ms,
             plain_ms=cuda_ms(lambda: xattn.attn_cached_plain(*args, **kw)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)]))
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **rates(ops, ms, b_ms)))
+    out.append(_entry("fused_attn_cached", "asr_model_tpu_torch/csrc/xattn.cu",
+                      "asr_model_tpu/ops/pallas/xattn_kernel.py:275",
+                      entries))
 
     # ---- fused_attn_full: self causal (a), self (b/c/d/g), g cross, at
     # the last bucket's width and the first's (its prefix mask)
@@ -578,6 +687,9 @@ def check_fused_kernels(model, audio):
                 *args, causal=causal, **kw)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             **rates(ops, ms, b_ms)))
+    # a D 1280 block's self causal call (10 heads, random weights): a
+    # launch-2 cluster of 8, two CTAs with two heads
+    entries.append(_wide_attn_full(g, valid))
     out.append(_entry("fused_attn_full", "asr_model_tpu_torch/csrc/xattn.cu",
                       "asr_model_tpu/ops/pallas/xattn_kernel.py:333",
                       entries))
@@ -595,9 +707,7 @@ def check_fused_kernels(model, audio):
         e = _fused_close(f"fused_mlp_residual {label}, {plan['launches']} "
                          f"launches ({'tensor' if plan['tc'] else 'CUDA'} "
                          "cores)", got, want, D)
-        ops = (2 * _abby_ops(n, D, size_d) + 2.0 * n * D * nt * (D + 1)
-               + 4.0 * n * D * nt + 4.0 * n * D * hid + 10.0 * n * hid
-               + n * D)
+        ops = _mlp_ops(n, D, nt, hid)
         wb = nbytes(*args[1], args[2], args[3], *[t for gw in args[4]
                                                   for t in gw], *args[5:9])
         b_ms, b_by = bound_ms(ops, nbytes(args[0], got) + wb, BF16_PEAK)
@@ -607,6 +717,7 @@ def check_fused_kernels(model, audio):
             plain_ms=cuda_ms(lambda: mlp.mlp_residual_plain(*args)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             **rates(ops, ms, b_ms)))
+    entries.append(_wide_mlp(g))       # a D 1280 block's MLP
     out.append(_entry("fused_mlp_residual", "asr_model_tpu_torch/csrc/mlp.cu",
                       "asr_model_tpu/ops/pallas/mlp_kernel.py:125", entries))
 
@@ -648,6 +759,88 @@ def check_fused_kernels(model, audio):
             plain_ms=cuda_ms(lambda: abby.abby_tail_plain(*targs)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)]))
     return out
+
+
+WIDE_D = 1280                # a block wider than any in the repo's configs
+
+
+def _mlp_ops(n: int, d: int, nt: int, hid: int) -> float:
+    """The residual MLP's operations (as counted for fused_mlp_residual)."""
+    from asr_model_tpu_torch.ops.cuda.abby import window_size
+    return (2 * _abby_ops(n, d, window_size(d)) + 2.0 * n * d * nt * (d + 1)
+            + 4.0 * n * d * nt + 4.0 * n * d * hid + 10.0 * n * hid + n * d)
+
+
+def _wide_mlp(g) -> dict:
+    """fused_mlp_residual at (8*65, 1280), 3 gates, hidden 3840, random
+    weights: its check and its timing entry."""
+    import torch
+    from asr_model_tpu_torch.ops.cuda import abby, mlp
+    d, n, nt = WIDE_D, BATCH * 65, 3
+    hid = nt * d
+    r = lambda *sh, sc=1.0: (sc * torch.randn(*sh, device=DEV, generator=g)
+                             ).bfloat16()
+    args = (r(n, d), _norm_weights(g, d), r(nt, d, sc=d ** -0.5),
+            r(nt, sc=0.1), [(r(d, d, sc=d ** -0.5), r(d, sc=0.1))
+                            for _ in range(nt)],
+            r(hid, d, sc=d ** -0.5), r(hid, sc=0.1),
+            r(d, hid, sc=hid ** -0.5), r(d, sc=0.1), abby.window_size(d),
+            1e-4, 1.0, 0.75)
+    got = mlp.fused_mlp_residual(*args)
+    want = mlp.mlp_residual_plain(*args)
+    label = "D 1280 block (8*65, 1280), 3 gates, hidden 3840"
+    e = _fused_close(f"fused_mlp_residual {label}", got, want, d)
+    ops = _mlp_ops(n, d, nt, hid)
+    wb = nbytes(*args[1], args[2], args[3], *[t for gw in args[4]
+                                              for t in gw], *args[5:9])
+    b_ms, b_by = bound_ms(ops, nbytes(args[0], got) + wb, BF16_PEAK)
+    ms = cuda_ms(lambda: mlp.fused_mlp_residual(*args))
+    return dict(shape=label, max_abs_err=e, ms=ms,
+                plain_ms=cuda_ms(lambda: mlp.mlp_residual_plain(*args)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                **rates(ops, ms, b_ms))
+
+
+def _wide_attn_full(g, valid) -> dict:
+    """fused_attn_full self causal at (8, 65, 1280), 10 heads of 128,
+    random weights, the decode's prefix mask: its check and its timing
+    entry."""
+    import torch
+    from asr_model_tpu_torch.models.rotary import compute_freqs
+    from asr_model_tpu_torch.ops.cuda import abby, xattn
+    d, heads, t = WIDE_D, WIDE_D // 128, valid.shape[1]
+    r = lambda *sh, sc=1.0: (sc * torch.randn(*sh, device=DEV, generator=g)
+                             ).bfloat16()
+    norm = lambda n: dict(zip(("n_w1", "n_b1", "n_w2", "n_b2"),
+                              _norm_weights(g, n)))
+    wq = norm(d) | {"proj_w": r(d, d, sc=d ** -0.5), "proj_b": r(d, sc=0.1)}
+    wkv = norm(d) | {"proj_w": r(2 * d, d, sc=d ** -0.5),
+                     "proj_b": r(2 * d, sc=0.1)}
+    wo = {"proj_w": r(d, d, sc=d ** -0.5), "proj_b": r(d, sc=0.1)}
+    kw = dict(wq=wq, wkv=wkv, wh=norm(128), wo=wo, head=heads,
+              size_d=abby.window_size(d), size_h=abby.window_size(128),
+              alpha=1e-4, k=1.0, beta=0.75)
+    x = r(BATCH, t, d, sc=0.5)
+    fr = torch.from_numpy(compute_freqs(d, heads, True)).to(DEV)
+    args = (x, x, valid, fr)
+    got = xattn.fused_attn_full(*args, causal=True, **kw)
+    want = xattn.attn_full_plain(*args, causal=True, **kw)
+    label = "D 1280 block self causal (8,65,1280) + kv_valid"
+    e = _fused_close(f"fused_attn_full {label}", got, want, d)
+    n, hd = BATCH * t, 128
+    q_side = (_abby_ops(n, d, kw["size_d"]) + 2.0 * n * d * d + 6.0 * n * d
+              + _abby_ops(n * heads, hd, kw["size_h"]) + 2.0 * n * d * d)
+    ops = (q_side + _abby_ops(n, d, kw["size_d"]) + 4.0 * n * d * d
+           + 6.0 * n * d + _abby_ops(n * heads, hd, kw["size_h"])
+           + heads * _pairs(t, t, True, valid) * (4.0 * hd + 5))
+    wb = sum(nbytes(*v.values()) for v in (wq, wkv, kw["wh"], wo))
+    b_ms, b_by = bound_ms(ops, nbytes(x, valid, got) + wb, BF16_PEAK)
+    ms = cuda_ms(lambda: xattn.fused_attn_full(*args, causal=True, **kw))
+    return dict(shape=label, max_abs_err=e, ms=ms,
+                plain_ms=cuda_ms(lambda: xattn.attn_full_plain(
+                    *args, causal=True, **kw)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                **rates(ops, ms, b_ms))
 
 
 # --------------------------------------------------------------- the paths
@@ -753,14 +946,17 @@ def _device_us(evt) -> float:
 
 
 # kernels the profiler names (demangled) for the wrappers whose launches
-# one decode step checks against the wrapper's own count (on the paths
-# that run them)
-PROFILED = {"fused_abby": ("abby_cluster_kernel",),
-            "fused_sheath_scan": ("sheath_rows", "sheath_mem_ctl",
-                                  "sheath_finish"),
-            "fused_attn_full": ("xattn_full_rows", "xattn_full_attend"),
-            "fused_mlp_residual": ("mlp_norm", "mlp_gates_tc",
-                                   "mlp_linear_tc")}
+# one decode step checks against the wrappers' own count (on the paths
+# that run them); the two whole attention calls share their rows kernel,
+# so they are counted together
+PROFILED = {("fused_abby",): ("abby_cluster_kernel",),
+            ("fused_sheath_scan",): ("sheath_rows", "sheath_mem_ctl",
+                                     "sheath_finish"),
+            ("fused_attn_full", "fused_attn_cached"): (
+                "xattn_full_rows", "xattn_full_attend",
+                "xattn_cached_attend"),
+            ("fused_mlp_residual",): ("mlp_norm", "mlp_gates_tc",
+                                      "mlp_linear_tc")}
 
 
 def step_profile(model, audio, ids):
@@ -797,10 +993,10 @@ def step_profile(model, audio, ids):
         else:
             rows.append((evt.key, evt.count, us / 1e3))
     rows.sort(key=lambda r: -r[2])
-    seen = {w: (sum(c for k, c, _ in rows
-                    if any(re.search(rf"\b{n}\b", k) for n in names)),
-                counted[w]["launches"])
-            for w, names in PROFILED.items()}
+    seen = {ws: (sum(c for k, c, _ in rows
+                     if any(re.search(rf"\b{n}\b", k) for n in names)),
+                 sum(counted[w]["launches"] for w in ws))
+            for ws, names in PROFILED.items()}
     return (sum(r[1] for r in rows), sum(r[2] for r in rows), copies,
             [{"kernel": k[:60], "count": c, "ms": m} for k, c, m in rows[:8]],
             seen)
@@ -864,13 +1060,13 @@ def drive_path(model, audio, label: str, expect, runs: int = 5):
     step_ms = (total * 1e3 - front_ms - prep_ms) / NEW_TOKENS
     rtfx = BATCH * UTT_SEC / total
     launches, dev_ms, copies, top, seen = step_profile(model, audio, ids)
-    for w, (prof_n, wrap_n) in seen.items():
-        if w not in expect:
+    for ws, (prof_n, wrap_n) in seen.items():
+        if not all(w in expect for w in ws):
             continue
         # the profiler may drop an event (a run read 15 of 16), never add
         check(0 < prof_n <= wrap_n, f"{label} path, one decode step: the "
-              f"profiler saw {prof_n} {w} kernel launches, the wrapper "
-              f"counted {wrap_n}")
+              f"profiler saw {prof_n} {' + '.join(ws)} kernel launches, the "
+              f"wrapper{'s' if len(ws) > 1 else ''} counted {wrap_n}")
     log(f"{label} path: RTFx {rtfx:.3f} (median of {runs} runs of "
         + ", ".join(f"{t * 1e3:.1f}" for t in times)
         + f" ms per batch of {BATCH} x {UTT_SEC:.0f} s); frontend "
@@ -970,7 +1166,14 @@ def main() -> int:
         "fused_bf16": route_check(
         fused, audio, torch.bfloat16, 7e-2,
         "bf16 rounds at other places on the two routes", "fused path")[0]}
-    del model, fused
+    # B = 128: the MSheath scans (encoder and decode) past one pass of the
+    # kernel's memory EMA; the fused gates' size bound sends every call
+    # of this batch to the default route's kernels
+    audio128 = torch.from_numpy(tones(128, UTT_SEC)).to(DEV)
+    rel["default_bf16_b128"] = route_check(
+        model, audio128, torch.bfloat16, 7e-2,
+        "bf16 rounds at other places on the two routes", "B 128")[0]
+    del model, fused, audio128
     m32, fus32 = flagship(False, torch.float32), flagship(True, torch.float32)
     rel["default_f32"], l_def = route_check(
         m32, audio, torch.float32, 6e-5, "f32 sums in other orders",

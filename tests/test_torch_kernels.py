@@ -55,10 +55,27 @@ def test_mel_kernel_fft_sizes(dev, n_fft):
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
 
 
+# n_fft no power of two (Bluestein's algorithm): Whisper's 400 at 80
+# mels, odd sizes, the largest; 1024 at 256 mels (the power-of-two kernel,
+# two passes of its mel product)
+@pytest.mark.parametrize("n_fft,n_mels", [(400, 80), (401, 64), (1000, 128),
+                                          (4095, 256), (1024, 256),
+                                          (96, 40)])
+def test_mel_kernel_any_n_fft(dev, n_fft, n_mels):
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn(2, 16000, device=dev, generator=g)
+    kw = dict(n_fft=n_fft, hop_length=160, n_mels=n_mels)
+    got = mel.mel_spectrogram(x, **kw)
+    want = mel.mel_spectrogram_plain(x, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
 def test_mel_kernel_refuses_other_n_fft(dev):
+    """n_fft outside 64..4096 and more than 256 mels raise."""
     x = torch.zeros(1, 16000, device=dev)
-    with pytest.raises(ValueError):
-        mel.mel_spectrogram(x, n_fft=1000)
+    for kw in (dict(n_fft=32), dict(n_fft=8192), dict(n_mels=257)):
+        with pytest.raises(ValueError):
+            mel.mel_spectrogram(x, **kw)
 
 
 # (B, H, Tq, Tk, hd, causal, valid keys per batch row (0: a fully masked
@@ -77,6 +94,11 @@ FLASH_CASES = {
     # Tq under one 64-row query tile, keys split over blocks and merged
     "cross_9x1001_split_masked_row": (2, 4, 9, 1001, 128, False, [600, 0]),
     "causal_33x700_split": (2, 2, 33, 700, 128, True, [700, 350]),
+    # head width 256: the encoder-length self call and the decode's cached
+    # cross call (keys split over blocks) at 2 heads of a 512-wide model
+    "hd256_self_1001": (8, 2, 1001, 1001, 256, False, None),
+    "hd256_cross_65x1001_masked_row": (8, 2, 65, 1001, 256, False,
+                                       [1001] * 7 + [0]),
 }
 
 
@@ -115,9 +137,12 @@ def test_abby_kernel(dev, d, dtype):
 # per-head norms at width 65, the encoder; 33 rows: one full 32-row tile
 # and one row; D 100: rows that are no 16-byte multiple (loads, not
 # cp.async) and a window of 5 taps (the kernel's general tail); D 768 and
-# 1024: 128-column slices, two MMA passes a CTA (6 and 8 CTAs a cluster)
+# 1024: 128-column slices, two MMA passes a CTA (6 and 8 CTAs a cluster);
+# D 1280 and 2048: 192- and 256-column slices (7 and 8 CTAs), W1's
+# chunks through the ring, f32 rows half a tile at a time, windows of 65
+# and 103 taps (the tail from the row)
 ABBY_PATH = [(520, 512), (72, 512), (2080, 128), (8008, 512), (33, 512),
-             (33, 100), (72, 768), (100, 1024)]
+             (33, 100), (72, 768), (100, 1024), (72, 1280), (520, 2048)]
 
 
 @pytest.mark.parametrize("n,d", ABBY_PATH)
@@ -152,19 +177,27 @@ def test_launch_plans_match_kernels(dev):
     abby_smem = B.function("asr_abby_smem_bytes", [B.I, B.I])
     abby_cluster = B.function("asr_abby_cluster_size", [B.I])
     sheath_smem = B.function("asr_sheath_smem_bytes", [B.I, B.I, B.I])
-    for d in (16, 100, 128, 512, 600, 1024):
+    for d in (16, 100, 128, 512, 600, 1024, 1280, 2048):
         for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
             plan = abby.launch_plan(1, d, dtype)
             assert abby_smem(code, d) == plan["smem"]
             assert abby_cluster(d) == plan["cluster"]
-    rows_smem = B.function("asr_xattn_rows_smem", [B.I])
-    attend_smem = B.function("asr_xattn_attend_smem", [B.I, B.I])
+    rows_smem = B.function("asr_xattn_rows_smem", [B.I, B.I])
+    attend_smem = B.function("asr_xattn_attend_smem", [B.I, B.I, B.I])
     gates_smem = B.function("asr_mlp_gates_tc_smem", [])
     gate_cols = B.function("asr_mlp_gate_cols", [B.I])
-    for d in (128, 512, 1024):
-        assert rows_smem(d) == xattn.rows_smem(d)
-        for ta in (9, 65, 256, 1024):
-            assert attend_smem(d, ta) == xattn.attend_smem(d, ta)
+    cached_smem = B.function("asr_xattn_cached_smem",
+                             [B.I, B.I, B.I, B.I])
+    for hd in xattn.HEAD_DIMS:
+        for d in (128, 512, 1024, 1280, 2048):
+            assert rows_smem(d, hd) == xattn.rows_smem(d, hd)
+            for ta in (9, 65, 256, 1024):
+                assert attend_smem(d, ta, hd) == xattn.attend_smem(d, ta, hd)
+        for qr in (16, 32, 64, 80):
+            for tk in (1, 129, 1001, 4096):
+                for ns in (1, 2, 4, 8):
+                    assert cached_smem(qr, tk, ns, hd) == xattn.cached_smem(
+                        qr, tk, ns, hd)
     assert gates_smem() == mlp.gates_tc_smem()
     for nt in range(1, mlp.MAX_TYPES + 1):
         assert gate_cols(nt) == mlp.gate_cols(nt)
@@ -254,11 +287,17 @@ def test_mlp_kernel(dev, dtype, n):
     assert _rel(got, want) < _tol(dtype)
 
 
-# rows no 16-byte multiple (the CUDA-core products in bf16 too), one and
-# four gates, a hidden width of no 64-column multiple
+# rows no 16-byte multiple (the CUDA-core products in bf16 too), one to
+# eight gates (the router's limit), a hidden width of no 64-column
+# multiple, D 1280 and 2048 (hidden 6144: the CUDA-core product's rows in
+# two 2048-column pieces)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,hid,nt", [(40, 100, 300, 1), (33, 256, 776, 4),
-                                        (70, 1024, 3072, 2)])
+                                        (70, 1024, 3072, 2),
+                                        (8 * 65, 512, 1536, 8),
+                                        (40, 256, 776, 7),
+                                        (40, 1280, 3840, 3),
+                                        (33, 2048, 6144, 3)])
 def test_mlp_kernel_other_widths(dev, dtype, n, d, hid, nt):
     r = _rand(dev, 15, dtype)
     args = _mlp_args(r, n, d, hid, nt)
@@ -307,6 +346,57 @@ def test_attn_cached_kernel(dev, dtype, masked):
     assert _rel(got, want) < _tol(dtype)
 
 
+def _cached_args(dev, dtype, b, t, tk, d, masked, seed=24, hd=128):
+    """A cached call's arguments: x (b, t, d), a processed cache of tk
+    keys a head of width hd, the decode's prefix mask with the last row
+    fully masked."""
+    r = _rand(dev, seed, dtype)
+    heads = d // hd
+    wq, _, wh, wo = _attn_weights(r, d, heads)
+    x = r(b, t, d, sc=0.5)
+    kn, v = r(b, heads, tk, hd), r(b, heads, tk, hd)
+    valid = None
+    if masked:
+        lens = (tk - 3 * torch.arange(b, device=dev)).clamp(min=1)
+        lens[-1] = 0
+        valid = torch.arange(tk, device=dev)[None] < lens[:, None]
+    args = (x, kn, v, valid, _freqs(dev, d, heads, False), wq, wh, wo)
+    return args, dict(KW, head=heads, size_d=abby.window_size(d),
+                      size_h=abby.window_size(hd))
+
+
+# the key-split cluster across every key count the gate admits at D 512
+# (up to 4096): one key, one key block short and whole, one past a
+# whole number of blocks, the flagship's 1001, the gate's limit
+@pytest.mark.parametrize("tk", [1, 9, 1001, 1024, 1025, 4096])
+@pytest.mark.parametrize("width", [65, 9])
+def test_attn_cached_kernel_keys(dev, tk, width):
+    args, kw = _cached_args(dev, torch.bfloat16, 8, width, tk, 512, tk > 1)
+    before = xattn.fused_attn_cached.launches
+    got = xattn.fused_attn_cached(*args, **kw)
+    assert xattn.fused_attn_cached.launches - before == 2
+    want = xattn.attn_cached_plain(*args, **kw)
+    assert _rel(got, want) < _tol(torch.bfloat16)
+
+
+# the fused decode's cached calls at the flagship shapes, both dtypes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [65, 9])
+def test_attn_cached_kernel_flagship(dev, dtype, width):
+    args, kw = _cached_args(dev, dtype, 8, width, 1001, 512, True)
+    got = xattn.fused_attn_cached(*args, **kw)
+    want = xattn.attn_cached_plain(*args, **kw)
+    assert _rel(got, want) < _tol(dtype)
+
+
+def test_attn_cached_kernel_deterministic(dev):
+    """Partials summed in rank order, no float atomics: two calls, the
+    same bits."""
+    args, kw = _cached_args(dev, torch.bfloat16, 8, 65, 1001, 512, True)
+    assert torch.equal(xattn.fused_attn_cached(*args, **kw),
+                       xattn.fused_attn_cached(*args, **kw))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,cross", [(False, False), (True, False),
                                           (False, True)])
@@ -349,6 +439,31 @@ def test_sheath_kernel_flagship(dev, width, masked):
     for act in (0, 2):
         sampled = torch.tensor(act, dtype=torch.int32, device=dev)
         args = (x, 8, valid, w["mem0"], sampled, w["jump_s"],
+                {k: w[k] for k in sheath.WEIGHT_NAMES}, 4, 0.3)
+        got, act_g, js_g = sheath.fused_sheath_scan(*args)
+        want, act_w, js_w = sheath.sheath_scan_plain(*args)
+        assert _rel(got, want) < 2e-2
+        assert act_g.tolist() == act_w.tolist()
+        assert js_g.tolist() == js_w.tolist()
+
+
+# more batch rows than one pass of the memory EMA holds (64): the
+# decode widths 9 and 65 and the encoder's 1001 frames at B = 128
+@pytest.mark.parametrize("width,masked", [(9, False), (65, True),
+                                          (1001, True)])
+def test_sheath_kernel_batch_128(dev, width, masked):
+    m = _flagship_sheath(dev)
+    w = m.scan_weights()
+    g = torch.Generator(device=dev).manual_seed(25)
+    b = 128
+    x = torch.randn(b * width, 512, device=dev, generator=g).bfloat16()
+    valid = None
+    if masked:
+        valid = (torch.arange(width, device=dev)[None]
+                 < (width - torch.arange(b, device=dev)[:, None] % width))
+    for act in (0, 2):
+        sampled = torch.tensor(act, dtype=torch.int32, device=dev)
+        args = (x, b, valid, w["mem0"], sampled, w["jump_s"],
                 {k: w[k] for k in sheath.WEIGHT_NAMES}, 4, 0.3)
         got, act_g, js_g = sheath.fused_sheath_scan(*args)
         want, act_w, js_w = sheath.sheath_scan_plain(*args)
@@ -432,11 +547,12 @@ def test_sheath_kernel_bf16_exact_f32(dev, width, masked):
 
 
 # (D, M): more than 8 slices of 64 columns, two passes a CTA (768 and
-# 1024 channels; M + D2 = 936 at D 512: memory logits on CTAs 0-7, and
+# 1024 channels; three and four at 1280 and 2048; M + D2 = 936 at D 512: memory logits on CTAs 0-7, and
 # on CTAs 0-2 again in the second pass, slice 10 part memory, part MLP);
 # memory logits on three CTAs (M 160); D 90, rows that are no multiple
 # of four values
-SHEATH_WIDE = [(768, 64), (1024, 64), (512, 680), (256, 160), (90, 64)]
+SHEATH_WIDE = [(768, 64), (1024, 64), (512, 680), (256, 160), (90, 64),
+               (1280, 64), (2048, 64)]
 
 
 @pytest.mark.parametrize("d,mem", SHEATH_WIDE)
@@ -461,9 +577,10 @@ def test_sheath_kernel_wide(dev, d, mem):
         assert js_g.tolist() == js_w.tolist()
 
 
-def _full_args(dev, dtype, b, t, ta, d, cross, causal, masked, seed=17):
+def _full_args(dev, dtype, b, t, ta, d, cross, causal, masked, seed=17,
+               hd=128):
     r = _rand(dev, seed, dtype)
-    heads = d // 128
+    heads = d // hd
     wq, wkv, wh, wo = _attn_weights(r, d, heads)
     x = r(b, t, d, sc=0.5)
     xa = r(b, ta, d, sc=0.5) if cross else x
@@ -473,7 +590,8 @@ def _full_args(dev, dtype, b, t, ta, d, cross, causal, masked, seed=17):
         lens[-1] = 0
         valid = torch.arange(ta, device=dev)[None] < lens[:, None]
     args = (x, xa, valid, _freqs(dev, d, heads, causal), wq, wkv, wh, wo)
-    kw = dict(KW, head=heads, size_d=abby.window_size(d))
+    kw = dict(KW, head=heads, size_d=abby.window_size(d),
+              size_h=abby.window_size(hd))
     return args, kw
 
 
@@ -504,9 +622,48 @@ def test_attn_full_kernel_long_keys(dev, b, t, ta, d):
     assert _rel(got, want) < _tol(torch.bfloat16)
 
 
+# D 1280 (10 heads: a launch-2 cluster of 8, two CTAs with two heads) and
+# 2048 (16 heads, two each; the longest key set the gate admits there),
+# both whole calls in both dtypes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,ta", [(1280, 65), (2048, 64)])
+def test_attn_kernels_wide(dev, dtype, d, ta):
+    args, kw = _full_args(dev, dtype, 2, 33, ta, d, True, False, True)
+    got = xattn.fused_attn_full(*args, causal=False, **kw)
+    want = xattn.attn_full_plain(*args, causal=False, **kw)
+    assert _rel(got, want) < _tol(dtype)
+    args, kw = _cached_args(dev, dtype, 2, 33, 1024, d, True)
+    got = xattn.fused_attn_cached(*args, **kw)
+    want = xattn.attn_cached_plain(*args, **kw)
+    assert _rel(got, want) < _tol(dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attn_full_kernel_deterministic(dev, dtype):
     """Sums in a fixed order, no float atomics: two calls, same bits."""
     args, kw = _full_args(dev, dtype, 8, 65, 65, 512, False, True, True)
     assert torch.equal(xattn.fused_attn_full(*args, causal=True, **kw),
                        xattn.fused_attn_full(*args, causal=True, **kw))
+
+
+# head width 256 (a 512-wide model with 2 heads): both whole calls at the
+# decode widths, the cached call against 1001 keys and the 4096 the gate
+# admits, both dtypes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [65, 9])
+@pytest.mark.parametrize("causal,cross", [(True, False), (False, True)])
+def test_attn_full_kernel_hd256(dev, dtype, width, causal, cross):
+    args, kw = _full_args(dev, dtype, 8, width, width, 512, cross, causal,
+                          True, hd=256)
+    got = xattn.fused_attn_full(*args, causal=causal, **kw)
+    want = xattn.attn_full_plain(*args, causal=causal, **kw)
+    assert _rel(got, want) < _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width,tk", [(65, 1001), (9, 1001), (65, 4096)])
+def test_attn_cached_kernel_hd256(dev, dtype, width, tk):
+    args, kw = _cached_args(dev, dtype, 8, width, tk, 512, True, hd=256)
+    got = xattn.fused_attn_cached(*args, **kw)
+    want = xattn.attn_cached_plain(*args, **kw)
+    assert _rel(got, want) < _tol(dtype)

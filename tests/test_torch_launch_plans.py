@@ -256,3 +256,93 @@ def test_mlp_launch_plan_ragged_widths_take_the_cuda_cores():
         <= SMEM_MAX
     assert mlp.launch_plan(72, 512, 1536, torch.bfloat16, 4)["gate_cols"] \
         == 24
+
+
+# wider rows: D 1280 and 2048 (the model's D2 = D / 2, M 64)
+@pytest.mark.parametrize("d", [1280, 2048])
+def test_sheath_launch_plan_d_passes(d):
+    """Past 8 slices the 16-row tiles take one pass a slice group: 3 and
+    4 passes, within the shared memory a block may use."""
+    p = sheath.launch_plan(8 * 65, d, d // 2, 64)
+    assert p["passes"] == -(-d // 64 // 8) and p["rows"] == 16
+    assert p["cluster"] == 8 and p["smem"] <= SMEM_MAX
+    # every 64-column slice on one (CTA, pass)
+    owners = {(q, s) for s in range(p["passes"]) for q in range(8)
+              if 64 * (q + 8 * s) < max(p["scp"], p["dp"])}
+    assert len(owners) == max(p["scp"], p["dp"]) // 64
+
+
+@pytest.mark.parametrize("batch", [8, 64, 65, 128, 1000])
+def test_sheath_memory_batch_groups(batch):
+    """Any batch: the memory EMA takes 64 batch rows a pass, a block per
+    (batch row, 32 channels) before it."""
+    p = sheath.launch_plan(batch * 9, 512, 256, 64, batch=batch)
+    assert p["mem_groups"] == -(-batch // sheath.MEM_GROUP)
+    assert (p["mem_groups"] - 1) * sheath.MEM_GROUP < batch \
+        <= p["mem_groups"] * sheath.MEM_GROUP
+    assert p["mem_blocks"] == batch * 16
+    assert _covers(batch * 9, p["tiles"], p["rows"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1280, 2048])
+def test_abby_launch_plan_wide(d, dtype):
+    """Past D 1024: 64-column multiples of D / 8 a CTA (at most 8), W1's
+    chunks through a ring of 8 (bf16), f32 rows half a tile at a time."""
+    p = abby.launch_plan(520, d, dtype)
+    assert p["cluster"] <= 8
+    assert (p["cluster"] - 1) * p["cols"] < d <= p["cluster"] * p["cols"]
+    assert p["cols"] % 64 == 0
+    assert p["smem"] <= SMEM_MAX
+    assert p["w_slots"] == abby.W_RING and p["f32_rows"] == 16
+    assert abby.window_size(d) <= abby.MAX_TAPS
+
+
+# (B, T, Tk, D, head width): the flagship's decode widths against its
+# 1001 frames, the longest cache the gate admits at D 512 (4096 keys), a
+# single key, D 2048, head width 256, and B = 128
+CACHED_PLANS = [(8, 65, 1001, 512, 128), (8, 9, 1001, 512, 128),
+                (8, 65, 4096, 512, 128), (8, 9, 1, 512, 128),
+                (8, 65, 1025, 512, 128), (2, 33, 1024, 2048, 128),
+                (8, 65, 1001, 512, 256), (8, 65, 4096, 512, 256),
+                (128, 9, 1001, 512, 128), (128, 65, 1001, 512, 128)]
+
+
+@pytest.mark.parametrize("b,t,tk,d,hd", CACHED_PLANS)
+def test_attn_cached_launch_plan(b, t, tk, d, hd):
+    """The key-split clusters: every key in one CTA's range, no CTA
+    without keys, a cluster of at most 8, every query row in one tile,
+    shared memory within a block's; the grid in one wave on 132
+    multiprocessors whenever a split whose scores fit gives one (B 8),
+    else the fewest CTAs a cluster whose scores fit (B 128)."""
+    heads = d // hd
+    p = xattn.launch_plan_cached(b, t, tk, d, torch.bfloat16, True, 132,
+                                 heads)
+    assert p["route"] == "tc" and p["launches"] == 2
+    ns, kpc, qr = p["ns"], p["kpc"], p["qr"]
+    assert 1 <= ns <= 8 and kpc % 128 == 0 and qr % 16 == 0 and qr <= 80
+    assert ns * kpc >= tk and (ns - 1) * kpc < tk
+    assert _covers(t, p["q_tiles"], qr)
+    assert p["smem"] <= SMEM_MAX
+    assert p["grid"] == (ns, p["q_tiles"], b * heads)
+    assert p["part_bytes"] == 4 * b * p["q_tiles"] * heads * qr * d
+    clusters = p["q_tiles"] * b * heads
+    per_sm = lambda n: 2 if _two_per_sm(xattn.cached_smem(qr, tk, n, hd)) \
+        else 1
+    fit = [n for n in (1, 2, 4, 8) if n <= -(-tk // 128)
+           and xattn.cached_smem(qr, tk, n, hd) <= SMEM_MAX]
+    one_wave = [n for n in fit if clusters * n <= 132 * per_sm(n)]
+    if one_wave:
+        assert clusters * ns <= 132 * per_sm(ns)
+    else:
+        assert ns <= min(fit)
+    assert _covers(b * t, p["tiles_rows"], p["rows"])
+
+
+def test_attn_cached_launch_plan_routes():
+    """f32 and misaligned operands take the three CUDA-core launches."""
+    assert xattn.launch_plan_cached(8, 65, 1001, 512, torch.float32) == {
+        "route": "cc", "launches": 3}
+    assert xattn.launch_plan_cached(8, 65, 1001, 512, torch.bfloat16,
+                                    False)["route"] == "cc"
+    assert xattn.cached_kpc(1001, 8) == 128 and xattn.cached_kpc(1, 1) == 128

@@ -1,0 +1,238 @@
+"""The port at the shapes its kernels were widened to take, on the CPU:
+each plain version against the JAX package there, and the port's fused
+gates against the JAX gates.
+
+* MSheath at B = 80 (more batch rows than one pass of the kernel's
+  memory EMA): the port's module against the JAX module with its Pallas
+  switch "on" (interpret) and "off" (the XLA scan), f32 at 1e-5 as
+  tests/test_torch_sheath.py holds it; actions and jstat exactly.
+* The cached call against more than 1024 keys, and both whole calls at
+  head width 256, through the port's ``Attention`` with ``fused`` on
+  against the JAX module with PALLAS_XATTN "on" and "off", f32 at atol
+  5e-5, rtol 5e-4 (tests/test_torch_fused.py's bound).
+* The plain mel at Whisper's n_fft 400 and at 256 mels against the JAX
+  mel (XLA and the Pallas kernel in interpret mode), 2e-3 as
+  tests/test_torch_ops.py holds it; Bluestein's tables against numpy.
+* The gates: on a grid of (D, heads, B, T, Tk, dtype) the port's
+  ``Attention._fused_ok`` and ``Residual._mlp_fused_ok`` decide as the
+  JAX gates do, and every shape they admit lies within the kernels'
+  widths (``xattn.supports``, ``mlp.supports``): D up to 2048, head width
+  128 or 256, up to 8 gates.  (Wider heads and D past 2048 are the
+  limits still open: ROADMAP, Queue 3.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import asr_model_tpu.models.attention as jam
+import asr_model_tpu.models.decoder as jdm
+import asr_model_tpu.models.sheath as jsm
+from asr_model_tpu.models.attention import Attention as JAttention
+from asr_model_tpu.models.decoder import Residual as JResidual
+from asr_model_tpu.models.sheath import MSheath as JMSheath
+from asr_model_tpu.ops import mel as jmel
+from asr_model_tpu.ops.pallas.mel_kernel import pallas_mel_spectrogram
+
+from asr_model_tpu_torch.models.attention import (KV_LIMIT_CACHED,
+                                                  KV_LIMIT_FULL, Attention)
+from asr_model_tpu_torch.models.decoder import Residual
+from asr_model_tpu_torch.models.sheath import MSheath
+from asr_model_tpu_torch.ops import cuda as kernels
+from asr_model_tpu_torch.ops import mel
+from asr_model_tpu_torch.ops.cuda import mel as kmel
+from asr_model_tpu_torch.ops.cuda import mlp, xattn
+from asr_model_tpu_torch.weights import from_jax_params
+
+TOL = dict(atol=5e-5, rtol=5e-4)
+
+
+def _both(monkeypatch, mod, name, fn, *args):
+    """JAX outputs of fn(*args) with the switch off (XLA) and on (Pallas,
+    interpret), each traced afresh under jit."""
+    out = []
+    for value in ("off", "on"):
+        monkeypatch.setattr(mod, name, value)
+        out.append(jax.tree_util.tree_map(
+            np.asarray, jax.jit(lambda *a: fn(*a))(*args)))
+    return out
+
+
+# ------------------------------------------------------- MSheath, B = 80
+
+def test_msheath_batch_80_matches_jax(monkeypatch):
+    b, t, d, layers = 80, 3, 128, 4
+    rng = np.random.RandomState(5)
+    x = (rng.randn(b, t, d) * 0.3).astype(np.float32)
+    valid = np.arange(t)[None, :] < (1 + np.arange(b) % t)[:, None]
+    jm = JMSheath(dims=d, head=2, layer=layers)
+    params = jax.device_get(jax.jit(lambda r: jm.init(
+        {"params": r}, jnp.asarray(x)))(jax.random.key(6))["params"])
+    tm = MSheath(d, 2, layers, device="cpu")
+    tm.load_state_dict(from_jax_params(params), strict=True)
+    wants = _both(monkeypatch, jsm, "_PALLAS_SHEATH",
+                  lambda p, x, m: jm.apply({"params": p}, x, m), params,
+                  jnp.asarray(x), jnp.asarray(valid))
+    kernels.reset_counts()
+    got, aux = tm(torch.from_numpy(x), torch.from_numpy(valid))
+    assert kernels.counts()["fused_sheath_scan"]["plain_calls"] == 1
+    for want, aux_w in wants:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(aux["actions"].numpy(),
+                                      aux_w["actions"])
+        np.testing.assert_array_equal(aux["jstat"].numpy(), aux_w["jstat"])
+
+
+# ------------------------------------- attention: long caches, hd 256
+
+def _attn_pair(dims, head, t, ta, seed):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(2, t, dims) * 0.5).astype(np.float32)
+    xa = (rng.randn(2, ta, dims) * 0.5).astype(np.float32)
+    jm = JAttention(dims=dims, head=head, layer=2, n_type="AbbyNormal")
+    params = jax.device_get(jax.jit(lambda r: jm.init(
+        {"params": r}, jnp.asarray(x), xa=jnp.asarray(xa)))(
+            jax.random.key(seed))["params"])
+    tm = Attention(dims, head, "AbbyNormal", fused=True, device="cpu")
+    tm.load_state_dict(from_jax_params(params), strict=True)
+    return jm, {"params": params}, tm, x, xa
+
+
+def _engaged(name):
+    assert kernels.counts()[name] == {"launches": 0, "plain_calls": 1}
+
+
+# (dims, heads, query width, cached keys): more keys than one CTA's
+# scores held before (1100 > 1024), and head width 256
+@pytest.mark.parametrize("dims,head,t,ta", [(256, 2, 3, 1100),
+                                            (256, 1, 5, 40)])
+def test_fused_attn_cached_matches_jax(dims, head, t, ta, monkeypatch):
+    jm, v, tm, x, xa = _attn_pair(dims, head, t, ta, 7)
+    valid = np.arange(ta)[None, :] < np.array([[ta - 7], [ta]])
+    kv = jax.jit(lambda v, xa: jm.apply(
+        v, xa, method=JAttention.precompute_kv))(v, jnp.asarray(xa))
+    wants = _both(monkeypatch, jam, "_PALLAS_XATTN",
+                  lambda v, x, kv, m: jm.apply(v, x, cached_kv=kv,
+                                               kv_valid=m),
+                  v, jnp.asarray(x), kv, jnp.asarray(valid))
+    kernels.reset_counts()
+    got = tm(torch.from_numpy(x), cached_kv=tm.precompute_kv(
+        torch.from_numpy(xa)), kv_valid=torch.from_numpy(valid))
+    _engaged("fused_attn_cached")
+    for want in wants:
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_attn_full_hd256_matches_jax(causal, monkeypatch):
+    jm, v, tm, x, _ = _attn_pair(256, 1, 6, 6, 8)
+    valid = np.arange(6)[None, :] < np.array([[4], [6]])
+    wants = _both(monkeypatch, jam, "_PALLAS_XATTN",
+                  lambda v, x, m: jm.apply(v, x, causal=causal, kv_valid=m),
+                  v, jnp.asarray(x), jnp.asarray(valid))
+    kernels.reset_counts()
+    got = tm(torch.from_numpy(x), causal=causal,
+             kv_valid=torch.from_numpy(valid))
+    _engaged("fused_attn_full")
+    for want in wants:
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+# ----------------------------------------------------------------- mel
+
+@pytest.mark.parametrize("n_fft,n_mels", [(400, 80), (1024, 256)])
+def test_plain_mel_matches_jax_other_sizes(n_fft, n_mels):
+    audio = np.random.RandomState(9).randn(8000).astype(np.float32)
+    kw = dict(n_fft=n_fft, n_mels=n_mels, hop_length=160)
+    got = kmel.mel_spectrogram_plain(torch.from_numpy(audio)[None],
+                                     **kw)[0].numpy()
+    for want in (jmel.mel_spectrogram(jnp.asarray(audio), **kw),
+                 pallas_mel_spectrogram(jnp.asarray(audio), interpret=True,
+                                        **kw)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-3,
+                                   atol=2e-3)
+
+
+@pytest.mark.parametrize("n_fft", [64, 400, 401, 1000, 4095])
+def test_bluestein_tables_give_the_rfft_power(n_fft):
+    """The kernel's arithmetic on its tables (in float64 here): the
+    chirped frame's L-point FFT times bf, inverse-transformed, gives the
+    windowed frame's rfft power within f32 table rounding."""
+    wc, bf, tw = kmel.bluestein_tables(n_fft)
+    n_len = kmel.bluestein_len(n_fft)
+    assert n_len >= 2 * n_fft - 1 and n_len & (n_len - 1) == 0
+    z = lambda a: a[..., 0].astype(np.float64) + 1j * a[..., 1]
+    np.testing.assert_allclose(
+        z(tw), np.exp(-2j * np.pi * np.arange(n_len // 2) / n_len),
+        atol=1e-7)
+    x = np.random.RandomState(n_fft).randn(n_fft)
+    a = np.zeros(n_len, complex)
+    a[:n_fft] = x * z(wc)
+    c = np.fft.ifft(np.fft.fft(a) * z(bf)) * n_len
+    want = np.abs(np.fft.rfft(x * mel.hann_window(n_fft))) ** 2
+    got = np.abs(c[:n_fft // 2 + 1]) ** 2
+    assert np.max(np.abs(got - want)) <= 1e-6 * want.max()
+
+
+# --------------------------------------------------------------- gates
+
+GATE_DIMS = [128, 256, 384, 512, 768, 1024, 1280, 1536, 2048]
+GATE_DTYPES = [(torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32),
+               (torch.float16, jnp.float16)]
+
+
+def _heads(d):
+    """Head counts of width 128 or 256, and of width 64 (no gate admits
+    it)."""
+    return [d // w for w in (64, 128, 256) if d % w == 0]
+
+
+def test_attention_gates_agree_with_jax(monkeypatch):
+    monkeypatch.setattr(jam, "_PALLAS_XATTN", "on")
+    admitted = 0
+    for d in GATE_DIMS:
+        for head in _heads(d):
+            jm = JAttention(dims=d, head=head, layer=2,
+                            n_type="AbbyNormal").bind({})
+            tm = Attention(d, head, "AbbyNormal", fused=True, device="meta")
+            for (tdt, jdt) in GATE_DTYPES:
+                for b, t in ((1, 1), (8, 9), (8, 65), (8, 1001)):
+                    x = torch.empty(b, t, d, dtype=tdt, device="meta")
+                    jx = jax.ShapeDtypeStruct((b, t, d), jdt)
+                    for tk in (9, 65, 256, 1001, 4096, 4097):
+                        for elems, limit in ((head * tk * (d // head),
+                                              KV_LIMIT_CACHED),
+                                             (tk * d, KV_LIMIT_FULL)):
+                            want = jm._fused_call_eligible(jx, elems, limit)
+                            got = tm._fused_ok(x, elems, limit)
+                            assert got == want, (d, head, b, t, tk, tdt)
+                            if got:
+                                admitted += 1
+                                assert xattn.supports(d, head), (d, head)
+    assert admitted > 100
+
+
+def test_mlp_gates_agree_with_jax(monkeypatch):
+    monkeypatch.setattr(jdm, "_PALLAS_MLP", "on")
+    admitted = 0
+    for d in GATE_DIMS:
+        for nt in (1, 3, 8):
+            jm = JResidual(dims=d, head=max(1, d // 128), layer=4,
+                           act="gelu", n_type="AbbyNormal",
+                           num_types=nt).bind({})
+            tm = Residual(d, max(1, d // 128), 4, "gelu", "AbbyNormal",
+                          num_types=nt, fused_mlp=True, device="meta")
+            for (tdt, jdt) in GATE_DTYPES:
+                for b, t in ((1, 1), (8, 9), (8, 65), (8, 1001)):
+                    x = torch.empty(b, t, d, dtype=tdt, device="meta")
+                    want = jm._mlp_fused_eligible(
+                        jax.ShapeDtypeStruct((b, t, d), jdt))
+                    got = tm._mlp_fused_ok(x)
+                    assert got == want, (d, nt, b, t, tdt)
+                    if got:
+                        admitted += 1
+                        assert mlp.supports(d, nt), (d, nt)
+    assert admitted > 50
