@@ -3,7 +3,8 @@
 width, on one GPU, for one checkout of the package.
 
     python3 asr_model_tpu_torch/bench_kernels.py [--root DIR] [--repeats 5]
-        [--only flash,abby,sheath,attn_full,attn_cached,mlp] [--profile]
+        [--only flash,abby,sheath,attn_full,attn_cached,mlp,router,tail,
+        floor] [--profile]
 
 At every decode width w (9, 17, ..., 65; 8 utterances, the flagship's 512
 channels, 4 heads of 128) and at encoder length (1001 frames), each
@@ -22,7 +23,12 @@ held against its plain version:
   self call and the g block's cross call;
 - attn_cached: bf16 ``fused_attn_cached`` of (8, w, 512) against a
   (8, 4, 1001, 128) K/V cache;
-- mlp: bf16 ``fused_mlp_residual`` at (8 w, 512), 3 gates, hidden 1536.
+- mlp: bf16 ``fused_mlp_residual`` at (8 w, 512), 3 gates, hidden 1536;
+- router: bf16 ``fused_router_same`` at (8 w, 512), 3 types, 3
+  modalities (the fused decode's routers);
+- tail: bf16 ``fused_abby_tail`` at (8 w, 512) on f32 logits;
+- floor: one PyTorch kernel on a one-element tensor (``add_``), the
+  device time this harness reads for a launch that does no work.
 Times are device time (chip_smoke.py's ``cuda_ms``), the median of
 ``--repeats`` readings of 20 calls; with ``--profile``, the whole-call
 kernels' rows also hold each device kernel's time per call (torch.profiler
@@ -278,6 +284,42 @@ def bench_mlp(dev, repeats, rows):
              lambda: mlp.fused_mlp_residual(*args), repeats)
 
 
+def bench_router(dev, repeats, rows):
+    from asr_model_tpu_torch.ops.cuda import router
+    d, nt, n_mod = 512, 3, 3
+    r = _rand(dev, 7)
+    w = (r(nt, n_mod * d, sc=d ** -0.5), r(nt, sc=0.1),
+         r(nt, n_mod * d, sc=d ** -0.5), r(nt, sc=0.1), r(1))
+    for wd in WIDTHS:
+        args = (r(8 * wd, d), *w, n_mod)
+        _row(rows, "fused_router_same", f"(8*{wd}, {d}), {nt} types, "
+             f"{n_mod} modalities", router.fused_router_same(*args),
+             router.router_same_plain(*args),
+             lambda: router.fused_router_same(*args), repeats)
+
+
+def bench_tail(dev, repeats, rows):
+    from asr_model_tpu_torch.ops.cuda import abby
+    d = 512
+    r = _rand(dev, 8)
+    for wd in WIDTHS:
+        n = 8 * wd
+        args = (r(n, d, sc=2.0), r(n, 3).float(), abby.window_size(d), 1e-4,
+                1.0, 0.75)
+        _row(rows, "fused_abby_tail", f"(8*{wd}, {d}) + f32 logits",
+             abby.fused_abby_tail(*args), abby.abby_tail_plain(*args),
+             lambda: abby.fused_abby_tail(*args), repeats)
+
+
+def bench_floor(dev, repeats, rows):
+    import torch
+    x = torch.zeros(1, device=dev)
+    ms, runs = _median_ms(lambda: x.add_(1.0), repeats)
+    rows.append(dict(kernel="launch_floor", shape="(1,) add_", ms=ms,
+                     ms_runs=runs))
+    print(f"launch floor, (1,) add_: {ms:.4f} ms", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=ROOT)
@@ -304,7 +346,9 @@ def main() -> int:
     rows: list = []
     benches = {"flash": bench_flash, "abby": bench_abby,
                "sheath": bench_sheath, "attn_full": bench_attn_full,
-               "attn_cached": bench_attn_cached, "mlp": bench_mlp}
+               "attn_cached": bench_attn_cached, "mlp": bench_mlp,
+               "router": bench_router, "tail": bench_tail,
+               "floor": bench_floor}
     for name in args.only.split(","):
         benches[name](dev, args.repeats, rows)
     print(json.dumps({"root": root, "card": card_line(), "rows": rows}))

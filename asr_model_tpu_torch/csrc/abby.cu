@@ -45,15 +45,17 @@
 //   structure; past D = 1024 the tile's rows are held half at a time and
 //   the tail reads them from device memory (32 f32 rows of 2048 would
 //   not fit in shared memory).
+// Past D = 2048 the tile is not held at all: bf16 streams x's 64-column
+// chunks through the W1 ring beside W1's (x read again from L2 for each
+// 64-column pass of the slice), f32 takes the product 512 columns of x at
+// a time, and the cv and the tail read the rows from device memory.
 // Windows of up to 51 taps (D <= 1024) run from registers, wider ones
-// (up to 103, D = 2048) from the row.
+// (103 at D = 2048, 205 at 4096, any) from the row.
 // x is read once per CTA of the cluster (from L2 after the first) and
 // written once; the (N, D) hidden never reaches device memory.
 #include "abby_cluster.cuh"
 
-constexpr int ABBY_WARPS = 8;     // rows per abby_tail block
-
-template <typename T>
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(AB_THREADS)
 abby_cluster_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                     const T* __restrict__ b1, const T* __restrict__ w2,
@@ -61,8 +63,9 @@ abby_cluster_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                     int D, int size, float alpha, float k, float beta,
                     int vec) {
   extern __shared__ __align__(128) unsigned char ab_smem[];
-  abby_cluster_tile<T>(x, w1, b1, w2, b2, nullptr, out, N, D, size, alpha, k,
-                       beta, vec, blockIdx.y * AB_ROWS, ab_smem);
+  abby_cluster_tile<T, WIDE>(x, w1, b1, w2, b2, nullptr, out, N, D, size,
+                             alpha, k, beta, vec, blockIdx.y * AB_ROWS,
+                             ab_smem);
 }
 
 template <typename T>
@@ -72,7 +75,8 @@ static int launch_abby(int dtype, const void* x, const void* w1,
                        float k, float beta, cudaStream_t st) {
   const int vec = D % 8 == 0 && ((uintptr_t)x | (uintptr_t)w1) % 16 == 0;
   const cudaError_t e = launch_clusters(
-      abby_cluster_kernel<T>,
+      abby_wide(D) ? abby_cluster_kernel<T, true>
+                   : abby_cluster_kernel<T, false>,
       dim3(abby_cluster_size(D), (N + AB_ROWS - 1) / AB_ROWS, 1),
       abby_cluster_size(D), abby_smem_bytes(dtype, D), st, (const T*)x,
       (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, N, D,
@@ -83,13 +87,15 @@ static int launch_abby(int dtype, const void* x, const void* w1,
 
 // x, out: (N, D); w1: (D, D) torch (out, in) layout; b1: (D,);
 // w2: (3, D); b2: (3,) -- all of one dtype (0 = f32, 1 = bf16);
-// 2 <= D <= 2048, N <= 65535 * 32, window 1 <= size <= 103.  One launch.
+// D >= 2 (past AB_STREAM_D the WIDE variant; the shared memory of the
+// staged W2 and b1 slices bounds D at about 57,000), N <= 65535 * 32,
+// any window size.  One launch.
 ASR_API int asr_fused_abby(int dtype, const void* x, const void* w1,
                            const void* b1, const void* w2, const void* b2,
                            void* out, int N, int D, int size, float alpha,
                            float k, float beta, void* stream) {
-  if (D < 2 || D > ABBY_MAX_D || N > 65535 * AB_ROWS || size < 1 ||
-      size > ABBY_MAX_TAPS)
+  if (D < 2 || N > 65535 * AB_ROWS || size < 1 ||
+      abby_smem_bytes(dtype, D) > 232448)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -106,56 +112,153 @@ ASR_API int asr_abby_smem_bytes(int dtype, int D) {
 }
 ASR_API int asr_abby_cluster_size(int D) { return abby_cluster_size(D); }
 
+// ---------------------------------------------------------------------
 // The tail alone (replaces abby_kernel.py:fused_abby_tail): x, out (N, D)
 // of one dtype, logits (N, 3) f32 from the caller's router, no bias.
-// D <= ABBY_TAIL_MAX_D (one row per warp in shared memory).
-constexpr int ABBY_TAIL_MAX_D = 4096;
+//
+// What bounds it: 2 N D sizeof(T) bytes against ~2 size operations a
+// value: bytes at decode widths, where a launch's few microseconds are
+// most of the time.  Design: one launch of abby_tail_tile, rpc rows a CTA
+// (about one CTA an SM: rpc = ceil(N / 132), at most 32), 256 threads.
+// The CTA copies its rows into shared memory with 16-byte loads (rows
+// wider than TL_SMEM_MAX bytes a tile stay in device memory and are read
+// from L2), takes each row's cv and route (argmax(logits + cv), the first
+// maximum on ties, as abby_choice) a warp a row, and runs the register
+// tail of abby_cluster.cuh (fused_abby's): a thread per 8 channels, the
+// squares of the channels around them in registers, the maxima sharing
+// the taps the 8 windows hold in common (abby_tail8_sized at 25 and 7
+// taps, abby_tail8 up to 51, the row itself past that), each window
+// summed in channel order.  Any D.
+constexpr int TL_SMEM_MAX = 96 * 1024;  // rows a CTA copies, bytes
+constexpr int TL_MAX_RPC = 32;
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-abby_tail(const T* __restrict__ x, const float* __restrict__ logits,
-          T* __restrict__ out, int N, int D, int size, float alpha, float k,
-          float beta) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int r = blockIdx.x * ABBY_WARPS + warp;
-  if (r >= N) return;                        // no block-wide sync below
-  float* xr = smem + warp * D;
-  for (int j = lane; j < D; j += 32) xr[j] = to_f32(x[(size_t)r * D + j]);
-  const float lg[3] = {logits[3 * r], logits[3 * r + 1], logits[3 * r + 2]};
-  __syncwarp();
-  const int choice = abby_choice(xr, D, lg, lane);
-  for (int j = lane; j < D; j += 32)
-    out[(size_t)r * D + j] =
-        from_f32<T>(abby_tail_at(xr, j, D, size, choice, alpha, k, beta));
+__host__ __device__ constexpr int tl_rows_per_cta(int N) {
+  return N <= 132 ? 1 : (N + 131) / 132 < TL_MAX_RPC ? (N + 131) / 132
+                                                       : TL_MAX_RPC;
+}
+__host__ __device__ constexpr size_t tl_rows_bytes(int rpc, int D, int es) {
+  return (size_t)rpc * D * es;
+}
+__host__ __device__ constexpr bool tl_rows_in_smem(int rpc, int D, int es) {
+  return tl_rows_bytes(rpc, D, es) <= (size_t)TL_SMEM_MAX;
+}
+
+template <typename T, int SIZE>
+__global__ void __launch_bounds__(AB_THREADS)
+abby_tail_tile(const T* __restrict__ x, const float* __restrict__ logits,
+               T* __restrict__ out, int N, int D, int size, float alpha,
+               float k, float beta, int rpc, int in_smem, int vec) {
+  extern __shared__ __align__(16) unsigned char tl_smem[];
+  using TS = typename std::conditional<sizeof(T) == 2, bf16, float>::type;
+  int* chs = reinterpret_cast<int*>(tl_smem);          // [rpc] routes
+  TS* xs = reinterpret_cast<TS*>(tl_smem + 4 * TL_MAX_RPC);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int r0 = blockIdx.x * rpc, nrows = min(rpc, N - r0);
+  const TS* src = reinterpret_cast<const TS*>(x) + (size_t)r0 * D;
+  // the first row of each warp's logits now, so that their loads overlap
+  // the rows'
+  float lg0[3] = {0.0f, 0.0f, 0.0f};
+  if (lane == 0 && warp < nrows)
+    for (int c = 0; c < 3; ++c) lg0[c] = logits[(size_t)(r0 + warp) * 3 + c];
+  if (in_smem) {
+    if (vec) {                               // 16-byte copies
+      const int n16 = nrows * D * (int)sizeof(T) / 16;
+      const uint4* s4 = reinterpret_cast<const uint4*>(src);
+      uint4* d4 = reinterpret_cast<uint4*>(xs);
+      for (int e = t; e < n16; e += AB_THREADS) d4[e] = __ldg(s4 + e);
+    } else {
+      for (int e = t; e < nrows * D; e += AB_THREADS) xs[e] = src[e];
+    }
+    __syncthreads();
+  }
+  const TS* xrows = in_smem ? xs : src;
+  for (int rr = warp; rr < nrows; rr += AB_THREADS / 32) {
+    const float cv = abby_row_cv(xrows + (size_t)rr * D, D, lane);
+    if (lane == 0) {
+      float lg[3];
+      for (int c = 0; c < 3; ++c)
+        lg[c] = rr == warp ? lg0[c] : logits[(size_t)(r0 + rr) * 3 + c];
+      int best = 0;
+      float bv = lg[0] + cv;
+      for (int c = 1; c < 3; ++c) {
+        const float v = lg[c] + cv;
+        if (v > bv) {
+          bv = v;
+          best = c;
+        }
+      }
+      chs[rr] = best;
+    }
+  }
+  __syncthreads();
+  abby_tail_rows<SIZE>(xrows, D, 0, nrows, r0, N, D, size, chs, alpha, k,
+                       beta, static_cast<const T*>(nullptr), out);
+}
+
+template <typename T, int SIZE>
+static cudaError_t launch_tail_sized(int grid, size_t smem, cudaStream_t st,
+                                     const T* x, const float* lg, T* out,
+                                     int N, int D, int size, float alpha,
+                                     float k, float beta, int rpc,
+                                     int in_smem, int vec) {
+  static bool attr = false;                // set once per process
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        abby_tail_tile<T, SIZE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        4 * TL_MAX_RPC + TL_SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  abby_tail_tile<T, SIZE><<<grid, AB_THREADS, smem, st>>>(
+      x, lg, out, N, D, size, alpha, k, beta, rpc, in_smem, vec);
+  return cudaGetLastError();
 }
 
 template <typename T>
 static int launch_abby_tail(const void* x, const void* logits, void* out,
                             int N, int D, int size, float alpha, float k,
-                            float beta, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ABBY_WARPS * D;
-  cudaFuncSetAttribute(abby_tail<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const int grid = (N + ABBY_WARPS - 1) / ABBY_WARPS;
-  abby_tail<T><<<grid, 32 * ABBY_WARPS, smem, st>>>(
-      (const T*)x, (const float*)logits, (T*)out, N, D, size, alpha, k, beta);
-  return (int)cudaGetLastError();
+                            float beta, int vec, cudaStream_t st) {
+  const int rpc = tl_rows_per_cta(N);
+  const int in_smem = tl_rows_in_smem(rpc, D, sizeof(T));
+  const size_t smem =
+      4 * TL_MAX_RPC + (in_smem ? tl_rows_bytes(rpc, D, sizeof(T)) : 0);
+  const int grid = (N + rpc - 1) / rpc;
+  const T* xt = (const T*)x;
+  const float* lg = (const float*)logits;
+  cudaError_t e;
+  if (size == 25)         // window_size(512)
+    e = launch_tail_sized<T, 25>(grid, smem, st, xt, lg, (T*)out, N, D, size,
+                                 alpha, k, beta, rpc, in_smem, vec);
+  else if (size == 7)     // window_size(128)
+    e = launch_tail_sized<T, 7>(grid, smem, st, xt, lg, (T*)out, N, D, size,
+                                alpha, k, beta, rpc, in_smem, vec);
+  else
+    e = launch_tail_sized<T, 0>(grid, smem, st, xt, lg, (T*)out, N, D, size,
+                                alpha, k, beta, rpc, in_smem, vec);
+  return (int)e;
 }
 
+// vec: x 16-byte aligned and D sizeof(T) a multiple of 16 (16-byte
+// copies); any D >= 2, any window size >= 1.
 ASR_API int asr_fused_abby_tail(int dtype, const void* x, const void* logits,
                                 void* out, int N, int D, int size,
-                                float alpha, float k, float beta,
+                                float alpha, float k, float beta, int vec,
                                 void* stream) {
-  if (D < 2 || D > ABBY_TAIL_MAX_D) return (int)cudaErrorInvalidValue;
+  if (D < 2 || size < 1 || N < 0) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ASR_F32)
     return launch_abby_tail<float>(x, logits, out, N, D, size, alpha, k,
-                                   beta, st);
-  return launch_abby_tail<__nv_bfloat16>(x, logits, out, N, D, size, alpha,
-                                         k, beta, st);
+                                   beta, vec, st);
+  return launch_abby_tail<bf16>(x, logits, out, N, D, size, alpha, k, beta,
+                                vec, st);
+}
+
+// the tail's plan: rows a CTA, and whether they are copied to shared
+// memory (else read from L2)
+ASR_API int asr_abby_tail_rows_per_cta(int N) { return tl_rows_per_cta(N); }
+ASR_API int asr_abby_tail_rows_in_smem(int N, int D, int dtype) {
+  return tl_rows_in_smem(tl_rows_per_cta(N), D, dtype == ASR_F32 ? 4 : 2);
 }
 
 ASR_API const char* asr_cuda_error_string(int code) {

@@ -25,6 +25,14 @@ constexpr int ABBY_REG_TAPS = 51;
 constexpr int AB_WRING = 8;
 // f32 rows a CTA holds in shared memory at once past D 1024: half a tile
 constexpr int AB_F32_WIDE_D = 1024;
+// past this width the tile's rows are not held at all (the WIDE variant
+// of abby_cluster_tile): bf16 streams x's chunks through the W1 ring
+// beside W1's, f32 takes the product AB_KCH columns of x at a time, the
+// partial logits are summed a 64-column pass at a time, and the cv and
+// the tail read the rows from device memory (L2)
+constexpr int AB_STREAM_D = 2048;
+constexpr int AB_KCH = 512;       // f32 x columns a CTA holds, WIDE
+constexpr int AB_SLD = 72;        // bf16 row stride of a ring slot
 
 // columns of W1 a CTA owns, and the CTAs of a cluster (at most 8 up to
 // D 4096: 64-column multiples of D / 8 past D 1024)
@@ -56,8 +64,20 @@ __host__ __device__ constexpr int abby_f32_rows(int D) {
 // h of the slice [32][cols] (f32), the slices of W2 [3][cols] and b1
 // [cols], the partial logits its rows receive [32 + 8][3], their cv [32]
 // and routes [32]
+// (WIDE, past AB_STREAM_D: the ring of AB_WRING slots [96][72], x's 32
+// rows and W1's 64 (bf16), or x's columns [16][AB_KCH], gemm_rows16's
+// tile and h of a pass [16][64] (f32), then the partial logits [4][32][3]
+// and the rest as above)
+__host__ __device__ constexpr bool abby_wide(int D) { return D > AB_STREAM_D; }
 __host__ __device__ constexpr size_t abby_smem_bytes(int dtype, int D) {
-  return (dtype == ASR_BF16
+  return abby_wide(D)
+             ? (dtype == ASR_BF16
+                    ? sizeof(bf16) * AB_WRING * 96 * AB_SLD
+                    : sizeof(float) * (GEMM_ROWS * AB_KCH + GEMM_WT_FLOATS +
+                                       GEMM_ROWS * 64)) +
+                   sizeof(float) * (4 * AB_ROWS * 3 + 4 * abby_slice_cols(D) +
+                                    (AB_ROWS + 8) * 3 + 2 * AB_ROWS)
+         : (dtype == ASR_BF16
               ? sizeof(bf16) * (AB_ROWS * abby_ld(D) + abby_wbuf_elems(D))
               : sizeof(float) * (abby_f32_rows(D) * D + GEMM_WT_FLOATS)) +
          sizeof(float) * ((dtype == ASR_BF16 ? 4 * AB_ROWS * 3
@@ -265,6 +285,154 @@ __device__ void abby_router_tc_ring(const bf16* __restrict__ x,
         }
       }
     __syncthreads();                      // ws is free for the next pass
+  }
+}
+
+// The same past AB_STREAM_D, where not even the x tile fits beside the
+// ring: each ring slot ws [AB_WRING][96][72] holds a 64-column chunk of
+// the tile's 32 rows (rows 0..31, read again from L2 every pass) and of
+// W1's 64 rows of the pass (rows 32..95).
+template <typename Stage>
+__device__ void abby_router_tc_stream(const bf16* __restrict__ x,
+                                      const bf16* __restrict__ w1,
+                                      const float* b1s, const float* w2s,
+                                      Stage stage, int N, int D, int r0,
+                                      int c0, int ncols, int ldh, bool vec,
+                                      bf16* ws, float* pl) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tg = lane & 3, lm = lane >> 3, lr = lane & 7;
+  const int nch = abby_chunks(D);
+  constexpr int nslot = AB_WRING, soff = 96 * AB_SLD;
+  const int mt = warp & 1, nq = warp >> 1;
+  for (int n0 = c0; n0 < c0 + ncols; n0 += 64) {
+    auto load = [&](int ch) {
+      bf16* sl = ws + (ch % nslot) * soff;
+      for (int e = t; e < 96 * 8; e += AB_THREADS) {
+        const int r = e >> 3, col = ch * 64 + (e & 7) * 8;
+        const bool is_w = r >= AB_ROWS;
+        const int grow = is_w ? n0 + r - AB_ROWS : r0 + r;
+        const bool row_in = is_w ? grow < D : grow < N;
+        const bf16* src = (is_w ? w1 : x) + (size_t)grow * D + col;
+        bf16* dst = sl + r * AB_SLD + (e & 7) * 8;
+        if (vec) {
+          const bool in = row_in && col < D;
+          cp_async16(dst, in ? src : (is_w ? w1 : x), in);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            dst[i] = (row_in && col + i < D) ? src[i]
+                                             : __float2bfloat16(0.0f);
+        }
+      }
+      cp_async_commit();
+    };
+    for (int ch = 0; ch < min(nslot, nch); ++ch) load(ch);
+    if (n0 == c0) stage();                // b1s is read after a barrier
+    float acc[2][2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[h][j][e] = 0.0f;
+    for (int ch = 0; ch < nch; ++ch) {
+      cp_async_wait_upto(min(nch, ch + nslot) - 1 - ch);
+      __syncthreads();
+      const bf16* sl = ws + (ch % nslot) * soff;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t af[4], bf[4];
+        ldsm_x4(af, sl + (16 * mt + (lane & 15)) * AB_SLD + kk * 16 +
+                        (lane >> 4) * 8);
+        ldsm_x4(bf, sl + (AB_ROWS + 16 * nq + (lm >> 1) * 8 + lr) * AB_SLD +
+                        kk * 16 + (lm & 1) * 8);
+        mma_bf16(acc[kk & 1][0], af, bf[0], bf[1]);
+        mma_bf16(acc[kk & 1][1], af, bf[2], bf[3]);
+      }
+      if (ch + nslot < nch) {             // the ring: the slot is free
+        __syncthreads();
+        load(ch + nslot);
+      }
+    }
+    float p[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + 16 * nq + 8 * j + 2 * tg + (e & 1);
+        const float v = acc[0][j][e] + acc[1][j][e];
+        const float h =
+            n < D ? to_f32(from_f32<bf16>(siluf_(v + b1s[n - c0]))) : 0.0f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) p[e >> 1][c] += h * w2s[c * ldh + n - c0];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float v = p[h][c];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (tg == 0) {
+          float* o = pl + (nq * AB_ROWS + 16 * mt + g + 8 * h) * 3 + c;
+          *o = n0 == c0 ? v : *o + v;
+        }
+      }
+    __syncthreads();                      // the ring is free for the next pass
+  }
+}
+
+// The f32 product past AB_STREAM_D: x's columns AB_KCH at a time into xc
+// [16][AB_KCH] (read again from L2 for every 64-column pass), W1 through
+// gemm_rows16's tile wt, h of a pass [16][64] in ht, and the pass's
+// partial logits added into pl [32][3] (pl's other quarters [1..3][32][3]
+// zeroed, as the push sums four).
+static __device__ void abby_router_f32_stream(const float* __restrict__ x,
+                                              const float* __restrict__ w1,
+                                              const float* b1s,
+                                              const float* w2s, int N, int D,
+                                              int r0, int c0, int ncols,
+                                              int ldh, float* xc, float* wt,
+                                              float* ht, float* pl) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int e = t; e < 3 * AB_ROWS * 3; e += AB_THREADS)
+    pl[AB_ROWS * 3 + e] = 0.0f;
+  for (int half = 0; half < 2; ++half) {
+    for (int n0 = c0; n0 < c0 + ncols; n0 += GEMM_NT) {
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int k0 = 0; k0 < D; k0 += AB_KCH) {
+        const int kc = min(AB_KCH, D - k0);
+        for (int e = t; e < GEMM_ROWS * kc; e += AB_THREADS) {
+          const int r = e / kc, j = e % kc;
+          const int row = r0 + half * GEMM_ROWS + r;
+          xc[e] = row < N ? x[(size_t)row * D + k0 + j] : 0.0f;
+        }
+        __syncthreads();
+        float part[4];
+        gemm_rows16<float, false>(xc, kc, kc, w1 + k0, D, n0, D, wt, part);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] += part[i];
+      }
+      const int c = t % GEMM_NT, n = n0 + c;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ht[(4 * (t / GEMM_NT) + i) * GEMM_NT + c] =
+            n < D ? siluf_(acc[i] + b1s[n - c0]) : 0.0f;
+      __syncthreads();
+      // the pass's partial logits: 16 rows x 3, a warp a dot product
+      for (int o = warp; o < GEMM_ROWS * 3; o += AB_THREADS / 32) {
+        const int r = o / 3, cc = o % 3;
+        float s = 0.0f;
+        for (int j = lane; j < GEMM_NT; j += 32)
+          s += ht[r * GEMM_NT + j] * w2s[cc * ldh + n0 - c0 + j];
+        s = warp_sum(s);
+        if (lane == 0) {
+          float* d = pl + (half * GEMM_ROWS + r) * 3 + cc;
+          *d = n0 == c0 ? s : *d + s;
+        }
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -490,7 +658,7 @@ __device__ void abby_tail_rows(const TS* xs, int ld, int lr0, int nrows,
 // memory.  Every thread of the cluster calls it; it leaves the cluster
 // between barriers (a caller that synchronises the cluster again may
 // rewrite ab_smem after that).
-template <typename T>
+template <typename T, bool WIDE = false>
 __device__ void abby_cluster_tile(const T* __restrict__ x,
                                   const T* __restrict__ w1,
                                   const T* __restrict__ b1,
@@ -512,7 +680,17 @@ __device__ void abby_cluster_tile(const T* __restrict__ x,
   int ldx;
   float* hs;  // f32: h of the slice [32][sc]; bf16: partial logits [4][32][3]
   float* w2s;                           // [3][sc] this slice of W2
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (WIDE) {
+    // the rows stay in device memory: the cv and the tail read them there
+    const size_t ring = sizeof(T) == 2
+                            ? sizeof(bf16) * AB_WRING * 96 * AB_SLD
+                            : sizeof(float) * (GEMM_ROWS * AB_KCH +
+                                               GEMM_WT_FLOATS + GEMM_ROWS * 64);
+    hs = reinterpret_cast<float*>(ab_smem + ring);
+    w2s = hs + 4 * AB_ROWS * 3;
+    xrows = reinterpret_cast<const TS*>(x) + (size_t)r0 * D;
+    ldx = D;
+  } else if constexpr (sizeof(T) == 2) {
     bf16* xs = reinterpret_cast<bf16*>(ab_smem);
     bf16* ws = xs + AB_ROWS * abby_ld(D);
     hs = reinterpret_cast<float*>(ws + abby_wbuf_elems(D));
@@ -545,7 +723,20 @@ __device__ void abby_cluster_tile(const T* __restrict__ x,
                                        : to_f32(b1[c0 + j]);
     }
   };
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (WIDE && sizeof(T) == 2) {
+    abby_router_tc_stream(reinterpret_cast<const bf16*>(x),
+                          reinterpret_cast<const bf16*>(w1), b1s, w2s, stage,
+                          N, D, r0, c0, scw, sc, vec != 0,
+                          reinterpret_cast<bf16*>(ab_smem), hs);
+  } else if constexpr (WIDE) {
+    float* xc = reinterpret_cast<float*>(ab_smem);
+    stage();
+    __syncthreads();
+    abby_router_f32_stream(reinterpret_cast<const float*>(x),
+                           reinterpret_cast<const float*>(w1), b1s, w2s, N,
+                           D, r0, c0, scw, sc, xc, xc + GEMM_ROWS * AB_KCH,
+                           xc + GEMM_ROWS * AB_KCH + GEMM_WT_FLOATS, hs);
+  } else if constexpr (sizeof(T) == 2) {
     bf16* xs = reinterpret_cast<bf16*>(ab_smem);
     if (abby_chunks(D) <= 16)
       abby_router_tc(reinterpret_cast<const bf16*>(x),
@@ -575,7 +766,7 @@ __device__ void abby_cluster_tile(const T* __restrict__ x,
     const int q = r / per;
     cl.map_shared_rank(recv, q)[(rank * per + r - q * per) * 3 + c] = v;
   };
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2 || WIDE) {
     for (int e = t; e < AB_ROWS * 3; e += AB_THREADS) {
       float v = 0.0f;
 #pragma unroll

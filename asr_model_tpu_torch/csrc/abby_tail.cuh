@@ -5,7 +5,7 @@
 
 #include "common.cuh"
 
-constexpr int ABBY_MAX_D = 2048;  // widest row the kernels take
+constexpr int ABBY_MAX_D = 2048;  // widest row the in-block helpers take
 
 // The normalising tail on one row of a tile, shared with later fused
 // kernels: `xr` is the row in shared memory (f32), `j` the channel.

@@ -47,6 +47,13 @@
 // slower at the decode width 65: four one-per-SM blocks a cluster do not
 // all fit in one wave of the GPCs.)
 //
+// Head widths past 256 (both dtypes): flash_wide_kernel, the CUDA cores
+// with 64 query rows (16 past hd 512) and 16 keys a tile, a thread 4 rows
+// (1) and a key of the tile, and hd / 16 output channels of each of its
+// rows in registers (NJ 24 .. 64: up to hd 1024), K and V a 16-key tile
+// at a time in shared memory (201 KB at hd 512); in bf16 P is rounded for
+// the PV product as above; causal key tiles past a block's last row are
+// skipped unless a row of it sees no valid key.  One launch.
 // f32: flash_fwd_kernel keeps the CUDA cores.  TF32 would keep about
 // three digits, and the f32 route is held at 1e-4 (kernel tests) and at
 // 6e-5 of the largest logit (the first decode step), so the products
@@ -195,6 +202,213 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         out[qbase + (size_t)qi * hd + d] = from_f32<T>(acc[i][j] * inv);
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// head widths past FA_HD, either dtype (the design at the top)
+constexpr int FA_WK = 16;        // keys a tile
+constexpr int FA_WIDE_HD = 1024; // the widest head
+constexpr int FA_WIDE_RI4 = 512; // 4 rows a thread up to this width
+
+// query rows a block: 16 RI (RI rows a thread)
+__host__ __device__ constexpr int fa_wide_ri(int hd) {
+  return hd <= FA_WIDE_RI4 ? 4 : 1;
+}
+__host__ __device__ constexpr size_t fa_wide_smem(int hd) {
+  return sizeof(float) *
+         ((size_t)(16 * fa_wide_ri(hd) + FA_WK) * (hd + 1) + FA_WK * hd +
+          16 * fa_wide_ri(hd) * (FA_WK + 1));
+}
+
+// rows [0, rows) of a (., hd) head slice into dst (row stride ld) as f32,
+// zero past `valid` rows; 16-byte loads when `vec` (hd % 8 == 0 and the
+// slice 16-byte aligned)
+template <typename T>
+__device__ __forceinline__ void fa_stage(const T* __restrict__ src, int rows,
+                                         int valid, int hd, float* dst,
+                                         int ld, bool vec) {
+  if (vec) {
+    constexpr int EPV = 16 / sizeof(T);
+    const int per = hd / EPV;
+    for (int e = threadIdx.x; e < rows * per; e += blockDim.x) {
+      const int r = e / per, d = (e - r * per) * EPV;
+      float* o = dst + r * ld + d;
+      if (r < valid) {
+        const uint4 u = *reinterpret_cast<const uint4*>(src + (size_t)r * hd +
+                                                        d);
+        const T* v = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int i = 0; i < EPV; ++i) o[i] = to_f32(v[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < EPV; ++i) o[i] = 0.0f;
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * hd; e += blockDim.x) {
+      const int r = e / hd, d = e - r * hd;
+      dst[r * ld + d] = r < valid ? to_f32(src[(size_t)r * hd + d]) : 0.0f;
+    }
+  }
+}
+
+// RI rows a thread (rows ty + 16 i), 16 keys a tile (key tx), NJ output
+// channels (tx + 16 j) of each row in registers
+template <typename T, int NJ, int RI>
+__global__ void __launch_bounds__(256)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v,
+                  const uint8_t* __restrict__ kv_valid, T* __restrict__ out,
+                  int H, int Tq, int Tk, int hd, float scale, int causal,
+                  int vec) {
+  extern __shared__ float smem[];
+  constexpr int WQ = 16 * RI;
+  const int hdp = hd + 1;
+  float* qs = smem;                        // [WQ][hdp]
+  float* ks = qs + WQ * hdp;               // [WK][hdp]
+  float* vs = ks + FA_WK * hdp;            // [WK][hd]
+  float* ps = vs + FA_WK * hd;             // [WQ][WK + 1]
+  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
+  const int bh = blockIdx.y, b = bh / H, q0 = blockIdx.x * WQ;
+  const size_t qbase = (size_t)bh * Tq * hd, kbase = (size_t)bh * Tk * hd;
+  const uint8_t* valid = kv_valid ? kv_valid + (size_t)b * Tk : nullptr;
+  fa_stage(q + qbase + (size_t)q0 * hd, WQ, Tq - q0, hd, qs, hdp, vec != 0);
+  float acc[RI][NJ], m_run[RI], l_run[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
+  }
+  const int shift = Tk - Tq;
+  // causal: keys past the last row's diagonal weigh exactly 0 for every
+  // row that sees a valid key, so they are skipped when the first row
+  // (and so every row) does; a fully masked row keeps them all (-1e30)
+  int kend = Tk;
+  if (causal) {
+    __shared__ int first_valid;
+    if (t == 0) first_valid = Tk;
+    __syncthreads();
+    if (valid) {
+      for (int j = t; j < Tk; j += blockDim.x)
+        if (valid[j]) {
+          atomicMin(&first_valid, j);
+          break;
+        }
+    } else if (t == 0) {
+      first_valid = 0;
+    }
+    __syncthreads();
+    if (q0 + shift >= first_valid)
+      kend = min(Tk, min(q0 + WQ, Tq) - 1 + shift + 1);
+  }
+  for (int k0 = 0; k0 < kend; k0 += FA_WK) {
+    __syncthreads();                       // the last tile is consumed
+    fa_stage(k + kbase + (size_t)k0 * hd, FA_WK, Tk - k0, hd, ks, hdp,
+             vec != 0);
+    fa_stage(v + kbase + (size_t)k0 * hd, FA_WK, Tk - k0, hd, vs, hd,
+             vec != 0);
+    __syncthreads();
+    float s[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) s[i] = 0.0f;
+    const float* kr = ks + tx * hdp;
+    for (int d = 0; d < hd; ++d) {
+      const float kv = kr[d];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+        s[i] = fmaf(qs[(ty + 16 * i) * hdp + d], kv, s[i]);
+    }
+    const int kj = k0 + tx;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qi = q0 + ty + 16 * i;
+      if (kj >= Tk) {
+        s[i] = -INFINITY;                  // past the end: no weight at all
+      } else {
+        bool masked = causal && kj > qi + shift;
+        if (valid && !valid[kj]) masked = true;
+        s[i] = masked ? FA_MASKED : s[i] * scale;
+      }
+      float rmax = s[i];
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
+      const float m_new = fmaxf(m_run[i], rmax);  // finite: key k0 exists
+      const float alpha = expf(m_run[i] - m_new);
+      const float p = s[i] == -INFINITY ? 0.0f : expf(s[i] - m_new);
+      float rsum = p;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        rsum += __shfl_xor_sync(0xffffffffu, rsum, o);
+      l_run[i] = l_run[i] * alpha + rsum;
+      m_run[i] = m_new;
+      // P as the product takes it (bf16 rounds it, f32 keeps it)
+      ps[(ty + 16 * i) * (FA_WK + 1) + tx] = to_f32(from_f32<T>(p));
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
+    }
+    __syncwarp();                          // a row's P: its 16 lanes
+    const int kmax = min(FA_WK, Tk - k0);
+    for (int c = 0; c < kmax; ++c) {
+      float pc[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) pc[i] = ps[(ty + 16 * i) * (FA_WK + 1) + c];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int d = tx + 16 * j;
+        const float vv = d < hd ? vs[c * hd + d] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(pc[i], vv, acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= Tq) continue;
+    const float inv = 1.0f / fmaxf(l_run[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int d = tx + 16 * j;
+      if (d < hd)
+        out[qbase + (size_t)qi * hd + d] = from_f32<T>(acc[i][j] * inv);
+    }
+  }
+}
+
+template <typename T, int NJ, int RI>
+static int launch_flash_wide(const void* q, const void* k, const void* v,
+                             const void* kv_valid, void* out, int B, int H,
+                             int Tq, int Tk, int hd, float scale, int causal,
+                             cudaStream_t st) {
+  const size_t smem = fa_wide_smem(hd);
+  cudaFuncSetAttribute(flash_wide_kernel<T, NJ, RI>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const int vec = hd % (16 / sizeof(T)) == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  const dim3 grid((Tq + 16 * RI - 1) / (16 * RI), B * H);
+  flash_wide_kernel<T, NJ, RI><<<grid, 256, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kv_valid,
+      (T*)out, H, Tq, Tk, hd, scale, causal, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_flash_wide_hd(const void* q, const void* k, const void* v,
+                                const void* kv_valid, void* out, int B,
+                                int H, int Tq, int Tk, int hd, float scale,
+                                int causal, cudaStream_t st) {
+#define FA_W(nj, ri)                                                        \
+  return launch_flash_wide<T, nj, ri>(q, k, v, kv_valid, out, B, H, Tq, Tk, \
+                                      hd, scale, causal, st)
+  if (hd <= 384) FA_W(24, 4);
+  if (hd <= 512) FA_W(32, 4);
+  if (hd <= 768) FA_W(48, 1);
+  FA_W(64, 1);
+#undef FA_W
 }
 
 // ---------------------------------------------------------------------
@@ -619,7 +833,8 @@ static int launch_flash_tc(const void* q, const void* k, const void* v,
 }
 
 // q: (B, H, Tq, hd); k, v: (B, H, Tk, hd); out like q; kv_valid: (B, Tk)
-// bytes or null.  hd <= 256, Tk >= 1.  dtype 0 = f32, 1 = bf16.
+// bytes or null.  hd <= 1024 (past 256 flash_wide_kernel, either dtype,
+// nsplit ignored), Tk >= 1.  dtype 0 = f32, 1 = bf16.
 // bf16 only: nsplit (1..16) blocks share each (b * h, query tile)'s keys,
 // the query tile bq = 16 * tc_warps(Tq) rows (64 past hd 128); with
 // nsplit > 1, part_o holds B*H*ceil(Tq/bq)*nsplit*bq*hdp f32 (hdp = 64
@@ -632,9 +847,15 @@ ASR_API int asr_flash_attention(int dtype, const void* q, const void* k,
                                 void* counters, int B, int H, int Tq, int Tk,
                                 int hd, float scale, int causal, int nsplit,
                                 void* stream) {
-  if (hd > FA_HD || hd < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
+  if (hd > FA_WIDE_HD || hd < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || Tq == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd > FA_HD)
+    return dtype == ASR_F32
+               ? launch_flash_wide_hd<float>(q, k, v, kv_valid, out, B, H,
+                                             Tq, Tk, hd, scale, causal, st)
+               : launch_flash_wide_hd<bf16>(q, k, v, kv_valid, out, B, H, Tq,
+                                            Tk, hd, scale, causal, st);
   if (dtype == ASR_F32)
     return hd <= 128 ? launch_flash_f32<float, 8>(q, k, v, kv_valid, out, B,
                                                   H, Tq, Tk, hd, scale,

@@ -371,6 +371,115 @@ __host__ __device__ constexpr size_t mel_bluestein_smem(int n_fft,
                           (size_t)n_mels * MEL_TF);
 }
 
+// ---------------------------------------------------------------------
+// Any n_fft and any n_mels: the DFT summed directly (the design above)
+constexpr int MD_TF = 8;          // frames a block
+
+__host__ __device__ constexpr size_t mel_dft_smem(int n_fft, int hop,
+                                                  int tf) {
+  return sizeof(float) *
+         ((size_t)(tf - 1) * hop + n_fft + (size_t)tf * (n_fft / 2 + 1));
+}
+
+template <int TF>
+__global__ void __launch_bounds__(MEL_THREADS)
+mel_dft_kernel(const float* __restrict__ audio, const float* __restrict__ win,
+               const float2* __restrict__ tw, const int* __restrict__ band,
+               const float* __restrict__ bw, float* __restrict__ out, int N,
+               int T, int hop, int n_fft, int n_mels) {
+  extern __shared__ float smem[];
+  const int nf = n_fft / 2 + 1, span = (TF - 1) * hop + n_fft;
+  float* xs = smem;                          // [span] the tile's samples
+  float* pw = xs + span;                     // [TF][nf] power
+  const int t = threadIdx.x, b = blockIdx.y, f0 = blockIdx.x * TF;
+  const long s0 = (long)f0 * hop - n_fft / 2;
+  for (int e = t; e < span; e += MEL_THREADS) {
+    const long i = s0 + e;
+    xs[e] = i >= 0 && i < N ? audio[(size_t)b * N + i] : 0.0f;
+  }
+  __syncthreads();
+  const int nfr = min(TF, T - f0);
+  for (int k = t; k < nf; k += MEL_THREADS) {
+    float re[TF], im[TF];
+#pragma unroll
+    for (int f = 0; f < TF; ++f) re[f] = im[f] = 0.0f;
+    int idx = 0;                             // k n mod n_fft
+    for (int n = 0; n < n_fft; ++n) {
+      const float2 w = __ldg(tw + idx);
+      const float wn = __ldg(win + n);
+#pragma unroll
+      for (int f = 0; f < TF; ++f) {
+        const float xv = xs[f * hop + n] * wn;
+        re[f] = fmaf(xv, w.x, re[f]);
+        im[f] = fmaf(xv, w.y, im[f]);
+      }
+      idx += k;
+      if (idx >= n_fft) idx -= n_fft;
+    }
+#pragma unroll
+    for (int f = 0; f < TF; ++f)
+      if (f < nfr) pw[f * nf + k] = re[f] * re[f] + im[f] * im[f];
+  }
+  __syncthreads();
+  for (int e = t; e < n_mels * nfr; e += MEL_THREADS) {
+    const int m = e / nfr, f = e % nfr;
+    const int lo = band[3 * m], len = band[3 * m + 1], off = band[3 * m + 2];
+    float s = 0.0f;
+    for (int i = 0; i < len; ++i) s = fmaf(pw[f * nf + lo + i], bw[off + i], s);
+    out[((size_t)b * n_mels + m) * T + f0 + f] = s;
+  }
+}
+
+// the frames a block of mel_dft_kernel takes: 8, or 1 where 8 frames'
+// power would not fit in shared memory (0: not even one fits)
+__host__ __device__ constexpr int mel_dft_frames(int n_fft, int hop) {
+  return mel_dft_smem(n_fft, hop, MD_TF) <= 232448 ? MD_TF
+         : mel_dft_smem(n_fft, hop, 1) <= 232448   ? 1
+                                                   : 0;
+}
+
+template <int TF>
+static int launch_mel_dft(const void* audio, const void* win, const void* tw,
+                          const void* band, const void* bw, void* out, int B,
+                          int N, int T, int hop, int n_fft, int n_mels,
+                          cudaStream_t st) {
+  const size_t smem = mel_dft_smem(n_fft, hop, TF);
+  cudaError_t e = cudaFuncSetAttribute(
+      mel_dft_kernel<TF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  mel_dft_kernel<TF><<<dim3((T + TF - 1) / TF, B), MEL_THREADS, smem, st>>>(
+      (const float*)audio, (const float*)win, (const float2*)tw,
+      (const int*)band, (const float*)bw, (float*)out, N, T, hop, n_fft,
+      n_mels);
+  return (int)cudaGetLastError();
+}
+
+// The direct-DFT route: audio, band, bw, out as below; win (n_fft,) f32
+// periodic Hann window, tw (n_fft,) complex f32 exp(-2 pi i k / n_fft).
+// Any n_fft >= 2 whose single frame fits in shared memory (about 38,000
+// at hop 160), any n_mels >= 1.
+ASR_API int asr_mel_spectrogram_dft(const void* audio, const void* win,
+                                    const void* tw, const void* band,
+                                    const void* bw, void* out, int B, int N,
+                                    int hop, int n_fft, int n_mels,
+                                    void* stream) {
+  const int tf = mel_dft_frames(n_fft, hop);
+  if (n_mels < 1 || hop < 1 || n_fft < 2 || tf == 0)
+    return (int)cudaErrorInvalidValue;
+  const int T = 1 + (N + 2 * (n_fft / 2) - n_fft) / hop;
+  if (B == 0 || T < 1) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tf == MD_TF)
+    return launch_mel_dft<MD_TF>(audio, win, tw, band, bw, out, B, N, T, hop,
+                                 n_fft, n_mels, st);
+  return launch_mel_dft<1>(audio, win, tw, band, bw, out, B, N, T, hop, n_fft,
+                           n_mels, st);
+}
+ASR_API int asr_mel_dft_frames(int n_fft, int hop) {
+  return mel_dft_frames(n_fft, hop);
+}
+
 // audio: (B, N) f32; band: (n_mels, 3) int32 (first bin, length, offset
 // into bw); bw: the filters' nonzero weights, packed; out: (B, n_mels,
 // T) f32 with T = 1 + (N + 2 (n_fft / 2) - n_fft) / hop (1 + N / hop for

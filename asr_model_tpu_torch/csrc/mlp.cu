@@ -35,7 +35,9 @@
 // stay in the L2.
 #include "abby_cluster.cuh"
 
-constexpr int MLP_MAX_NT = 8;            // TGate types (the router's too)
+// TGate types: 8 columns of each gate a tensor-core CTA at 12
+// (mlp_gate_cols)
+constexpr int MLP_MAX_NT = 12;
 constexpr int MLP_ROWS = 32;               // tensor-core tile: 32 x 64
 constexpr int MLP_COLS = 64;
 constexpr int MLP_ST = 3;                  // k chunks in flight
@@ -46,7 +48,8 @@ struct MlpGates {
 };
 
 // launches 1 and 5: out = [res +] ln(x) over the cluster's 32-row tile
-template <typename T>
+// (WIDE past AB_STREAM_D, abby_cluster.cuh)
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(AB_THREADS)
 mlp_norm(const T* __restrict__ x, const T* __restrict__ w1,
          const T* __restrict__ b1, const T* __restrict__ w2,
@@ -54,8 +57,8 @@ mlp_norm(const T* __restrict__ x, const T* __restrict__ w1,
          T* __restrict__ out, int N, int D, int size, float alpha, float k,
          float beta, int vec) {
   extern __shared__ __align__(128) unsigned char ab_smem[];
-  abby_cluster_tile<T>(x, w1, b1, w2, b2, res, out, N, D, size, alpha, k,
-                       beta, vec, blockIdx.y * AB_ROWS, ab_smem);
+  abby_cluster_tile<T, WIDE>(x, w1, b1, w2, b2, res, out, N, D, size, alpha,
+                             k, beta, vec, blockIdx.y * AB_ROWS, ab_smem);
 }
 
 // the softmax of each of `rows` rows of type logits tys [rows][MLP_MAX_NT]
@@ -186,6 +189,65 @@ mlp_linear_tc(const bf16* __restrict__ a, const bf16* __restrict__ w,
     }
 }
 
+// h0 columns a CUDA-core gates CTA holds: all of them up to this width,
+// else chunks of it (the types then from device memory)
+constexpr int MLP_GKCH = 2048;
+
+// launch 2 on the CUDA cores, past MLP_GKCH: the types a warp a (row,
+// type) from device memory, the gates' products MLP_GKCH columns of h0
+// at a time
+template <typename T>
+__device__ void mlp_gates_wide(const T* __restrict__ h0,
+                               const T* __restrict__ cs_w,
+                               const T* __restrict__ cs_b, MlpGates gates,
+                               T* __restrict__ h1, int N, int D, int nt,
+                               float* xs, float* wt, float* tys) {
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int r0 = blockIdx.x * GEMM_ROWS, n0 = blockIdx.y * GEMM_NT;
+  for (int o = warp; o < GEMM_ROWS * nt; o += blockDim.x / 32) {
+    const int r = o / nt, c = o % nt;
+    float s = 0.0f;
+    if (r0 + r < N)
+      for (int j = lane; j < D; j += 32)
+        s += to_f32(h0[(size_t)(r0 + r) * D + j]) *
+             to_f32(cs_w[(size_t)c * D + j]);
+    s = warp_sum(s);
+    if (lane == 0) tys[r * MLP_MAX_NT + c] = s + to_f32(cs_b[c]);
+  }
+  mlp_softmax_types(tys, GEMM_ROWS, nt);
+  const int n = n0 + t % GEMM_NT;
+  float hsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < nt; ++i) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k0 = 0; k0 < D; k0 += MLP_GKCH) {
+      const int kc = min(MLP_GKCH, D - k0);
+      for (int e = t; e < GEMM_ROWS * kc; e += blockDim.x) {
+        const int r = e / kc, j = e % kc;
+        xs[e] = (r0 + r < N) ? to_f32(h0[(size_t)(r0 + r) * D + k0 + j])
+                             : 0.0f;
+      }
+      __syncthreads();
+      float part[4];
+      gemm_rows16<T, false>(xs, kc, kc, (const T*)gates.w[i] + k0, D, n0, D,
+                            wt, part);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) acc[ii] += part[ii];
+    }
+    const float gb = n < D ? to_f32(((const T*)gates.b[i])[n]) : 0.0f;
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int r = 4 * (t / GEMM_NT) + ii;
+      hsum[ii] += sigmoidf_(acc[ii] + gb) * tys[r * MLP_MAX_NT + i];
+    }
+  }
+  if (n >= D) return;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int r = r0 + 4 * (t / GEMM_NT) + ii;
+    if (r < N) h1[(size_t)r * D + n] = from_f32<T>(hsum[ii]);
+  }
+}
+
 // launch 2 on the CUDA cores: one (16-row tile, 64-column slice)
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -193,9 +255,14 @@ mlp_gates(const T* __restrict__ h0, const T* __restrict__ cs_w,
           const T* __restrict__ cs_b, MlpGates gates, T* __restrict__ h1,
           int N, int D, int nt) {
   extern __shared__ float smem[];
-  float* xs = smem;                          // [16][D]: h0
-  float* wt = xs + GEMM_ROWS * D;
+  const int kch = min(D, MLP_GKCH);
+  float* xs = smem;                          // [16][kch]: h0
+  float* wt = xs + GEMM_ROWS * kch;
   float* tys = wt + GEMM_WT_FLOATS;          // [16][MLP_MAX_NT]
+  if (D > MLP_GKCH) {
+    mlp_gates_wide<T>(h0, cs_w, cs_b, gates, h1, N, D, nt, xs, wt, tys);
+    return;
+  }
   const int t = threadIdx.x;
   const int r0 = blockIdx.x * GEMM_ROWS, n0 = blockIdx.y * GEMM_NT;
   for (int e = t; e < GEMM_ROWS * D; e += blockDim.x) {
@@ -239,8 +306,11 @@ static int launch_mlp(int dtype, const void* x, const void* ln_w1,
   const size_t smem_n = abby_smem_bytes(dtype, D);
   const int vx = D % 8 == 0 && ((uintptr_t)x | (uintptr_t)ln_w1) % 16 == 0;
   const int vh = D % 8 == 0 && ((uintptr_t)h3 | (uintptr_t)ln_w1) % 16 == 0;
+  void (*norm)(const T*, const T*, const T*, const T*, const T*, const T*,
+               T*, int, int, int, float, float, float, int) =
+      abby_wide(D) ? mlp_norm<T, true> : mlp_norm<T, false>;
   cudaError_t e = launch_clusters(
-      mlp_norm<T>, grid_n, S, smem_n, st, (const T*)x, (const T*)ln_w1,
+      norm, grid_n, S, smem_n, st, (const T*)x, (const T*)ln_w1,
       (const T*)ln_b1, (const T*)ln_w2, (const T*)ln_b2, (const T*)nullptr,
       (T*)h0, N, D, size, alpha, k, beta, vx);
   if (e != cudaSuccess) return (int)e;
@@ -272,8 +342,8 @@ static int launch_mlp(int dtype, const void* x, const void* ln_w1,
             (bf16*)h3, N, H, D);
   } else {
     const size_t smem_g =
-        sizeof(float) * (GEMM_ROWS * D + GEMM_WT_FLOATS +
-                         GEMM_ROWS * MLP_MAX_NT);
+        sizeof(float) * (GEMM_ROWS * (D < MLP_GKCH ? D : MLP_GKCH) +
+                         GEMM_WT_FLOATS + GEMM_ROWS * MLP_MAX_NT);
     cudaFuncSetAttribute(mlp_gates<T>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem_g);
@@ -286,7 +356,7 @@ static int launch_mlp(int dtype, const void* x, const void* ln_w1,
   }
 
   e = launch_clusters(
-      mlp_norm<T>, grid_n, S, smem_n, st, (const T*)h3, (const T*)ln_w1,
+      norm, grid_n, S, smem_n, st, (const T*)h3, (const T*)ln_w1,
       (const T*)ln_b1, (const T*)ln_w2, (const T*)ln_b2, (const T*)x,
       (T*)out, N, D, size, alpha, k, beta, vh);
   if (e != cudaSuccess) return (int)e;
@@ -306,8 +376,8 @@ static bool mlp_tc_ok(const void* const* ptrs, int n, int D, int H) {
 // gate_b[i] (D,) for i < nt; in_w (H, D), in_b (H,); out_w (D, H),
 // out_b (D,) -- torch (out, in) layouts, all of one dtype (0 = f32,
 // 1 = bf16).  Workspace from the caller: h0, h1, h3 (N, D) and h2 (N, H)
-// of the dtype.  2 <= D <= 2048, nt <= 8, window size <= 103,
-// N <= 65535 * 32.  Five launches.
+// of the dtype.  D >= 2 (the norms' shared memory, abby_smem_bytes,
+// bounds it), nt <= 12, any window size, N <= 65535 * 32.  Five launches.
 ASR_API int asr_fused_mlp_residual(
     int dtype, const void* x, const void* ln_w1, const void* ln_b1,
     const void* ln_w2, const void* ln_b2, const void* cs_w, const void* cs_b,
@@ -315,9 +385,8 @@ ASR_API int asr_fused_mlp_residual(
     const void* in_w, const void* in_b, const void* out_w, const void* out_b,
     void* out, void* h0, void* h1, void* h2, void* h3, int N, int D, int H,
     int size, float alpha, float k, float beta, void* stream) {
-  if (D < 2 || D > ABBY_MAX_D || H < 1 || nt < 1 ||
-      nt > MLP_MAX_NT || size < 1 || size > ABBY_MAX_TAPS ||
-      N > 65535 * AB_ROWS)
+  if (D < 2 || abby_smem_bytes(dtype, D) > 232448 || H < 1 || nt < 1 ||
+      nt > MLP_MAX_NT || size < 1 || N > 65535 * AB_ROWS)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   MlpGates gates = {};

@@ -62,6 +62,11 @@
 //                   next slot index, actions, jstat.
 //   sheath_finish -- the last pending jump term, and x cast back to its
 //                   storage type.
+// Past D = 2048 (sheath_rows' WIDE variant) the tile's 16 rows would not
+// fit in shared memory beside the ring: each CTA applies the pending jump
+// term to its share of the rows' columns in the f32 state, in place, and
+// after a cluster barrier every CTA reads the rows from there (L2) for
+// the statistics, the products' A fragments and the update.
 // Step 0 reads x in its storage type and ignores the device control,
 // which it leaves to its sheath_mem_ctl to set up, so no launch
 // initialises anything.  The TPU kernel's pooling matrices (which only
@@ -117,6 +122,13 @@ constexpr int SH_NST = 3;         // ring stages
 constexpr int SH_LDW = 72;        // ring row stride: 64 columns + 8
 constexpr int SH_MAX_CLUSTER = 8;
 constexpr int SH_MEM_GROUP = 64;  // batch rows a pass of the memory EMA
+// past this width the tile's rows are not held in shared memory (19 f32
+// rows of D + 4 and the ring would pass it): the WIDE row kernel applies
+// the pending jump term to them in the f32 state in place, and reads
+// them from there (L2) for the statistics, the products' A fragments and
+// the update
+constexpr int SH_WIDE_D = 2048;
+__host__ __device__ constexpr bool sh_wide(int D) { return D > SH_WIDE_D; }
 
 // row stride of the x tile: k padded to whole KC chunks, + 4 so that a
 // fragment's 8 rows x 4 columns fall in 32 banks
@@ -138,13 +150,14 @@ __host__ __device__ constexpr int sh_passes(int SCP, int DP) {
 }
 
 // dynamic shared memory of sheath_rows at R rows a tile and NP passes: the
-// x tile, the slot's LayerNorm scale and bias and gate weights, the weight
+// x tile (none past SH_WIDE_D), the slot's LayerNorm scale and bias and
+// gate weights, the weight
 // ring (then the two products' outputs), five values a row and the four
 // scores each CTA pushes to it (5 + 4 * 8 a row), two values for each of
 // the pass's 64 score columns, and the adapter outputs of the passes
 // before the last
 __host__ __device__ constexpr size_t sh_smem_bytes(int R, int D, int NP) {
-  return sizeof(float) * ((R + 3) * sh_lda(D) +
+  return sizeof(float) * (((sh_wide(D) ? 0 : R) + 3) * sh_lda(D) +
                           SH_NST * 2 * SH_KC * SH_LDW +
                           (5 + 4 * SH_MAX_CLUSTER) * R + 128 +
                           (NP - 1) * R * SH_LDW);
@@ -278,7 +291,11 @@ __device__ __forceinline__ void sh_load_rows(const SheathArgs& a, int step,
 // each; MP (more than 8 slices, 16-row tiles only) builds the pass loop,
 // else the one pass is compiled alone (the loop cost the 64-row tiles
 // 11-15% at D 512).
-template <typename T, int R, typename TW, bool MP>
+// WIDE (past SH_WIDE_D; MP, 16-row tiles): the tile's rows stay in the
+// f32 state, where each CTA first writes its share of their columns with
+// the pending jump term (step 0: x converted), a cluster barrier later
+// read by every CTA from L2.
+template <typename T, int R, typename TW, bool MP, bool WIDE = false>
 __global__ void __launch_bounds__(SH_THREADS, R == 16 ? 2 : 1)
 sheath_rows(SheathArgs a, int step) {
   constexpr int MW = R / 16, KG = SH_KC / 8;
@@ -297,8 +314,8 @@ sheath_rows(SheathArgs a, int step) {
   // this CTA's last pass
   const int plast = MP ? (sh_slices(a.SCP, a.DP) - 1 - rank) / cs : 0;
   extern __shared__ __align__(128) float sh_smem[];
-  float* xt = sh_smem;                          // [R][lda]  x
-  float* lns = xt + R * lda;                    // [lda] LayerNorm scale
+  float* xt = sh_smem;                          // [R][lda]  x (not WIDE)
+  float* lns = xt + (WIDE ? 0 : R * lda);       // [lda] LayerNorm scale
   float* lnb = lns + lda;                       // [lda] LayerNorm bias
   float* gw = lnb + lda;                        // [lda] skip-gate weights
   float* ring = gw + lda;                       // [NST][2][KC][LDW]
@@ -375,31 +392,63 @@ sheath_rows(SheathArgs a, int step) {
   }
   load_cols(0);
   const bool pend = step > 0 && a.ctl[1] != 0;
-  sh_load_rows<T, R>(a, step, pend, pend ? a.jump_w[0] : 0.0f, r0, lda, xt);
+  // x of the tile's row r, column j (0 outside the tile's rows and D)
+  auto xval = [&](int r, int j) -> float {
+    if constexpr (WIDE)
+      return r0 + r < a.N && j < D ? __ldcg(a.xs + (size_t)(r0 + r) * D + j)
+                                   : 0.0f;
+    else
+      return xt[r * lda + j];
+  };
+  if constexpr (WIDE) {
+    // this CTA's share of the columns, in place in the f32 state
+    const T* x0 = (const T*)a.x_in;
+    const float jw = pend ? a.jump_w[0] : 0.0f;
+    const int share = (D + cs - 1) / cs, j0 = rank * share;
+    const int nj = max(0, min(share, D - j0));
+    for (int e = t; e < R * nj; e += SH_THREADS) {
+      const int r = e / nj, j = j0 + e % nj, row = r0 + r;
+      if (row >= a.N) continue;
+      const size_t o = (size_t)row * D + j;
+      float v = step == 0 ? to_f32(x0[o]) : a.xs[o];
+      if (pend)
+        v = v + (jw * to_f32(x0[o]) +
+                 (1.0f - jw) * a.mem_w[(size_t)(row / a.C) * D + j]);
+      a.xs[o] = v;
+    }
+    __threadfence();
+    cluster_wait();                 // the start's arrive
+    cluster_arrive();               // release the rows ...
+    cluster_wait();                 // ... and see every CTA's
+    cluster_arrive_relaxed();       // waited on before the first push
+  } else {
+    sh_load_rows<T, R>(a, step, pend, pend ? a.jump_w[0] : 0.0f, r0, lda,
+                       xt);
+  }
   __syncthreads();
 
   // per-row norm, LayerNorm statistics (two-pass variance, eps 1e-5) and
   // skip gate: TPR threads a row
   {
     const int r = t / TPR, q = t % TPR;
-    const float* xr = xt + r * lda;
     float s = 0.0f, sq = 0.0f;
     for (int j = q; j < D; j += TPR) {
-      s += xr[j];
-      sq += xr[j] * xr[j];
+      const float xj = xval(r, j);
+      s += xj;
+      sq += xj * xj;
     }
     s = group_sum<TPR>(s);
     sq = group_sum<TPR>(sq);
     const float m = s / (float)D;
     float v = 0.0f;
     for (int j = q; j < D; j += TPR) {
-      const float c = xr[j] - m;
+      const float c = xval(r, j) - m;
       v += c * c;
     }
     const float rs = rsqrtf(group_sum<TPR>(v) / (float)D + 1e-5f);
     float gs = 0.0f;
     for (int j = q; j < D; j += TPR)
-      gs += sh_ln(xr[j], m, rs, lns[j], lnb[j]) * gw[j];
+      gs += sh_ln(xval(r, j), m, rs, lns[j], lnb[j]) * gw[j];
     gs = group_sum<TPR>(gs);
     if (q == 0) {
       mu[r] = m;
@@ -460,8 +509,19 @@ sheath_rows(SheathArgs a, int step) {
                     b1 = lnb[k + 4];
 #pragma unroll
         for (int m = 0; m < MW; ++m) {
-          const float* xa = xt + (16 * m + g) * lda + k;
-          const float xv[4] = {xa[0], xa[8 * lda], xa[4], xa[8 * lda + 4]};
+          float xv[4];
+          if constexpr (WIDE) {
+            xv[0] = xval(16 * m + g, k);
+            xv[1] = xval(16 * m + g + 8, k);
+            xv[2] = xval(16 * m + g, k + 4);
+            xv[3] = xval(16 * m + g + 8, k + 4);
+          } else {
+            const float* xa = xt + (16 * m + g) * lda + k;
+            xv[0] = xa[0];
+            xv[1] = xa[8 * lda];
+            xv[2] = xa[4];
+            xv[3] = xa[8 * lda + 4];
+          }
           uint32_t ahi[4], alo[4];
           if (has_sc) {
 #pragma unroll
@@ -599,7 +659,7 @@ sheath_rows(SheathArgs a, int step) {
     for (int e = t; e < R * 64; e += SH_THREADS) {
       const int r = e >> 6, c = e & 63, n = c0 + c, row = r0 + r;
       if (row >= a.N || n >= D) continue;
-      const float xv = xt[r * lda + n];
+      const float xv = xval(r, n);
       const float apx = i % 2 == 0 ? ao[r * SH_LDW + c] + ab[n]
                                    : sh_ln(xv, mu[r], rstd[r], lns[n], lnb[n]);
       a.xs[(size_t)row * D + n] = xv + gv[r] * (apx * ionr[r]);
@@ -729,12 +789,12 @@ __global__ void sheath_finish(SheathArgs a) {
   }
 }
 
-template <typename T, int R, typename TW, bool MP>
+template <typename T, int R, typename TW, bool MP, bool WIDE = false>
 static int launch_rows(const SheathArgs& a, int step, cudaStream_t st) {
   const size_t smem = sh_smem_bytes(R, a.D, sh_passes(a.SCP, a.DP));
   cudaError_t e = cudaFuncSetAttribute(
-      sheath_rows<T, R, TW, MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      sheath_rows<T, R, TW, MP, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int cs = sh_cluster_size(a.SCP, a.DP);
   cudaLaunchConfig_t cfg = {};
@@ -749,7 +809,8 @@ static int launch_rows(const SheathArgs& a, int step, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, sheath_rows<T, R, TW, MP>, a, step);
+  return (int)cudaLaunchKernelEx(&cfg, sheath_rows<T, R, TW, MP, WIDE>, a,
+                                 step);
 }
 
 template <typename T, typename TW>
@@ -758,7 +819,9 @@ static int launch_sheath(const SheathArgs& a, int rows, cudaStream_t st) {
   const int ew_grid = (int)std::min<size_t>((nd + 255) / 256, 4096);
   const dim3 mem_grid(a.B, (a.D + 31) / 32);
   for (int step = 0; step < a.L; ++step) {
-    const int rc = sh_passes(a.SCP, a.DP) > 1
+    const int rc = sh_wide(a.D) ? launch_rows<T, 16, TW, true, true>(a, step,
+                                                                      st)
+                   : sh_passes(a.SCP, a.DP) > 1
                        ? launch_rows<T, 16, TW, true>(a, step, st)
                    : rows == 16 ? launch_rows<T, 16, TW, false>(a, step, st)
                                 : launch_rows<T, 64, TW, false>(a, step, st);

@@ -73,9 +73,12 @@ abby_plain.calls = 0
 
 
 ROWS = 32               # rows of a cluster's tile (abby.cu AB_ROWS)
-MAX_D = 2048
-MAX_TAPS = 103          # widest window: window_size(2048)
+STREAM_D = 2048         # past it the tile stays in device memory (WIDE)
+MAX_TAPS = 103          # widest window of the attention calls' tensor-core
+                        # route: window_size(2048)
 W_RING = 8              # W1 chunks in flight past 16 (AB_WRING)
+KCH = 512               # f32 x columns a CTA holds past STREAM_D (AB_KCH)
+SMEM_MAX = 232448       # dynamic shared memory a block may use
 
 
 def launch_plan(n: int, d: int, dtype) -> dict:
@@ -84,13 +87,22 @@ def launch_plan(n: int, d: int, dtype) -> dict:
     64-column multiple of D / 8 past 1024), the CTAs of a cluster (one
     row tile), the tiles, the W1 chunks a bf16 pass holds (every chunk,
     or a ring of 8 past 16 chunks), the f32 rows held at once (the
-    tile, half of it past D 1024) and the dynamic shared memory of a CTA
-    in bytes (the formula of ``abby_smem_bytes``)."""
+    tile, half of it past D 1024, none past D 2048, where the rows stay
+    in device memory: ``wide``, bf16 x's chunks in the ring beside W1's,
+    f32 512 columns of x at a time) and the dynamic shared memory of a
+    CTA in bytes (the formula of ``abby_smem_bytes``)."""
     cols = 64 if d <= 512 else 128 if d <= 1024 else 64 * -(-d // 512)
     cluster = -(-d // cols)
     chunks = -(-d // 64)
     ld = 64 * chunks + 8
     slots = chunks if chunks <= 16 else W_RING
+    if d > STREAM_D:
+        smem = (2 * W_RING * 96 * 72 if dtype == torch.bfloat16
+                else 4 * (16 * KCH + 32 * 65 + 16 * 64))
+        smem += 4 * (4 * ROWS * 3 + 4 * cols + (ROWS + 8) * 3 + 2 * ROWS)
+        return dict(cols=cols, cluster=cluster, tiles=-(-n // ROWS),
+                    rows=ROWS, w_slots=slots, f32_rows=0, wide=True,
+                    smem=smem)
     f32_rows = ROWS if d <= 1024 else ROWS // 2
     if dtype == torch.bfloat16:
         wbuf = 64 * ld if chunks <= 16 else W_RING * 64 * 72
@@ -99,7 +111,8 @@ def launch_plan(n: int, d: int, dtype) -> dict:
         smem = 4 * (f32_rows * d + 32 * 65) + 4 * ROWS * cols
     smem += 4 * (4 * cols + (ROWS + 8) * 3 + 2 * ROWS)
     return dict(cols=cols, cluster=cluster, tiles=-(-n // ROWS),
-                rows=ROWS, w_slots=slots, f32_rows=f32_rows, smem=smem)
+                rows=ROWS, w_slots=slots, f32_rows=f32_rows, wide=False,
+                smem=smem)
 
 
 def _launch():
@@ -111,24 +124,26 @@ def _launch():
 def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
                beta: float):
     """The whole eval AbbyNormal over the rows of x2 (N, D): the kernel
-    on CUDA tensors (f32 or bf16, weights in x2's dtype, D <= 2048, N <=
-    65535 * 32, size <= 103), the plain version on CPU tensors."""
+    on CUDA tensors (f32 or bf16, weights in x2's dtype, any D whose
+    ``launch_plan`` shared memory fits a block -- up to about 57,000 --
+    N <= 65535 * 32, any window), the plain version on CPU tensors."""
     if x2.device.type == "cpu":
         return abby_plain(x2, w1, b1, w2, b2, size, alpha, k, beta)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_abby: unsupported device {x2.device}")
     n, d = x2.shape
-    ok = (x2.dim() == 2 and 2 <= d <= MAX_D and n <= 65535 * ROWS
-          and 1 <= size <= MAX_TAPS and w1.shape == (d, d)
+    ok = (x2.dim() == 2 and d >= 2 and n <= 65535 * ROWS and size >= 1
+          and launch_plan(n, d, x2.dtype)["smem"] <= SMEM_MAX
+          and w1.shape == (d, d)
           and b1.shape == (d,) and w2.shape == (3, d) and b2.shape == (3,)
           and all(t.dtype == x2.dtype and t.is_contiguous()
                   and t.device == x2.device
                   for t in (x2, w1, b1, w2, b2)))
     if not ok:
         raise ValueError(
-            f"fused_abby kernel takes contiguous (N, D<={MAX_D}) x with "
-            "(D, D), (D,), (3, D), (3,) weights of its dtype and device and "
-            f"a window of at most {MAX_TAPS}; "
+            "fused_abby kernel takes contiguous (N, D) x with (D, D), (D,), "
+            "(3, D), (3,) weights of its dtype and device, a D whose shared "
+            "memory fits a block; "
             f"got x {tuple(x2.shape)} {x2.dtype}, w1 {tuple(w1.shape)} "
             f"{w1.dtype}")
     code = B.dtype_code(x2.dtype)
@@ -147,7 +162,21 @@ fused_abby.launches = 0
 
 # ------------------------------------------------ the tail on its own
 
-TAIL_MAX_D = 4096       # one row per warp in shared memory (abby.cu)
+TAIL_MAX_RPC = 32       # rows a CTA of the tail at most (abby.cu)
+TAIL_SMEM_MAX = 96 * 1024   # bytes of rows a CTA copies to shared memory
+
+
+def tail_launch_plan(n: int, d: int, dtype) -> dict:
+    """What ``asr_fused_abby_tail`` launches for (n, d) rows
+    (``abby.cu:abby_tail_tile``, one launch): rows a CTA (about one CTA
+    an SM, at most 32), the CTAs, whether the rows are copied to shared
+    memory (else read from L2) and the dynamic shared memory in bytes."""
+    es = torch.empty((), dtype=dtype).element_size()
+    rpc = 1 if n <= 132 else min(-(-n // 132), TAIL_MAX_RPC)
+    in_smem = rpc * d * es <= TAIL_SMEM_MAX
+    return dict(rows_per_cta=rpc, ctas=-(-n // rpc), rows_in_smem=in_smem,
+                launches=1,
+                smem=4 * TAIL_MAX_RPC + (rpc * d * es if in_smem else 0))
 
 
 def abby_tail_plain(x2, logits, size: int, alpha: float, k: float,
@@ -166,27 +195,30 @@ def fused_abby_tail(x2, logits, size: int, alpha: float, k: float,
                     beta: float):
     """Replaces ``abby_kernel.py:fused_abby_tail``: the eval AbbyNormal
     tail of x2 (N, D) on precomputed router logits (N, 3).  The kernel is
-    ``abby.cu``'s ``abby_tail`` (one warp a row, on f32 logits, no bias),
-    on CUDA tensors (f32 or bf16, D <= 4096); the plain version
-    on CPU tensors."""
+    ``abby.cu``'s ``abby_tail_tile`` (one launch, rows a CTA in shared
+    memory, a thread per 8 channels; ``tail_launch_plan``) on f32 logits,
+    no bias, on CUDA tensors (f32 or bf16, any D); the plain version on
+    CPU tensors."""
     if x2.device.type == "cpu":
         return abby_tail_plain(x2, logits, size, alpha, k, beta)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_abby_tail: unsupported device {x2.device}")
     n, d = x2.shape
-    if not (x2.dim() == 2 and 2 <= d <= TAIL_MAX_D and x2.is_contiguous()
+    if not (x2.dim() == 2 and d >= 2 and size >= 1 and x2.is_contiguous()
             and logits.shape == (n, 3) and logits.device == x2.device):
         raise ValueError(
-            f"fused_abby_tail kernel takes contiguous (N, D<={TAIL_MAX_D}) x "
-            f"and (N, 3) logits on its device; got x {tuple(x2.shape)}, "
-            f"logits {tuple(logits.shape)} on {logits.device}")
+            "fused_abby_tail kernel takes contiguous (N, D >= 2) x and (N, "
+            f"3) logits on its device; got x {tuple(x2.shape)}, logits "
+            f"{tuple(logits.shape)} on {logits.device}")
     code = B.dtype_code(x2.dtype)
     lg = logits.to(torch.float32).contiguous()
     out = torch.empty_like(x2)
+    vec = int(x2.data_ptr() % 16 == 0 and d * x2.element_size() % 16 == 0)
     rc = B.function("asr_fused_abby_tail",
-                    [B.I, B.P, B.P, B.P, B.I, B.I, B.I, B.F, B.F, B.F, B.P])(
+                    [B.I, B.P, B.P, B.P, B.I, B.I, B.I, B.F, B.F, B.F, B.I,
+                     B.P])(
         code, x2.data_ptr(), lg.data_ptr(), out.data_ptr(), n, d, int(size),
-        float(alpha), float(k), float(beta), B.stream_of(x2))
+        float(alpha), float(k), float(beta), vec, B.stream_of(x2))
     B.check(rc, "asr_fused_abby_tail")
     fused_abby_tail.launches += 1 if n else 0
     return out

@@ -57,9 +57,33 @@ def _launch():
 
 
 TILE = 64          # keys per tile of the bf16 kernel
-MAX_HD = 256
+TC_MAX_HD = 256    # the widest head of the tensor-core kernel; past it
+MAX_HD = 1024      # flash_wide_kernel (CUDA cores, either dtype)
 MAX_SPLIT = 16
 MIN_SPLIT_TILES = 4
+
+
+def route(hd: int, dtype) -> str:
+    """The kernel a call takes: "tc" (bf16 up to hd 256, the tensor
+    cores), "f32" (f32 up to 256, the CUDA cores) or "wide" (past 256,
+    either dtype: ``flash_wide_kernel``)."""
+    if hd > TC_MAX_HD:
+        return "wide"
+    return "tc" if dtype == torch.bfloat16 else "f32"
+
+
+def wide_rows(hd: int) -> int:
+    """Query rows a block of ``flash_wide_kernel``: 64 (4 a thread) up to
+    hd 512, else 16."""
+    return 64 if hd <= 512 else 16
+
+
+def wide_smem(hd: int) -> int:
+    """Dynamic shared memory of ``flash_wide_kernel`` (``fa_wide_smem``):
+    the query rows and a 16-key tile of K (padded rows) and V, the tile's
+    weights."""
+    rows = wide_rows(hd)
+    return 4 * ((rows + 16) * (hd + 1) + 16 * hd + rows * 17)
 
 
 def q_tile(tq: int, hd: int = 128) -> int:
@@ -110,7 +134,9 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
                     scale: float | None = None):
     """(B, H, Tq, hd) x (B, H, Tk, hd) -> (B, H, Tq, hd); ``kv_valid``
     (B, Tk) bool.  The flash kernel on CUDA tensors (f32 or bf16,
-    hd <= 256), on the current stream, the plain version on CPU tensors.
+    hd <= 1024: past 256 ``flash_wide_kernel``, ``wide_rows`` query rows
+    a block on the CUDA cores), on the current stream, the plain version
+    on CPU tensors.
     The split merge's tile counters are kept per stream, so calls on
     two streams may run at once."""
     if scale is None:
@@ -142,7 +168,7 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
     out = torch.empty_like(q)
     stream = B.stream_of(q)
     nsplit, part_o, part_ml, counters, ws = 1, None, None, None, None
-    if code == 1:
+    if code == 1 and hd <= TC_MAX_HD:
         nsplit = splits(b * h, tq, tk, _sm_count(q.device.index or 0), hd)
     if nsplit > 1:
         bq = q_tile(tq, hd)

@@ -13,8 +13,10 @@ filter's nonzero band (``mel_bands``).  Only the waveform and the mel
 output cross device memory.  Any other ``n_fft`` from 64 to 4096 (odd
 included; Whisper's 400) takes Bluestein's algorithm: the DFT as a
 circular convolution of power-of-two length done by two FFTs
-(``bluestein_tables``).  ``n_mels <= 256``.  See the source for the
-design.
+(``bluestein_tables``).  n_fft below 64 or past 4096, and more than 256
+mels, take the direct DFT (``mel_dft_kernel``: a thread a frequency bin,
+8 frames a block, as the Pallas kernel's basis products sum it).  See
+the source for the design.
 """
 
 from __future__ import annotations
@@ -34,11 +36,31 @@ def fft_twiddles(n_fft: int) -> np.ndarray:
     return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
 
 
-MIN_FFT, MAX_FFT, MAX_MELS = 64, 4096, 256
+MIN_FFT, MAX_FFT, MAX_MELS = 64, 4096, 256   # the FFT routes' sizes
+DFT_FRAMES = 8                                 # frames a DFT block
+SMEM_MAX = 232448
 
 
 def is_pow2(n: int) -> bool:
     return n > 0 and n & (n - 1) == 0
+
+
+def dft_frames(n_fft: int, hop: int) -> int:
+    """Frames a block of the direct-DFT route takes: 8, or 1 where 8
+    frames' power would not fit in shared memory, 0 where not even one
+    fits (``csrc/mel.cu:mel_dft_frames``)."""
+    smem = lambda tf: 4 * ((tf - 1) * hop + n_fft + tf * (n_fft // 2 + 1))
+    return (DFT_FRAMES if smem(DFT_FRAMES) <= SMEM_MAX
+            else 1 if smem(1) <= SMEM_MAX else 0)
+
+
+def route(n_fft: int, n_mels: int) -> str:
+    """The kernel a size takes: "fft" (a power of two in 64..4096),
+    "bluestein" (any other n_fft there), both up to 256 mels; else
+    "dft"."""
+    if MIN_FFT <= n_fft <= MAX_FFT and n_mels <= MAX_MELS:
+        return "fft" if is_pow2(n_fft) else "bluestein"
+    return "dft"
 
 
 def bluestein_len(n_fft: int) -> int:
@@ -85,14 +107,14 @@ def mel_bands(fb: np.ndarray):
 
 def _consts(device, sample_rate, n_fft, n_mels, f_min, f_max):
     """The kernel's tables on the device: (win, tw, wc, bf, band, bw);
-    win and tw of the power-of-two kernel, or None, wc, bf and tw of the
-    Bluestein one."""
+    win and tw of the power-of-two and direct-DFT kernels, or None, wc,
+    bf and tw of the Bluestein one."""
     from asr_model_tpu_torch.ops.mel import hann_window, mel_filterbank
     key = (str(device), sample_rate, n_fft, n_mels, f_min, f_max)
     if key not in _DEVICE_CONSTS:
         band, bw = mel_bands(mel_filterbank(n_fft // 2 + 1, f_min, f_max,
                                             n_mels, sample_rate))
-        if is_pow2(n_fft):
+        if route(n_fft, n_mels) != "bluestein":
             win, tw, wc, bf = (hann_window(n_fft), fft_twiddles(n_fft),
                                None, None)
         else:
@@ -135,8 +157,9 @@ def mel_spectrogram(audio, sample_rate: int = 16000, n_fft: int = 1024,
     """(B, N) float32 audio -> (B, n_mels, T) power mel spectrogram
     (center=True, n_fft // 2 zeros a side: T = 1 + N // hop_length for an
     even n_fft; HTK filterbank).  One kernel
-    launch for the whole batch on a CUDA tensor; the plain version on a
-    CPU tensor."""
+    launch for the whole batch on a CUDA tensor (``route``; any n_fft >= 2
+    whose frame fits in shared memory, about 38,000 at hop 160, any
+    n_mels); the plain version on a CPU tensor."""
     if audio.device.type == "cpu":
         return mel_spectrogram_plain(audio, sample_rate, n_fft, hop_length,
                                      n_mels, f_min, f_max)
@@ -147,20 +170,31 @@ def mel_spectrogram(audio, sample_rate: int = 16000, n_fft: int = 1024,
         raise ValueError("mel_spectrogram kernel takes contiguous (B, N) "
                          f"float32 audio, got {tuple(audio.shape)} "
                          f"{audio.dtype}")
-    if not 1 <= n_mels <= MAX_MELS or not MIN_FFT <= n_fft <= MAX_FFT:
-        raise ValueError(f"mel_spectrogram kernel takes n_mels <= {MAX_MELS}"
-                         f" and n_fft in {MIN_FFT}..{MAX_FFT}, got n_mels "
-                         f"{n_mels}, n_fft {n_fft}")
+    if n_mels < 1 or n_fft < 2 or hop_length < 1 \
+            or dft_frames(n_fft, hop_length) == 0:
+        raise ValueError("mel_spectrogram kernel takes n_mels >= 1 and an "
+                         "n_fft >= 2 whose frame fits in shared memory, got "
+                         f"n_mels {n_mels}, n_fft {n_fft}")
     win, tw, wc, bf, band, bw = _consts(audio.device, sample_rate, n_fft,
                                         n_mels, f_min, f_max)
     b, n = audio.shape
     frames = 1 + (n + 2 * (n_fft // 2) - n_fft) // hop_length
     out = torch.empty(b, n_mels, frames, device=audio.device,
                       dtype=torch.float32)
-    rc = _launch()(audio.data_ptr(), B.ptr(win), tw.data_ptr(), B.ptr(wc),
-                   B.ptr(bf), band.data_ptr(), bw.data_ptr(), out.data_ptr(),
-                   b, n, hop_length, n_fft, n_mels, B.stream_of(audio))
-    B.check(rc, "asr_mel_spectrogram")
+    if route(n_fft, n_mels) == "dft":
+        rc = B.function("asr_mel_spectrogram_dft",
+                        [B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I, B.I,
+                         B.I, B.P])(
+            audio.data_ptr(), win.data_ptr(), tw.data_ptr(),
+            band.data_ptr(), bw.data_ptr(), out.data_ptr(), b, n,
+            hop_length, n_fft, n_mels, B.stream_of(audio))
+        B.check(rc, "asr_mel_spectrogram_dft")
+    else:
+        rc = _launch()(audio.data_ptr(), B.ptr(win), tw.data_ptr(),
+                       B.ptr(wc), B.ptr(bf), band.data_ptr(), bw.data_ptr(),
+                       out.data_ptr(), b, n, hop_length, n_fft, n_mels,
+                       B.stream_of(audio))
+        B.check(rc, "asr_mel_spectrogram")
     mel_spectrogram.launches += 1 if b else 0
     return out
 

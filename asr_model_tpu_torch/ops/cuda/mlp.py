@@ -24,7 +24,8 @@ from asr_model_tpu_torch.ops.cuda import abby
 from asr_model_tpu_torch.ops.cuda.abby import abby_values
 
 LAUNCHES = 5                     # a call's kernel launches (mlp.cu)
-MAX_D, MAX_TYPES = 2048, 8
+MAX_TYPES = 12                   # TGate types (mlp.cu MLP_MAX_NT)
+GKCH = 2048                      # h0 columns a CUDA-core gates CTA holds
 ROWS, COLS = 32, 64              # the tensor-core tiles (mlp.cu)
 STAGES = 3                       # their k chunks in flight (MLP_ST)
 
@@ -60,17 +61,20 @@ def launch_plan(n: int, d: int, hid: int, dtype, nt: int = 3) -> dict:
                 gate_cols=gate_cols(nt) if tc else COLS,
                 slices_gates=-(-d // (gate_cols(nt) if tc else COLS)),
                 gates_smem=(gates_tc_smem() if tc
-                            else 4 * (16 * d + 32 * 65 + 16 * MAX_TYPES)),
+                            else 4 * (16 * min(d, GKCH) + 32 * 65
+                                      + 16 * MAX_TYPES)),
                 linear_smem=(B.tc_ring_bytes(2, 2, False, False, STAGES) if tc
                              else 4 * (16 * min(max(d, hid), 2048)
                                        + 32 * 65)))
 
 
 def supports(d: int, nt: int) -> bool:
-    """The widths the kernels take: 2 <= D <= MAX_D, 1..MAX_TYPES gates,
-    the window of D within abby.MAX_TAPS."""
-    return (2 <= d <= MAX_D and 1 <= nt <= MAX_TYPES
-            and abby.window_size(d) <= abby.MAX_TAPS)
+    """The widths the kernels take: any D >= 2 whose norms' shared memory
+    fits a block (``abby.launch_plan``; up to about 57,000), 1..MAX_TYPES
+    gates, any window."""
+    return (d >= 2 and 1 <= nt <= MAX_TYPES
+            and abby.launch_plan(1, d, torch.bfloat16)["smem"]
+            <= abby.SMEM_MAX)
 
 
 def mlp_residual_plain(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
@@ -104,8 +108,8 @@ def fused_mlp_residual(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
                        out_b, size_d: int, alpha: float, k: float,
                        beta: float):
     """``x2 + mlp(x2)`` over the rows of x2 (N, D): the kernels on CUDA
-    tensors (f32 or bf16, weights of x2's dtype, D <= 2048, at most 8
-    gates), the plain version on CPU tensors.  Arguments as in
+    tensors (f32 or bf16, weights of x2's dtype, any D of ``supports``,
+    at most 12 gates), the plain version on CPU tensors.  Arguments as in
     ``mlp_residual_plain``."""
     args = (x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w, out_b, size_d,
             alpha, k, beta)
@@ -119,7 +123,7 @@ def fused_mlp_residual(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
     weights = [*ln_w, cs_w, cs_b, *[t for g in gates for t in g], in_w,
                in_b, out_w, out_b]
     ok = (x2.dim() == 2 and supports(d, nt) and hid >= 1
-          and 1 <= size_d <= abby.MAX_TAPS
+          and size_d >= 1
           and n <= 65535 * ROWS and ln_w[0].shape == (d, d)
           and ln_w[2].shape == (3, d) and cs_w.shape == (nt, d)
           and all(g[0].shape == (d, d) and g[1].shape == (d,) for g in gates)
@@ -128,11 +132,9 @@ def fused_mlp_residual(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
                   and t.device == x2.device for t in [x2, *weights]))
     if not ok:
         raise ValueError(
-            "fused_mlp_residual kernels take contiguous "
-            f"(N, D<={MAX_D}) x and "
-            "torch-layout weights of its dtype and device, at most "
-            f"{MAX_TYPES} gates "
-            f"and a window of at most {abby.MAX_TAPS}; "
+            "fused_mlp_residual kernels take contiguous (N, D) x (a D "
+            "whose norms fit a block) and torch-layout weights of its dtype "
+            f"and device, at most {MAX_TYPES} gates; "
             f"got x {tuple(x2.shape)} {x2.dtype}, in_w {tuple(in_w.shape)}, "
             f"{nt} gates")
     code = B.dtype_code(x2.dtype)

@@ -98,7 +98,7 @@ sheath_scan_plain.calls = 0
 
 MAX_CLUSTER = 8          # CTAs of a cluster (portable size)
 MEM_GROUP = 64           # batch rows a pass of the memory EMA (SH_MEM_GROUP)
-MAX_D = 2048
+WIDE_D = 2048            # past it the rows stay in the f32 state (SH_WIDE_D)
 ROW_TILES = (16, 64)
 SMEM_MAX = 232448        # dynamic shared memory a block may use (H100)
 _MAX_CLUSTERS: dict = {}  # (device, rows, d, cluster) -> at once
@@ -106,11 +106,13 @@ _MAX_CLUSTERS: dict = {}  # (device, rows, d, cluster) -> at once
 
 def smem_bytes(rows: int, d: int, passes: int) -> int:
     """Dynamic shared memory of a row-kernel CTA (``sh_smem_bytes``): the
-    x tile, three slot vectors, a 3-stage ring of two (32, 72) weight
-    chunks, 5 + 4 * 8 values a row, two a score column, and the adapter
-    outputs of the passes before the last."""
+    x tile (none past WIDE_D: the rows stay in the f32 state), three slot
+    vectors, a 3-stage ring of two (32, 72) weight chunks, 5 + 4 * 8
+    values a row, two a score column, and the adapter outputs of the
+    passes before the last."""
     lda = -(-d // 32) * 32 + 4
-    return 4 * ((rows + 3) * lda + 3 * 2 * 32 * 72 + 37 * rows + 128
+    held = 0 if d > WIDE_D else rows
+    return 4 * ((held + 3) * lda + 3 * 2 * 32 * 72 + 37 * rows + 128
                 + (passes - 1) * rows * 72)
 
 
@@ -137,7 +139,8 @@ def launch_plan(n: int, d: int, d2: int, m_keys: int,
             rows = r
             break
     return dict(scp=scp, dp=dp, cluster=cluster, passes=passes, rows=rows,
-                tiles=-(-n // rows), smem=smem_bytes(rows, d, passes),
+                wide=d > WIDE_D, tiles=-(-n // rows),
+                smem=smem_bytes(rows, d, passes),
                 mem_blocks=batch * -(-d // 32),
                 mem_groups=-(-batch // MEM_GROUP))
 
@@ -213,9 +216,10 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
                       weights: dict, L: int, thresh: float):
     """The MSheath eval scan over x2 (N = batch * C rows, D): the kernel
     sequence on CUDA tensors (x2 f32 or bf16; ``sampled`` a device int32
-    scalar; mem0, jump_s and the weights f32; any batch; D <= 2048 where
-    the row kernel's shared memory (``launch_plan``) fits), the plain
-    version on CPU tensors.  Returns (x, actions (L,)
+    scalar; mem0, jump_s and the weights f32; any batch; any D where the
+    row kernel's shared memory (``launch_plan``) fits: past D 2048 the
+    rows stay in the f32 state, up to about 8,000), the plain version on
+    CPU tensors.  Returns (x, actions (L,)
     int32, jstat (3,) int32)."""
     if x2.device.type == "cpu":
         return sheath_scan_plain(x2, batch, valid, mem0, sampled, jump_s,
@@ -236,7 +240,7 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
     f32 = [mem0, jump_s] + [w[k] for k in WEIGHT_NAMES]
     plan = launch_plan(n, d, d2, m_keys)
     ok = (x2.dim() == 2 and 1 <= batch and c * batch == n
-          and 1 <= d <= MAX_D and x2.is_contiguous() and L >= 1
+          and d >= 1 and x2.is_contiguous() and L >= 1
           and m_keys >= 1 and plan["smem"] <= SMEM_MAX
           and -(-n // ROW_TILES[0]) <= 65535
           and all(tuple(w[k].shape) == s for k, s in shapes.items())
@@ -251,8 +255,9 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
                      and valid.device == x2.device)
     if not ok:
         raise ValueError(
-            "fused_sheath_scan kernel takes contiguous (batch * C, "
-            f"D<={MAX_D}) x, a (batch, C) bool mask, an int32 device "
+            "fused_sheath_scan kernel takes contiguous (batch * C, D) x "
+            "(a D whose row kernel fits a block), a (batch, C) bool mask, "
+            "an int32 device "
             "scalar action and the f32 per-slot "
             f"stacks of WEIGHT_NAMES; got x {tuple(x2.shape)} {x2.dtype}, "
             f"batch {batch}, M {m_keys}, D2 {d2}")

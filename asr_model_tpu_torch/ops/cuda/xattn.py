@@ -26,6 +26,14 @@ launches on the tensor cores (``launch_plan_full``): the rows launch for
 x and xa, then a cluster of one CTA a head per 16-query tile takes the
 exact softmax in one pass, the PV product and out_proj.  Other full
 calls (f32, longer key sets) take four CUDA-core launches.
+
+Other widths -- head widths other than 128 and 256 (up to 1024), rows
+past 2048 channels -- take the wide route of ``csrc/xattn.cu`` in either
+dtype (route "wide"): the norms through ``fused_abby``'s kernel, a CUDA-core
+projection with the rotary in its epilogue, a two-pass softmax attention
+a (16-query tile, head, batch row; keys split over up to 8 blocks where
+those do not fill the card), out_proj; five launches a cached call, eight
+a full one, two more with a key split (``launch_plan_cached``).
 """
 
 from __future__ import annotations
@@ -40,7 +48,12 @@ from asr_model_tpu_torch.ops.cuda.attention import _counters, _sm_count
 from asr_model_tpu_torch.ops.cuda.abby import abby_values
 
 NEG_INF = -1e30
+# the head widths and rows of xattn.cu's two routes; other widths take
+# the wide route (head widths up to WIDE_MAX_HD)
 HEAD_DIMS, MAX_D = (128, 256), 2048
+WIDE_MAX_HD = 1024
+LAUNCHES_WIDE_CACHED, LAUNCHES_WIDE_FULL = 5, 8   # two more with a split
+WIDE_QT, WIDE_KT, WIDE_MAX_SPLIT = 16, 16, 8      # the wide attention's tiles
 # a cached call's launches: the tensor-core route, the CUDA-core one
 LAUNCHES_CACHED, LAUNCHES_CACHED_CC = 2, 3
 # a full call's launches: the tensor-core route, the CUDA-core one
@@ -174,11 +187,39 @@ def _weights(wq, wkv, wh, wo):
     return out
 
 
+def wide_splits(b: int, t: int, tk: int, head: int, sms: int = 132) -> int:
+    """Key splits of the wide route's attention (``xw_attend``): 1 where
+    its (16-query tile, head, batch row) blocks fill the card's ``sms``,
+    else enough for two blocks an SM, at most 8, none without keys."""
+    blocks = -(-t // WIDE_QT) * head * b
+    if blocks >= sms:
+        return 1
+    ns = min(WIDE_MAX_SPLIT, -(-2 * sms // blocks), -(-tk // WIDE_KT),
+             max(1, 65535 // max(b, 1)))
+    kps = -(-(-(-tk // ns)) // WIDE_KT) * WIDE_KT
+    return -(-tk // kps)
+
+
+def _wide_plan(b, t, tk, head, sms, launches):
+    ns = wide_splits(b, t, tk, head, sms)
+    return dict(route="wide", splits=ns,
+                launches=launches + (2 if ns > 1 else 0))
+
+
+def narrow(d: int, head: int) -> bool:
+    """Widths of ``csrc/xattn.cu``'s routes: D = hd * heads <= MAX_D with
+    head width hd in HEAD_DIMS (the rest take the wide route)."""
+    return d // head in HEAD_DIMS and d <= MAX_D
+
+
 def supports(d: int, head: int) -> bool:
-    """The widths the kernels take: D = hd * heads <= MAX_D with head
-    width hd in HEAD_DIMS."""
-    return (head >= 1 and d % head == 0 and d // head in HEAD_DIMS
-            and d <= MAX_D)
+    """The widths the kernels take: D = hd * heads a multiple of 64, an
+    even head width of at most WIDE_MAX_HD, and a D whose AbbyNormal fits
+    a block (``abby.launch_plan``)."""
+    return (head >= 1 and d % head == 0 and d % 64 == 0
+            and (d // head) % 2 == 0 and d // head <= WIDE_MAX_HD
+            and abby.launch_plan(1, d, torch.bfloat16)["smem"]
+            <= abby.SMEM_MAX)
 
 
 def _check(name, x, tensors, head, weights, kv_valid, tk):
@@ -194,8 +235,8 @@ def _check(name, x, tensors, head, weights, kv_valid, tk):
                      and kv_valid.device == x.device)
     if not ok:
         raise ValueError(
-            f"{name} kernels take contiguous (B, T, D = hd * heads <= "
-            f"{MAX_D}, hd in {HEAD_DIMS}) "
+            f"{name} kernels take contiguous (B, T, D = hd * heads, a "
+            f"multiple of 64, hd even and <= {WIDE_MAX_HD}) "
             "inputs and torch-layout weights of one dtype on one device and "
             f"a (B, Tk) bool mask; got x {tuple(x.shape)} {x.dtype}, "
             f"{head} heads")
@@ -207,6 +248,33 @@ def _cuda_freqs(x, freqs):
     if x.device.type != "cuda":
         raise ValueError(f"fused attention: unsupported device {x.device}")
     return freqs.to(device=x.device, dtype=torch.float32).contiguous()
+
+
+def _wide_call(full, x, xa, kn, v, kv_valid, fr, ws, head, size_d, size_h,
+               alpha, k, beta, causal, ns):
+    """The wide route (``asr_fused_attn_wide``) with ``ns`` key splits:
+    out (B, T, D)."""
+    b_, t_, d = x.shape
+    tk = (xa if full else kn).shape[1 if full else 2]
+    es = x.element_size()
+    hd = d // head
+    sizes = ([b_ * t_ * d * es] * 4 + [b_ * tk * d * es * full] * 4
+             + ([4 * b_ * head * ns * t_ * 2, 4 * b_ * head * ns * t_ * hd]
+                if ns > 1 else [0, 0]))
+    work, pieces = B.workspace(x.device, sizes)
+    out = torch.empty_like(x)
+    fn = B.function("asr_fused_attn_wide",
+                    [B.I, B.I, B.P, B.P, B.P, B.P, B.P, B.P, B.PP, B.P, B.PP,
+                     B.I, B.I, B.I, B.I, B.I, B.I, B.I, B.I, B.F, B.F, B.F,
+                     B.I, B.P])
+    rc = fn(B.dtype_code(x.dtype), int(full), x.data_ptr(), B.ptr(xa),
+            B.ptr(kn), B.ptr(v), B.ptr(kv_valid), fr.data_ptr(),
+            B.ptr_array([B.ptr(w) for w in ws]), out.data_ptr(),
+            B.ptr_array(pieces), b_, t_, tk, d, head, int(bool(causal)),
+            int(size_d), int(size_h), float(alpha), float(k), float(beta),
+            int(ns), B.stream_of(x))
+    B.check(rc, "asr_fused_attn_wide")
+    return out
 
 
 def cached_kpc(tk: int, ns: int) -> int:
@@ -253,6 +321,8 @@ def launch_plan_cached(b: int, t: int, tk: int, d: int, dtype,
     ``head`` defaults to heads of 128 columns."""
     head = head or d // 128
     hd = d // head
+    if not narrow(d, head):
+        return _wide_plan(b, t, tk, head, sms, LAUNCHES_WIDE_CACHED)
     tiles_rows = -(-b * t // ROWS)
     if not (dtype == torch.bfloat16 and operands_ok and tiles_rows <= 65535
             and b * head <= 65535):
@@ -307,6 +377,12 @@ def fused_attn_cached(x, kn, v, kv_valid, freqs, wq, wh, wo, head: int,
           and max(size_d, size_h) <= abby.MAX_TAPS)
     plan = launch_plan_cached(b_, t_, tk, d, x.dtype, ok,
                               _sm_count(x.device.index or 0), head)
+    if plan["route"] == "wide":
+        out = _wide_call(False, x, None, kn, v, kv_valid, fr, ws, head,
+                         size_d, size_h, alpha, k, beta, False,
+                         plan["splits"])
+        fused_attn_cached.launches += plan["launches"] if b_ else 0
+        return out
     tc = plan["route"] == "tc"
     stream = B.stream_of(x)
     if tc:                        # normed rows, q heads, out_proj shares
@@ -363,7 +439,7 @@ def attend_smem(d: int, ta: int, hd: int = 128) -> int:
 
 def launch_plan_full(b: int, t: int, ta: int, d: int, dtype,
                      operands_ok: bool = True,
-                     head: int | None = None) -> dict:
+                     head: int | None = None, sms: int = 132) -> dict:
     """What ``asr_fused_attn_full`` launches for x (b, t, d) against xa
     (b, ta, d): the route ("tc": two tensor-core launches, bf16 with at
     most TC_MAX_KEYS keys, where ``operands_ok`` -- 16-byte aligned
@@ -375,6 +451,8 @@ def launch_plan_full(b: int, t: int, ta: int, d: int, dtype,
     ``head`` defaults to heads of 128 columns."""
     head = head or d // 128
     hd = d // head
+    if not narrow(d, head):
+        return _wide_plan(b, t, ta, head, sms, LAUNCHES_WIDE_FULL)
     tiles = -(-b * t // ROWS) + -(-b * ta // ROWS)
     if not (dtype == torch.bfloat16 and ta <= TC_MAX_KEYS and operands_ok
             and tiles <= 65535 and b <= 65535):
@@ -410,7 +488,14 @@ def fused_attn_full(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head: int,
     ok = (all(p % 16 == 0 for p in [x.data_ptr(), xa.data_ptr(),
                                     *(w.data_ptr() for w in ws)])
           and max(size_d, size_h) <= abby.MAX_TAPS)
-    plan = launch_plan_full(b_, t_, ta, d, x.dtype, ok, head)
+    plan = launch_plan_full(b_, t_, ta, d, x.dtype, ok, head,
+                            _sm_count(x.device.index or 0))
+    if plan["route"] == "wide":
+        out = _wide_call(True, x, xa, None, None, kv_valid, fr, ws, head,
+                         size_d, size_h, alpha, k, beta, causal,
+                         plan["splits"])
+        fused_attn_full.launches += plan["launches"] if b_ else 0
+        return out
     tc = plan["route"] == "tc"
     if tc:                        # normed rows, then q, k, v heads
         sizes = [b_ * t_ * d * es, b_ * ta * d * es, b_ * t_ * d * es,

@@ -8,7 +8,11 @@
 2. Holds each kernel against its plain PyTorch version on the card at
    the shapes of the decode paths (and at shapes past the flagship's:
    B 128, D 1280, head width 256, the mel at Whisper's n_fft 400 and at
-   256 mels, a cache of 4096 keys), with the tolerance stated beside it,
+   256 mels, a cache of 4096 keys; and one phase a shape past each
+   kernel's earlier limits: AbbyNormal, the MSheath scan and the MLP at
+   D 2304, head width 384 in flash and both attention calls, the mel at
+   n_fft 16, the router at 12 types and at D 4096, the tail at D 4608),
+   with the tolerance stated beside it,
    and times kernel, plain version and (where one PyTorch call computes
    the same function) that call, each as device time (``cuda_ms``); for
    the mel, flash, AbbyNormal, MSheath, full-attention and residual-MLP
@@ -130,12 +134,13 @@ def rates(flops: float, ms: float, b_ms: float) -> dict:
 # attention) and the bf16 residual MLP's (mangled-name patterns)
 MMA_KERNELS = {
     "flash_tc_kernel": r"flash_tc_kernelILi(\d+)ELi(\d+)E",
-    "abby_cluster_kernel<bf16>": r"abby_cluster_kernelI13__nv_bfloat16E",
+    "abby_cluster_kernel<bf16>":
+        r"abby_cluster_kernelI13__nv_bfloat16Lb([01])E",
     "sheath_rows": r"sheath_rowsI(\w+?)Li(\d+)E(\w+?)Lb([01])EEv",
     "xattn_full_rows": r"_Z15xattn_full_rowsILi(\d+)E",
     "xattn_full_attend": r"_Z17xattn_full_attendILi(\d+)E",
     "xattn_cached_attend": r"_Z19xattn_cached_attendILi(\d+)E",
-    "mlp_norm<bf16>": r"mlp_normI13__nv_bfloat16E",
+    "mlp_norm<bf16>": r"mlp_normI13__nv_bfloat16Lb([01])E",
     "mlp_gates_tc": r"_Z12mlp_gates_tc",
     "mlp_linear_tc": r"mlp_linear_tcILi(\d+)E",
 }
@@ -439,6 +444,7 @@ def check_kernels(model):
     kw = sheath.kernel_weights(sw, jump.layer)
     n_prod = 3 if kw["split"] else 2
     wide = _wide_sheath(dev)          # a D 1280 block's MSheath, random
+    lifted = _wide_sheath(dev, 2304, 18)   # past D 2048: rows from L2
     entries = []
     for label, bsz, ctx, lens, jm in [
             ("decode (8*65, 512) + valid", BATCH, 65, 40, jump),
@@ -446,7 +452,8 @@ def check_kernels(model):
             ("encoder (8*1001, 512)", BATCH, 1001, None, jump),
             # past one pass of the memory EMA (64 batch rows)
             ("decode B 128 (128*9, 512)", 128, 9, None, jump),
-            ("D 1280 block (8*65, 1280) + valid", BATCH, 65, 40, wide)]:
+            ("D 1280 block (8*65, 1280) + valid", BATCH, 65, 40, wide),
+            ("lifted (8*9, 2304) + valid", BATCH, 9, 5, lifted)]:
         d = jm.dims
         if jm is not jump:
             w = jm.scan_weights()
@@ -518,12 +525,12 @@ def _norm_weights(g, d: int):
             r(3, sc=0.1))
 
 
-def _wide_sheath(dev):
-    """A D 1280 block's MSheath (10 heads, 4 slots) from a seed, bf16."""
+def _wide_sheath(dev, d: int = 1280, heads: int = 10):
+    """A D-wide block's MSheath (4 slots) from a seed, bf16."""
     import torch
     from asr_model_tpu_torch.models.sheath import MSheath
     from asr_model_tpu_torch.models.tlayers import reset_all
-    m = MSheath(1280, 10, 4, device=dev)
+    m = MSheath(d, heads, 4, device=dev)
     reset_all(m, torch.Generator(device=dev).manual_seed(27))
     return m.to(torch.bfloat16)
 
@@ -721,43 +728,257 @@ def check_fused_kernels(model, audio):
     out.append(_entry("fused_mlp_residual", "asr_model_tpu_torch/csrc/mlp.cu",
                       "asr_model_tpu/ops/pallas/mlp_kernel.py:125", entries))
 
-    # ---- fused_router_same (8*65, 512), n_mod 3
-    args = blk.router.fused_args(rnd(N, D), blk.layer - 1)
-    got = router.fused_router_same(*args)
-    want = router.router_same_plain(*args)
-    label = "decode (8*65, 512), 3 modalities"
-    e = _fused_close(f"fused_router_same {label}", got, want, D)
-    nt, n_mod = args[1].shape[0], args[6]
-    ops = 2.0 * 2 * nt * n_mod * D + 4.0 * N * D * nt + N * D + 30.0 * N * nt
-    b_ms, b_by = bound_ms(ops, nbytes(args[0], got, *args[1:6]), F32_PEAK)
+    # ---- fused_router_same and the abby tail (no caller on a path) at
+    # the last and the first bucket's width
+    r_entries, t_entries = [], []
+    for label, n in [("decode (8*65, 512)", N), ("decode (8*9, 512)",
+                                                  BATCH * 9)]:
+        args = blk.router.fused_args(rnd(n, D), blk.layer - 1)
+        r_entries.append(_router_entry(
+            f"{label}, 3 modalities, {args[1].shape[0]} types", args))
+        x = (2 * torch.randn(n, D, device=dev, generator=g)).to(bf)
+        lg = torch.randn(n, 3, device=dev, generator=g)
+        t_entries.append(_tail_entry(f"{label} + f32 logits",
+                                     (x, lg, size_d, 1e-4, 1.0, 0.75)))
     out.append(_entry(
         "fused_router_same", "asr_model_tpu_torch/csrc/router.cu",
-        "asr_model_tpu/ops/pallas/router_kernel.py:97", [dict(
-            shape=label, max_abs_err=e,
-            ms=cuda_ms(lambda: router.fused_router_same(*args)),
-            plain_ms=cuda_ms(lambda: router.router_same_plain(*args)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)]))
+        "asr_model_tpu/ops/pallas/router_kernel.py:97", r_entries))
+    out.append(_entry(
+        "fused_abby_tail", "asr_model_tpu_torch/csrc/abby.cu",
+        "asr_model_tpu/ops/pallas/abby_kernel.py:142", t_entries))
+    return out
 
-    # ---- fused_abby_tail (8*65, 512) on f32 logits (no caller on a path)
-    x = (2 * torch.randn(N, D, device=dev, generator=g)).to(bf)
-    lg = torch.randn(N, 3, device=dev, generator=g)
-    targs = (x, lg, size_d, 1e-4, 1.0, 0.75)
+
+def _router_entry(label, args) -> dict:
+    """fused_router_same on ``args`` against its plain version, timed."""
+    from asr_model_tpu_torch.ops.cuda import router
+    got = router.fused_router_same(*args)
+    want = router.router_same_plain(*args)
+    x = args[0]
+    n, d = x.shape
+    e = _fused_close(f"fused_router_same {label}", got, want, d)
+    nt, n_mod = args[1].shape[0], args[6]
+    ops = 2.0 * 2 * nt * n_mod * d + 4.0 * n * d * nt + n * d + 30.0 * n * nt
+    b_ms, b_by = bound_ms(ops, nbytes(x, got, *args[1:6]), F32_PEAK)
+    return dict(shape=label, max_abs_err=e,
+                ms=cuda_ms(lambda: router.fused_router_same(*args)),
+                plain_ms=cuda_ms(lambda: router.router_same_plain(*args)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def _tail_entry(label, targs) -> dict:
+    """fused_abby_tail on ``targs`` against its plain version, timed."""
+    from asr_model_tpu_torch.ops.cuda import abby
     got = abby.fused_abby_tail(*targs)
     want = abby.abby_tail_plain(*targs)
-    e, bad, rows = close_rows(got, want, 8e-3, 1e-3, D)
-    label = "(8*65, 512) + f32 logits"
+    x, lg, size = targs[:3]
+    n, d = x.shape
+    e, bad, rows = close_rows(got, want, 8e-3, 1e-3, d)
     check(bad == 0, f"fused_abby_tail {label}: max abs err {e:.3e}, "
           f"{bad}/{rows} rows out (tolerance 8e-3 |plain| + 1e-3 max|plain|:"
           " one bf16 rounding)")
-    b_ms, b_by = bound_ms(N * D * (2.0 * size_d + 12), nbytes(x, lg, got),
+    b_ms, b_by = bound_ms(n * d * (2.0 * size + 12), nbytes(x, lg, got),
                           F32_PEAK)
-    out.append(_entry(
-        "fused_abby_tail", "asr_model_tpu_torch/csrc/abby.cu",
-        "asr_model_tpu/ops/pallas/abby_kernel.py:142", [dict(
-            shape=label, max_abs_err=e,
-            ms=cuda_ms(lambda: abby.fused_abby_tail(*targs)),
-            plain_ms=cuda_ms(lambda: abby.abby_tail_plain(*targs)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)]))
+    return dict(shape=label, max_abs_err=e,
+                ms=cuda_ms(lambda: abby.fused_abby_tail(*targs)),
+                plain_ms=cuda_ms(lambda: abby.abby_tail_plain(*targs)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_lifted_shapes() -> dict:
+    """One phase a lifted shape: the first card shape past each kernel's
+    earlier limits (the MSheath scan's, (8*9, 2304), runs with the other
+    MSheath shapes in ``check_kernels``), held against its plain version
+    and timed.  Returns {kernel name:
+    [entries]} for the ``kernels`` line."""
+    import torch
+    from asr_model_tpu_torch.models.rotary import compute_freqs
+    from asr_model_tpu_torch.ops.cuda import (abby, attention, mel, mlp,
+                                              router, xattn)
+    from asr_model_tpu_torch.ops.mel import mel_filterbank
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(31)
+    r = lambda *sh, sc=1.0: (sc * torch.randn(*sh, device=dev, generator=g)
+                             ).bfloat16()
+    out: dict = {}
+    add = lambda name, entry: out.setdefault(name, []).append(entry)
+
+    # fused_abby past D 2048: (8*9, 2304), the rows in device memory
+    n, d = BATCH * 9, 2304
+    x, w = r(n, d, sc=2.0), _norm_weights(g, d)
+    size = abby.window_size(d)
+    got = abby.fused_abby(x, *w, size, 1e-4, 1.0, 0.75)
+    want = abby.abby_plain(x, *w, size, 1e-4, 1.0, 0.75)
+    e, bad, rows = close_rows(got, want, 8e-3, 1e-3, d)
+    check(bad <= rows // 100, f"fused_abby (8*9, 2304): max abs err {e:.3e},"
+          f" {bad}/{rows} rows out (tolerance 8e-3 |plain| + 1e-3 max|plain|"
+          ", one bf16 rounding; at most 1% of rows may route differently "
+          "on a near tie)")
+    flops = _abby_ops(n, d, size)
+    b_ms, b_by = bound_ms(flops, nbytes(x, got, *w), BF16_PEAK)
+    ms = cuda_ms(lambda: abby.fused_abby(x, *w, size, 1e-4, 1.0, 0.75))
+    add("fused_abby", dict(
+        shape="lifted (8*9, 2304)", max_abs_err=e, ms=ms,
+        plain_ms=cuda_ms(lambda: abby.abby_plain(x, *w, size, 1e-4, 1.0,
+                                                 0.75)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **rates(flops, ms, b_ms)))
+
+    # flash at head width 384: (8,4,1001,384) causal with a prefix mask
+    b_, h, t, hd = BATCH, 4, 1001, 384
+    q, k, v = (r(b_, h, t, hd) for _ in range(3))
+    lens = 1001 - 100 * torch.arange(b_, device=dev)
+    valid = torch.arange(t, device=dev)[None] < lens[:, None]
+    got = attention.flash_attention(q, k, v, True, valid)
+    want = attention.attention_plain(q.float(), k.float(), v.float(), True,
+                                     valid)
+    e, bad, rows = close_rows(got, want, 0.0, FLASH_TOL, hd)
+    check(bad == 0, f"flash_attention (8,4,1001,384) causal + kv_valid: max "
+          f"abs err {e:.3e}, {bad}/{rows} rows out (tolerance {FLASH_TOL:g} "
+          "max|plain|)")
+    pairs = sum(min(t, i + 1) for i in range(t))
+    flops = 4.0 * b_ * h * pairs * hd
+    b_ms, b_by = bound_ms(flops, nbytes(q, k, v, got, valid), BF16_PEAK)
+    mask = (torch.ones(t, t, dtype=torch.bool, device=dev).tril()[None, None]
+            & valid[:, None, None, :])
+    ms = cuda_ms(lambda: attention.flash_attention(q, k, v, True, valid))
+    add("flash_attention", dict(
+        shape="lifted (8,4,1001,384) causal + kv_valid", max_abs_err=e,
+        ms=ms, plain_ms=cuda_ms(lambda: attention.attention_plain(
+            q, k, v, True, valid)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=mask)),
+        **rates(flops, ms, b_ms)))
+
+    # the whole attention calls at 4 heads of 384 (D 1536), x (8, 9, 1536):
+    # the cached call against 1001 keys, the full call self causal
+    d, heads, t, tk = 1536, 4, 9, 1001
+    hd = d // heads
+    norm = lambda m: dict(zip(("n_w1", "n_b1", "n_w2", "n_b2"),
+                              _norm_weights(g, m)))
+    wq = norm(d) | {"proj_w": r(d, d, sc=d ** -0.5), "proj_b": r(d, sc=0.1)}
+    wkv = norm(d) | {"proj_w": r(2 * d, d, sc=d ** -0.5),
+                     "proj_b": r(2 * d, sc=0.1)}
+    wo = {"proj_w": r(d, d, sc=d ** -0.5), "proj_b": r(d, sc=0.1)}
+    kw = dict(head=heads, size_d=abby.window_size(d),
+              size_h=abby.window_size(hd), alpha=1e-4, k=1.0, beta=0.75)
+    x = r(BATCH, t, d, sc=0.5)
+    wbytes = sum(nbytes(*m.values()) for m in (wq, norm(hd), wo))
+    nq = BATCH * t
+    q_side = (_abby_ops(nq, d, kw["size_d"]) + 2.0 * nq * d * d
+              + _abby_ops(nq * heads, hd, kw["size_h"]))
+    kn, vv = r(BATCH, heads, tk, hd), r(BATCH, heads, tk, hd)
+    cvalid = torch.ones(BATCH, tk, dtype=torch.bool, device=dev)
+    fr = torch.from_numpy(compute_freqs(d, heads, False)).to(dev)
+    cargs = (x, kn, vv, cvalid, fr)
+    ckw = dict(kw, wq=wq, wh=norm(hd), wo=wo)
+    got = xattn.fused_attn_cached(*cargs, **ckw)
+    want = xattn.attn_cached_plain(*cargs, **ckw)
+    e = _fused_close("fused_attn_cached lifted (8,9,1536), 4 heads of 384, "
+                     "1001 keys", got, want, d)
+    flops = q_side + heads * BATCH * t * tk * 4.0 * hd + 2.0 * nq * d * d
+    b_ms, b_by = bound_ms(flops, nbytes(x, kn, vv, got) + wbytes, BF16_PEAK)
+    ms = cuda_ms(lambda: xattn.fused_attn_cached(*cargs, **ckw))
+    add("fused_attn_cached", dict(
+        shape="lifted x (8,9,1536), 4 heads of 384, K/V (8,4,1001,384)",
+        max_abs_err=e, ms=ms,
+        plain_ms=cuda_ms(lambda: xattn.attn_cached_plain(*cargs, **ckw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **rates(flops, ms, b_ms)))
+    fvalid = (torch.arange(t, device=dev) < t - 1)[None].expand(
+        BATCH, t).contiguous()
+    fr = torch.from_numpy(compute_freqs(d, heads, True)).to(dev)
+    fargs = (x, x, fvalid, fr)
+    fkw = dict(kw, wq=wq, wkv=wkv, wh=norm(hd), wo=wo)
+    got = xattn.fused_attn_full(*fargs, causal=True, **fkw)
+    want = xattn.attn_full_plain(*fargs, causal=True, **fkw)
+    e = _fused_close("fused_attn_full lifted self causal (8,9,1536), 4 heads "
+                     "of 384", got, want, d)
+    flops = (2 * q_side + 2.0 * nq * d * d
+             + heads * _pairs(t, t, True, fvalid) * (4.0 * hd + 5)
+             + 2.0 * nq * d * d)
+    b_ms, b_by = bound_ms(flops, nbytes(x, fvalid, got) + wbytes
+                          + nbytes(*wkv.values()), BF16_PEAK)
+    ms = cuda_ms(lambda: xattn.fused_attn_full(*fargs, causal=True, **fkw))
+    add("fused_attn_full", dict(
+        shape="lifted self causal (8,9,1536), 4 heads of 384 + kv_valid",
+        max_abs_err=e, ms=ms,
+        plain_ms=cuda_ms(lambda: xattn.attn_full_plain(*fargs, causal=True,
+                                                       **fkw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **rates(flops, ms, b_ms)))
+
+    # the residual MLP past D 2048: (8*9, 2304), 3 gates, hidden 6912
+    n, d, nt = BATCH * 9, 2304, 3
+    hid = nt * d
+    margs = (r(n, d), _norm_weights(g, d), r(nt, d, sc=d ** -0.5),
+             r(nt, sc=0.1), [(r(d, d, sc=d ** -0.5), r(d, sc=0.1))
+                             for _ in range(nt)],
+             r(hid, d, sc=d ** -0.5), r(hid, sc=0.1),
+             r(d, hid, sc=hid ** -0.5), r(d, sc=0.1), abby.window_size(d),
+             1e-4, 1.0, 0.75)
+    got = mlp.fused_mlp_residual(*margs)
+    want = mlp.mlp_residual_plain(*margs)
+    e = _fused_close("fused_mlp_residual lifted (8*9, 2304), hidden 6912",
+                     got, want, d)
+    flops = _mlp_ops(n, d, nt, hid)
+    wb = nbytes(*margs[1], margs[2], margs[3],
+                *[t_ for gw in margs[4] for t_ in gw], *margs[5:9])
+    b_ms, b_by = bound_ms(flops, nbytes(margs[0], got) + wb, BF16_PEAK)
+    ms = cuda_ms(lambda: mlp.fused_mlp_residual(*margs))
+    add("fused_mlp_residual", dict(
+        shape="lifted (8*9, 2304), 3 gates, hidden 6912", max_abs_err=e,
+        ms=ms, plain_ms=cuda_ms(lambda: mlp.mlp_residual_plain(*margs)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **rates(flops, ms, b_ms)))
+
+    # the mel below n_fft 64: n_fft 16, 8 mels (the direct DFT)
+    audio = torch.from_numpy(tones(BATCH, UTT_SEC)).to(dev)
+    mkw = dict(n_fft=16, hop_length=HOP, n_mels=8)
+    got = mel.mel_spectrogram(audio, **mkw)
+    want = mel.mel_spectrogram_plain(audio, **mkw)
+    err = (got - want).abs()
+    check(bool((err <= 2e-3 * want.abs() + 2e-3).all()),
+          f"mel_spectrogram lifted (8, 160000) n_fft 16, 8 mels: max abs err "
+          f"{float(err.max()):.3e} (tolerance 2e-3 |plain| + 2e-3 on every "
+          "bin, the card tests')")
+    fb16 = torch.from_numpy(mel_filterbank(9, 50.0, 8000.0, 8)).to(dev)
+    win16 = torch.hann_window(16, device=dev)
+    nnz = int(np.count_nonzero(fb16.cpu().numpy()))
+    frames = got.shape[-1]
+    flops = BATCH * frames * (2.5 * 16 * 4 + 3 * 9 + 2.0 * nnz)
+    b_ms, b_by = bound_ms(flops, nbytes(audio, got), F32_PEAK)
+
+    def lib16():
+        sp = torch.stft(audio, 16, HOP, window=win16, center=True,
+                        pad_mode="constant", return_complex=True)
+        return torch.einsum("bft,fm->bmt", sp.real ** 2 + sp.imag ** 2, fb16)
+    ms = cuda_ms(lambda: mel.mel_spectrogram(audio, **mkw))
+    add("mel_spectrogram", dict(
+        shape="lifted audio (8, 160000) f32, n_fft 16, 8 mels",
+        max_abs_err=float(err.max()), ms=ms,
+        plain_ms=cuda_ms(lambda: mel.mel_spectrogram_plain(audio, **mkw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib16),
+        **rates(flops, ms, b_ms)))
+
+    # the router past 8 types and past 49,152 folded floats: 12 types at
+    # (8*9, 512), 8 types at (8*9, 4096)
+    for n, d, nt in ((BATCH * 9, 512, 12), (BATCH * 9, 4096, 8)):
+        n_mod = 3
+        rargs = (r(n, d), r(nt, n_mod * d, sc=d ** -0.5), r(nt, sc=0.1),
+                 r(nt, n_mod * d, sc=d ** -0.5), r(nt, sc=0.1), r(1), n_mod)
+        add("fused_router_same", _router_entry(
+            f"lifted (8*9, {d}), {n_mod} modalities, {nt} types", rargs))
+
+    # the tail past D 4096: (8*9, 4608)
+    n, d = BATCH * 9, 4608
+    x = r(n, d, sc=2.0)
+    lg = torch.randn(n, 3, device=dev, generator=g)
+    add("fused_abby_tail", _tail_entry(
+        "lifted (8*9, 4608) + f32 logits",
+        (x, lg, abby.window_size(d), 1e-4, 1.0, 0.75)))
     return out
 
 
@@ -1152,6 +1373,9 @@ def main() -> int:
     model, fused = flagship(False), flagship(True)
     fused.load_state_dict(model.state_dict())
     kern = check_kernels(model) + check_fused_kernels(fused, audio)
+    lifted = check_lifted_shapes()
+    for k in kern:
+        k["shapes"] += lifted.get(k["name"], [])
 
     paths = {"default": drive_path(model, audio, "default",
                                    kernels.DEFAULT_PATH),

@@ -70,10 +70,26 @@ def test_mel_kernel_any_n_fft(dev, n_fft, n_mels):
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
 
 
+# the direct-DFT route: n_fft below 64 (16, 48) and past 4096 (4097,
+# 6000, the power of two 8192), 512 mels at n_fft 2048
+@pytest.mark.parametrize("n_fft,n_mels", [(16, 8), (48, 20), (4097, 128),
+                                          (6000, 128), (8192, 128),
+                                          (2048, 512)])
+def test_mel_kernel_direct_dft(dev, n_fft, n_mels):
+    g = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn(2, 16000, device=dev, generator=g)
+    kw = dict(n_fft=n_fft, hop_length=160, n_mels=n_mels)
+    assert mel.route(n_fft, n_mels) == "dft"
+    got = mel.mel_spectrogram(x, **kw)
+    want = mel.mel_spectrogram_plain(x, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
 def test_mel_kernel_refuses_other_n_fft(dev):
-    """n_fft outside 64..4096 and more than 256 mels raise."""
+    """An n_fft whose single frame does not fit in shared memory, an
+    n_fft below 2 and no mels raise."""
     x = torch.zeros(1, 16000, device=dev)
-    for kw in (dict(n_fft=32), dict(n_fft=8192), dict(n_mels=257)):
+    for kw in (dict(n_fft=1), dict(n_fft=40000), dict(n_mels=0)):
         with pytest.raises(ValueError):
             mel.mel_spectrogram(x, **kw)
 
@@ -99,6 +115,17 @@ FLASH_CASES = {
     "hd256_self_1001": (8, 2, 1001, 1001, 256, False, None),
     "hd256_cross_65x1001_masked_row": (8, 2, 65, 1001, 256, False,
                                        [1001] * 7 + [0]),
+    # head widths 384 and 512 (flash_wide_kernel, both dtypes): the
+    # encoder-length self call, causal with a prefix mask, and the decode's
+    # cached cross call with a fully masked row
+    "hd384_causal_1001_valid": (8, 4, 1001, 1001, 384, True,
+                                [1001, 1000, 900, 800, 700, 500, 300, 1]),
+    "hd512_causal_1001_valid": (2, 4, 1001, 1001, 512, True, [1001, 600]),
+    "hd512_cross_65x1001_masked_row": (2, 4, 65, 1001, 512, False,
+                                       [1001, 0]),
+    # causal past head width 256 with a fully masked batch row: its key
+    # tiles past the diagonal are kept (the uniform mean of V)
+    "hd384_causal_200_masked_row": (2, 4, 200, 200, 384, True, [200, 0]),
 }
 
 
@@ -142,7 +169,11 @@ def test_abby_kernel(dev, d, dtype):
 # chunks through the ring, f32 rows half a tile at a time, windows of 65
 # and 103 taps (the tail from the row)
 ABBY_PATH = [(520, 512), (72, 512), (2080, 128), (8008, 512), (33, 512),
-             (33, 100), (72, 768), (100, 1024), (72, 1280), (520, 2048)]
+             (33, 100), (72, 768), (100, 1024), (72, 1280), (520, 2048),
+             # past D 2048 the rows stay in device memory (x streamed
+             # through the W1 ring in bf16, 512 columns at a time in f32),
+             # windows of 115 and 205 taps
+             (72, 2304), (520, 4096)]
 
 
 @pytest.mark.parametrize("n,d", ABBY_PATH)
@@ -177,11 +208,29 @@ def test_launch_plans_match_kernels(dev):
     abby_smem = B.function("asr_abby_smem_bytes", [B.I, B.I])
     abby_cluster = B.function("asr_abby_cluster_size", [B.I])
     sheath_smem = B.function("asr_sheath_smem_bytes", [B.I, B.I, B.I])
-    for d in (16, 100, 128, 512, 600, 1024, 1280, 2048):
+    for d in (16, 100, 128, 512, 600, 1024, 1280, 2048, 2304, 4096, 8192):
         for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
             plan = abby.launch_plan(1, d, dtype)
             assert abby_smem(code, d) == plan["smem"]
             assert abby_cluster(d) == plan["cluster"]
+    r_rpc = B.function("asr_router_rows_per_cta", [B.I])
+    r_vpl = B.function("asr_router_vpl", [B.I, B.I, B.I])
+    r_fold = B.function("asr_router_fold_in_smem", [B.I, B.I, B.I])
+    r_smem = B.function("asr_router_smem_bytes", [B.I, B.I, B.I])
+    t_rpc = B.function("asr_abby_tail_rows_per_cta", [B.I])
+    t_in = B.function("asr_abby_tail_rows_in_smem", [B.I, B.I, B.I])
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        for n in (1, 4, 72, 260, 520, 8008):
+            for d in (128, 512, 2304, 4096, 8192):
+                tp = abby.tail_launch_plan(n, d, dtype)
+                assert t_rpc(n) == tp["rows_per_cta"]
+                assert t_in(n, d, code) == tp["rows_in_smem"]
+                for nt in (2, 3, 8, 12):
+                    rp = router.launch_plan(n, d, nt, dtype)
+                    assert r_rpc(n) == rp["rows_per_cta"]
+                    assert r_vpl(d, n, code) == rp["vpl"]
+                    assert r_fold(d, nt, code) == rp["fold_in_smem"]
+                    assert r_smem(d, nt, code) == rp["smem"]
     rows_smem = B.function("asr_xattn_rows_smem", [B.I, B.I])
     attend_smem = B.function("asr_xattn_attend_smem", [B.I, B.I, B.I])
     gates_smem = B.function("asr_mlp_gates_tc_smem", [])
@@ -201,7 +250,7 @@ def test_launch_plans_match_kernels(dev):
     assert gates_smem() == mlp.gates_tc_smem()
     for nt in range(1, mlp.MAX_TYPES + 1):
         assert gate_cols(nt) == mlp.gate_cols(nt)
-    for d in (100, 256, 512, 1024):
+    for d in (100, 256, 512, 1024, 2304, 4096):
         for rows in sheath.ROW_TILES:
             for passes in (1, 2, 3):
                 assert sheath_smem(rows, d, passes) == sheath.smem_bytes(
@@ -244,15 +293,28 @@ def _norm_w(r, n):
             "n_w2": r(3, n, sc=n ** -0.5), "n_b2": r(3, sc=0.1)}
 
 
+# the tail's rows: the flagship's decode widths, rows wider than its
+# old one-warp-a-row limit (4608, windows of 229 taps), four rows of
+# 8192 (one row a CTA), the encoder's 8008 rows (32 a CTA)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_abby_tail_kernel(dev, dtype):
+@pytest.mark.parametrize("n,d", [(8 * 65, 512), (8 * 9, 512), (250, 2048),
+                                 (8 * 9, 4608), (4, 8192), (8008, 512)])
+def test_abby_tail_kernel(dev, dtype, n, d):
     r = _rand(dev, 5, dtype)
-    for n, d in ((8 * 65, 512), (250, 2048)):
-        x, lg = r(n, d, sc=2.0), r(n, 3).float()
-        size = abby.window_size(d)
-        got = abby.fused_abby_tail(x, lg, size, 1e-4, 1.0, 0.75)
-        want = abby.abby_tail_plain(x, lg, size, 1e-4, 1.0, 0.75)
-        assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 2e-2)
+    x, lg = r(n, d, sc=2.0), r(n, 3).float()
+    size = abby.window_size(d)
+    got = abby.fused_abby_tail(x, lg, size, 1e-4, 1.0, 0.75)
+    want = abby.abby_tail_plain(x, lg, size, 1e-4, 1.0, 0.75)
+    assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_abby_tail_kernel_unaligned_rows(dev):
+    """Rows of no 16-byte multiple (D 100) copied element by element."""
+    r = _rand(dev, 17, torch.bfloat16)
+    x, lg = r(70, 100, sc=2.0), r(70, 3).float()
+    got = abby.fused_abby_tail(x, lg, 5, 1e-4, 1.0, 0.75)
+    want = abby.abby_tail_plain(x, lg, 5, 1e-4, 1.0, 0.75)
+    assert _rel(got, want) < 2e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -265,6 +327,48 @@ def test_router_kernel(dev, dtype, n_mod):
     got = router.fused_router_same(*args)
     want = router.router_same_plain(*args)
     assert _rel(got, want) < _tol(dtype)
+
+
+# (rows, D, types): the flagship's widths 65 and 9 at nt 2, 3, 8 and 12
+# (4 and 8 types a pass, two passes at 12), rows wider than the
+# registers hold (D 4096 at two rows a CTA: read again), nt 8 at (8*9,
+# 4096) (bf16: the fold in shared memory, 128 KB; f32: past it, folded
+# into a workspace first), one row, rows of no 16-byte multiple, four
+# rows a CTA (2080 rows; at D 2048, 12 types, read again, the f32 fold
+# in a workspace)
+ROUTER_SHAPES = [(8 * 65, 512, 2), (8 * 65, 512, 3), (8 * 9, 512, 3),
+                 (8 * 65, 512, 8), (8 * 9, 512, 12), (8 * 65, 512, 12),
+                 (520, 4096, 3), (8 * 9, 4096, 8), (1, 512, 3),
+                 (40, 100, 5), (2080, 512, 3), (2080, 2048, 12)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,nt", ROUTER_SHAPES)
+def test_router_kernel_shapes(dev, dtype, n, d, nt):
+    r = _rand(dev, 18, dtype)
+    n_mod = 3
+    args = (r(n, d), r(nt, n_mod * d, sc=d ** -0.5), r(nt, sc=0.1),
+            r(nt, n_mod * d, sc=d ** -0.5), r(nt, sc=0.1), r(1), n_mod)
+    got = router.fused_router_same(*args)
+    want = router.router_same_plain(*args)
+    assert _rel(got, want) < _tol(dtype)
+
+
+def test_router_kernel_ties_and_determinism(dev):
+    """Equal top scores (identical weight rows) route as the plain
+    version does -- the first occurrence ranks first -- and two calls
+    give the same bits."""
+    r = _rand(dev, 19, torch.float32)
+    d, nt, n_mod = 512, 6, 2
+    tw = r(nt, n_mod * d, sc=d ** -0.5)
+    tw[3] = tw[1]
+    tw[5] = tw[1]
+    args = (r(8 * 65, d), tw, torch.zeros(nt, device=dev),
+            r(nt, n_mod * d, sc=d ** -0.5), r(nt, sc=0.1),
+            torch.full((1,), 0.3, device=dev), n_mod)
+    got = router.fused_router_same(*args)
+    assert _rel(got, router.router_same_plain(*args)) < 1e-4
+    assert torch.equal(got, router.fused_router_same(*args))
 
 
 def _mlp_args(r, n, d, hid=None, nt=3):
@@ -288,7 +392,7 @@ def test_mlp_kernel(dev, dtype, n):
 
 
 # rows no 16-byte multiple (the CUDA-core products in bf16 too), one to
-# eight gates (the router's limit), a hidden width of no 64-column
+# eight gates, a hidden width of no 64-column
 # multiple, D 1280 and 2048 (hidden 6144: the CUDA-core product's rows in
 # two 2048-column pieces)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -297,7 +401,15 @@ def test_mlp_kernel(dev, dtype, n):
                                         (8 * 65, 512, 1536, 8),
                                         (40, 256, 776, 7),
                                         (40, 1280, 3840, 3),
-                                        (33, 2048, 6144, 3)])
+                                        (33, 2048, 6144, 3),
+                                        # past D 2048: the norms' rows in
+                                        # device memory, the CUDA-core
+                                        # gates 2048 columns of h0 a time
+                                        (8 * 9, 2304, 6912, 3),
+                                        (8 * 9, 4096, 12288, 3),
+                                        # 12 gates: 8 columns of each a
+                                        # tensor-core CTA
+                                        (40, 256, 776, 12)])
 def test_mlp_kernel_other_widths(dev, dtype, n, d, hid, nt):
     r = _rand(dev, 15, dtype)
     args = _mlp_args(r, n, d, hid, nt)
@@ -577,6 +689,35 @@ def test_sheath_kernel_wide(dev, d, mem):
         assert js_g.tolist() == js_w.tolist()
 
 
+# past D 2048 (the rows in the f32 state, read from L2): the first and
+# the last widths the decode gate's 1M elements admit there, (8*9, 2304)
+# and (8*17, 4096), with a prefix mask; f32 weights (split products) and
+# the bf16 model's (bf16 x, weights exact in bf16)
+@pytest.mark.parametrize("b,t,d", [(8, 9, 2304), (8, 17, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sheath_kernel_past_2048(dev, b, t, d, dtype):
+    from asr_model_tpu_torch.models.sheath import MSheath
+    from asr_model_tpu_torch.models.tlayers import reset_all
+    m = MSheath(d, 2, 4, device=dev)
+    reset_all(m, torch.Generator(device=dev).manual_seed(28))
+    m = m.to(dtype)
+    g = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn(b * t, d, device=dev, generator=g).to(dtype)
+    valid = (torch.arange(t, device=dev)[None]
+             < torch.arange(b, device=dev)[:, None] % t + 1)
+    w = m.scan_weights()
+    assert sheath.launch_plan(b * t, d, d // 2, 64)["wide"]
+    for act in (0, 2):
+        sampled = torch.tensor(act, dtype=torch.int32, device=dev)
+        args = (x, b, valid, w["mem0"], sampled, w["jump_s"],
+                {k: w[k] for k in sheath.WEIGHT_NAMES}, 4, 0.3)
+        got, act_g, js_g = sheath.fused_sheath_scan(*args)
+        want, act_w, js_w = sheath.sheath_scan_plain(*args)
+        assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 2e-2)
+        assert act_g.tolist() == act_w.tolist()
+        assert js_g.tolist() == js_w.tolist()
+
+
 def _full_args(dev, dtype, b, t, ta, d, cross, causal, masked, seed=17,
                hd=128):
     r = _rand(dev, seed, dtype)
@@ -658,6 +799,33 @@ def test_attn_full_kernel_hd256(dev, dtype, width, causal, cross):
     got = xattn.fused_attn_full(*args, causal=causal, **kw)
     want = xattn.attn_full_plain(*args, causal=causal, **kw)
     assert _rel(got, want) < _tol(dtype)
+
+
+# the widths past the two-launch routes (the wide route), at the
+# first bucket's width (x (8, 9, D), inside the gate's 400k elements):
+# D 1536 with 4 heads of 384, D 2048 with 4 of 512, D 4096 with 32 of
+# 128; the cached call against 1001 keys (512 at D 4096, the most its
+# kv_limit admits), the full call self causal with the prefix mask and
+# cross against the most keys its kv_limit (256 * 512) admits
+WIDE_ATTN = [(1536, 384, 1001, 85), (2048, 512, 1001, 64),
+             (4096, 128, 512, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hd,tk,ta", WIDE_ATTN)
+def test_attn_kernels_wide_heads(dev, dtype, d, hd, tk, ta):
+    args, kw = _cached_args(dev, dtype, 8, 9, tk, d, True, hd=hd)
+    before = xattn.fused_attn_cached.launches
+    got = xattn.fused_attn_cached(*args, **kw)
+    plan = xattn.launch_plan_cached(8, 9, tk, d, dtype, True, 132, d // hd)
+    assert xattn.fused_attn_cached.launches - before == plan["launches"]
+    assert _rel(got, xattn.attn_cached_plain(*args, **kw)) < _tol(dtype)
+    for t, ta_, cross, causal in ((9, 9, False, True), (9, ta, True, False)):
+        args, kw = _full_args(dev, dtype, 8, t, ta_, d, cross, causal, True,
+                              hd=hd)
+        got = xattn.fused_attn_full(*args, causal=causal, **kw)
+        want = xattn.attn_full_plain(*args, causal=causal, **kw)
+        assert _rel(got, want) < _tol(dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from asr_model_tpu_torch.ops.cuda import abby, mlp, sheath, xattn
+from asr_model_tpu_torch.ops.cuda import (abby, attention, mel, mlp, router,
+                                          sheath, xattn)
 
 SMEM_MAX = 232448            # dynamic shared memory a block may use (H100)
 SMEM_SM = 233472             # shared memory of a multiprocessor
@@ -346,3 +347,151 @@ def test_attn_cached_launch_plan_routes():
     assert xattn.launch_plan_cached(8, 65, 1001, 512, torch.bfloat16,
                                     False)["route"] == "cc"
     assert xattn.cached_kpc(1001, 8) == 128 and xattn.cached_kpc(1, 1) == 128
+
+
+# ------------------------------------- the widths past the earlier limits
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2304, 3072, 4096, 8192, 16384])
+def test_abby_launch_plan_past_2048(d, dtype):
+    """Past D 2048 the rows stay in device memory (``wide``): the ring
+    (bf16, x's chunks beside W1's) or x 512 columns at a time (f32), a
+    cluster of at most 8, shared memory within a block's."""
+    p = abby.launch_plan(8 * 9, d, dtype)
+    assert p["wide"] and p["f32_rows"] == 0
+    assert p["cluster"] <= 8
+    assert (p["cluster"] - 1) * p["cols"] < d <= p["cluster"] * p["cols"]
+    assert p["smem"] <= SMEM_MAX
+    assert not abby.launch_plan(8 * 9, 2048, dtype)["wide"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 72, 264, 265, 520, 1056, 1057, 8008])
+@pytest.mark.parametrize("d,nt", [(512, 3), (512, 12), (4096, 8),
+                                  (100, 5), (16384, 12)])
+def test_router_launch_plan(n, d, nt, dtype):
+    """One CTA a row up to 264 rows, two rows up to 1056, then four; 4 or
+    8 types a pass; the fold in a CTA's shared memory up to 200 KB, else
+    a fold launch first; every row in one CTA, shared memory within a
+    block's."""
+    p = router.launch_plan(n, d, nt, dtype)
+    assert p["rows_per_cta"] == (1 if n <= 264 else 2 if n <= 1056 else 4)
+    assert _covers(n, p["ctas"], p["rows_per_cta"])
+    assert p["ntc"] == (4 if nt <= 4 else 8)
+    es = torch.empty((), dtype=dtype).element_size()
+    assert p["fold_in_smem"] == (2 * nt * d * es <= router.FOLD_SMEM_MAX)
+    assert p["launches"] == (1 if p["fold_in_smem"] else 2)
+    assert p["smem"] <= SMEM_MAX
+    per = -(-d // (16 // es)) / (32 * 4 // p["rows_per_cta"])
+    assert p["vpl"] == 0 or per <= p["vpl"]
+    assert router.supports(d, nt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 4, 72, 132, 133, 520, 8008, 20000])
+@pytest.mark.parametrize("d", [100, 512, 4608, 8192, 65536])
+def test_abby_tail_launch_plan(n, d, dtype):
+    """About one CTA an SM (at most 32 rows a CTA), every row in one CTA,
+    the rows in shared memory up to 96 KB a CTA, else read from L2."""
+    p = abby.tail_launch_plan(n, d, dtype)
+    rpc = p["rows_per_cta"]
+    assert 1 <= rpc <= abby.TAIL_MAX_RPC
+    assert _covers(n, p["ctas"], rpc)
+    assert p["ctas"] <= 132 or rpc == abby.TAIL_MAX_RPC
+    es = torch.empty((), dtype=dtype).element_size()
+    assert p["rows_in_smem"] == (rpc * d * es <= abby.TAIL_SMEM_MAX)
+    assert p["smem"] <= SMEM_MAX and p["launches"] == 1
+
+
+# (D, heads): head widths 384 and 512, and D 4096 with 32 heads of 128,
+# take the wide route; the flagship and head width 256 do not
+@pytest.mark.parametrize("d,heads,route", [(1536, 4, "wide"),
+                                           (2048, 4, "wide"),
+                                           (4096, 32, "wide"),
+                                           (1024, 1, "wide"),
+                                           (512, 4, "tc"), (512, 2, "tc"),
+                                           (2048, 16, "tc")])
+def test_attn_launch_plans_wide_route(d, heads, route):
+    """The whole calls past the two-launch routes' widths: five launches
+    a cached call, eight a full one, two more with a key split, in
+    either dtype."""
+    for dtype in (torch.bfloat16, torch.float32):
+        c = xattn.launch_plan_cached(8, 9, 512, d, dtype, True, 132, heads)
+        f = xattn.launch_plan_full(8, 9, 9, d, dtype, True, heads)
+        if route == "wide":
+            for p, base in ((c, xattn.LAUNCHES_WIDE_CACHED),
+                            (f, xattn.LAUNCHES_WIDE_FULL)):
+                assert p["route"] == "wide"
+                assert p["launches"] == base + (2 if p["splits"] > 1 else 0)
+        else:
+            assert c["route"] != "wide" and f["route"] != "wide"
+        assert xattn.supports(d, heads)
+
+
+@pytest.mark.parametrize("hd", [128, 256, 384, 512, 768, 1024])
+def test_flash_routes_and_wide_smem(hd):
+    """Past head width 256 both dtypes take flash_wide_kernel, whose
+    shared memory stays within a block's up to 1024."""
+    for dtype in (torch.bfloat16, torch.float32):
+        want = "wide" if hd > 256 else "tc" if dtype == torch.bfloat16 \
+            else "f32"
+        assert attention.route(hd, dtype) == want
+    assert attention.wide_smem(hd) <= SMEM_MAX
+    assert attention.wide_smem(1040) > SMEM_MAX or attention.MAX_HD == 1024
+
+
+@pytest.mark.parametrize("n_fft,n_mels,route", [
+    (16, 8, "dft"), (48, 20, "dft"), (64, 40, "fft"), (400, 80, "bluestein"),
+    (1024, 256, "fft"), (2048, 512, "dft"), (4095, 256, "bluestein"),
+    (4096, 128, "fft"), (4097, 128, "dft"), (8192, 128, "dft")])
+def test_mel_routes(n_fft, n_mels, route):
+    """The mel's kernel by size: the FFT and Bluestein kernels inside 64..
+    4096 and 256 mels, the direct DFT outside, 8 frames a DFT block while
+    they fit in shared memory."""
+    assert mel.route(n_fft, n_mels) == route
+    assert mel.dft_frames(n_fft, 160) == 8
+    assert mel.dft_frames(20000, 160) == 1
+    assert mel.dft_frames(40000, 160) == 0
+
+
+@pytest.mark.parametrize("d,hid,nt", [(2304, 6912, 3), (4096, 12288, 3),
+                                      (512, 1536, 12)])
+def test_mlp_launch_plan_past_2048_and_12_gates(d, hid, nt):
+    """The MLP past D 2048 (the norms' rows in device memory, the
+    CUDA-core gates 2048 columns of h0 at a time) and at 12 gates (8
+    columns of each a tensor-core CTA)."""
+    assert mlp.supports(d, nt)
+    for dtype in (torch.bfloat16, torch.float32):
+        p = mlp.launch_plan(8 * 9, d, hid, dtype, nt)
+        assert p["norm"]["wide"] == (d > abby.STREAM_D)
+        assert p["norm"]["smem"] <= SMEM_MAX
+        assert p["gates_smem"] <= SMEM_MAX and p["linear_smem"] <= SMEM_MAX
+        assert p["gate_cols"] >= 8
+        assert nt * p["gate_cols"] + nt <= 128 or not p["tc"]
+
+
+@pytest.mark.parametrize("d", [2304, 4096, 8192])
+def test_sheath_launch_plan_past_2048(d):
+    """Past D 2048 the row kernel holds no x tile (the rows stay in the
+    f32 state): 16-row tiles, clusters of 8, every pass's adapter output
+    and the slot vectors within a block's shared memory."""
+    p = sheath.launch_plan(8 * 17, d, d // 2, 64)
+    assert p["wide"] and p["rows"] == 16 and p["cluster"] == 8
+    assert p["passes"] == -(-d // 64 // 8)
+    assert p["smem"] <= SMEM_MAX
+    assert p["smem"] == sheath.smem_bytes(16, d, p["passes"])
+    assert not sheath.launch_plan(8 * 17, 2048, 1024, 64)["wide"]
+
+
+@pytest.mark.parametrize("b,t,tk,heads,want", [
+    (8, 9, 1001, 4, 8),       # 32 blocks: 8 splits of 128 keys
+    (8, 9, 40, 4, 3),         # no split without keys: 3 of 16
+    (8, 65, 1001, 32, 1),     # 1280 blocks fill the card
+    (1, 1, 1, 1, 1), (2, 9, 1001, 4, 8)])
+def test_attn_wide_key_splits(b, t, tk, heads, want):
+    """The wide route's attention splits the keys where its blocks would
+    not fill 132 SMs: at most 8 splits, every split with keys."""
+    ns = xattn.wide_splits(b, t, tk, heads, 132)
+    assert ns == want
+    kps = -(-(-(-tk // ns)) // 16) * 16
+    assert (ns - 1) * kps < tk <= ns * kps

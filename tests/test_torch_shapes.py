@@ -13,12 +13,19 @@ gates against the JAX gates.
 * The plain mel at Whisper's n_fft 400 and at 256 mels against the JAX
   mel (XLA and the Pallas kernel in interpret mode), 2e-3 as
   tests/test_torch_ops.py holds it; Bluestein's tables against numpy.
-* The gates: on a grid of (D, heads, B, T, Tk, dtype) the port's
-  ``Attention._fused_ok`` and ``Residual._mlp_fused_ok`` decide as the
-  JAX gates do, and every shape they admit lies within the kernels'
-  widths (``xattn.supports``, ``mlp.supports``): D up to 2048, head width
-  128 or 256, up to 8 gates.  (Wider heads and D past 2048 are the
-  limits still open: ROADMAP, Queue 3.)
+* Past D 2048, head width 256, n_fft 64..4096 and 8 types, at a few
+  rows: the plain AbbyNormal and MSheath at D 2304, both whole calls at
+  head width 384, the plain mel at n_fft 48, 4097 and 8192, the router
+  at 12 types (ties to the first occurrence) and the tail at D 4608,
+  each against the JAX package (the Pallas kernel in interpret mode and
+  the XLA route), f32 at the bounds above (the AbbyNormal, router and
+  tail at atol 2e-5, rtol 1e-4: test_torch_fused.py's).
+* The gates: on a grid of (D, heads, B, T, Tk, dtype) up to D 4096 and
+  head width 512, the port's ``Attention._fused_ok``,
+  ``Residual._mlp_fused_ok`` (up to 12 gates) and ``Router._fused_ok``
+  (up to 12 types) decide as the JAX gates do, and every shape they
+  admit lies within the kernels' widths (``xattn.supports``,
+  ``mlp.supports``, ``router.supports``).
 """
 
 import numpy as np
@@ -30,21 +37,28 @@ import jax.numpy as jnp
 
 import asr_model_tpu.models.attention as jam
 import asr_model_tpu.models.decoder as jdm
+import asr_model_tpu.models.gates as jgm
 import asr_model_tpu.models.sheath as jsm
 from asr_model_tpu.models.attention import Attention as JAttention
 from asr_model_tpu.models.decoder import Residual as JResidual
+from asr_model_tpu.models.gates import Router as JRouter
 from asr_model_tpu.models.sheath import MSheath as JMSheath
 from asr_model_tpu.ops import mel as jmel
+from asr_model_tpu.ops.pallas.abby_kernel import (abby_full_compute,
+                                                  abby_tail_compute)
+from asr_model_tpu.ops.pallas.abby_kernel import fused_abby as jabby
+from asr_model_tpu.ops.pallas.abby_kernel import fused_abby_tail as jtail
 from asr_model_tpu.ops.pallas.mel_kernel import pallas_mel_spectrogram
 
 from asr_model_tpu_torch.models.attention import (KV_LIMIT_CACHED,
                                                   KV_LIMIT_FULL, Attention)
 from asr_model_tpu_torch.models.decoder import Residual
+from asr_model_tpu_torch.models.gates import Router, _topk_hard
 from asr_model_tpu_torch.models.sheath import MSheath
 from asr_model_tpu_torch.ops import cuda as kernels
 from asr_model_tpu_torch.ops import mel
 from asr_model_tpu_torch.ops.cuda import mel as kmel
-from asr_model_tpu_torch.ops.cuda import mlp, xattn
+from asr_model_tpu_torch.ops.cuda import abby, mlp, router, xattn
 from asr_model_tpu_torch.weights import from_jax_params
 
 TOL = dict(atol=5e-5, rtol=5e-4)
@@ -177,17 +191,182 @@ def test_bluestein_tables_give_the_rfft_power(n_fft):
     assert np.max(np.abs(got - want)) <= 1e-6 * want.max()
 
 
+# ------------------------------------- past D 2048, head width 256, ...
+
+AKW = dict(size=abby.window_size(2304), alpha=1e-4, k=1.0, beta=0.75)
+FTOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def test_plain_abby_d2304_matches_jax():
+    """The plain AbbyNormal at (4, 2304) (a 115-tap window) against the
+    Pallas kernel (interpret) and its XLA formula; flax (in, out)
+    weights there, torch (out, in) here."""
+    rng = np.random.RandomState(21)
+    n, d = 4, 2304
+    x = (rng.randn(n, d) * 2).astype(np.float32)
+    w1 = (rng.randn(d, d) * d ** -0.5).astype(np.float32)
+    b1 = (rng.randn(d) * 0.1).astype(np.float32)
+    w2 = (rng.randn(d, 3) * d ** -0.5).astype(np.float32)
+    b2 = (rng.randn(3) * 0.1).astype(np.float32)
+    j = [jnp.asarray(a) for a in (x, w1, b1, w2, b2)]
+    wants = [np.asarray(jabby(*j, interpret=True, **AKW)),
+             np.asarray(abby_full_compute(*j, **AKW))]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    got = abby.abby_plain(t(x), t(w1.T), t(b1), t(w2.T), t(b2),
+                          *AKW.values()).numpy()
+    for want in wants:
+        np.testing.assert_allclose(got, want, **FTOL)
+
+
+def test_plain_abby_tail_d4608_matches_jax():
+    """The tail alone at (4, 4608) (a 229-tap window) against the Pallas
+    tail (interpret) and its XLA formula."""
+    rng = np.random.RandomState(22)
+    n, d = 4, 4608
+    x = (rng.randn(n, d) * 2).astype(np.float32)
+    lg = rng.randn(n, 3).astype(np.float32)
+    kw = dict(AKW, size=abby.window_size(d))
+    wants = [np.asarray(jtail(jnp.asarray(x), jnp.asarray(lg),
+                              interpret=True, **kw)),
+             np.asarray(abby_tail_compute(jnp.asarray(x), jnp.asarray(lg),
+                                          **kw))]
+    got = abby.abby_tail_plain(torch.from_numpy(x), torch.from_numpy(lg),
+                               *kw.values()).numpy()
+    for want in wants:
+        np.testing.assert_allclose(got, want, **FTOL)
+
+
+def test_msheath_d2304_matches_jax(monkeypatch):
+    """MSheath at D 2304 (two batch rows of two frames) against the JAX
+    module with its Pallas switch "on" (interpret) and "off"."""
+    b, t, d, layers = 2, 2, 2304, 4
+    rng = np.random.RandomState(23)
+    x = (rng.randn(b, t, d) * 0.3).astype(np.float32)
+    valid = np.array([[True, True], [True, False]])
+    jm = JMSheath(dims=d, head=18, layer=layers)
+    params = jax.device_get(jax.jit(lambda r: jm.init(
+        {"params": r}, jnp.asarray(x)))(jax.random.key(24))["params"])
+    tm = MSheath(d, 18, layers, device="cpu")
+    tm.load_state_dict(from_jax_params(params), strict=True)
+    wants = _both(monkeypatch, jsm, "_PALLAS_SHEATH",
+                  lambda p, x, m: jm.apply({"params": p}, x, m), params,
+                  jnp.asarray(x), jnp.asarray(valid))
+    kernels.reset_counts()
+    got, aux = tm(torch.from_numpy(x), torch.from_numpy(valid))
+    assert kernels.counts()["fused_sheath_scan"]["plain_calls"] == 1
+    for want, aux_w in wants:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(aux["actions"].numpy(),
+                                      aux_w["actions"])
+
+
+def test_fused_attn_hd384_matches_jax(monkeypatch):
+    """Both whole calls at one head of 384 (the wide route's width): the
+    cached call against 40 keys, the full call causal with a mask."""
+    jm, v, tm, x, xa = _attn_pair(384, 1, 3, 40, 25)
+    valid = np.arange(40)[None, :] < np.array([[33], [40]])
+    kv = jax.jit(lambda v, xa: jm.apply(
+        v, xa, method=JAttention.precompute_kv))(v, jnp.asarray(xa))
+    wants = _both(monkeypatch, jam, "_PALLAS_XATTN",
+                  lambda v, x, kv, m: jm.apply(v, x, cached_kv=kv,
+                                               kv_valid=m),
+                  v, jnp.asarray(x), kv, jnp.asarray(valid))
+    kernels.reset_counts()
+    got = tm(torch.from_numpy(x), cached_kv=tm.precompute_kv(
+        torch.from_numpy(xa)), kv_valid=torch.from_numpy(valid))
+    _engaged("fused_attn_cached")
+    for want in wants:
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    fvalid = np.array([[True, True, False], [True, True, True]])
+    wants = _both(monkeypatch, jam, "_PALLAS_XATTN",
+                  lambda v, x, m: jm.apply(v, x, causal=True, kv_valid=m),
+                  v, jnp.asarray(x), jnp.asarray(fvalid))
+    kernels.reset_counts()
+    got = tm(torch.from_numpy(x), causal=True,
+             kv_valid=torch.from_numpy(fvalid))
+    _engaged("fused_attn_full")
+    for want in wants:
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("n_fft", [48, 4097, 8192])
+def test_plain_mel_matches_jax_direct_dft_sizes(n_fft):
+    """The sizes the direct-DFT kernel takes: below 64, odd past 4096, a
+    power of two past 4096.  At an odd n_fft the port frames as
+    torch.stft and the JAX package's XLA mel do (n_fft // 2 zeros a side:
+    1 + (N - 1) // hop frames) and its Pallas kernel has one frame more;
+    the frames both have agree."""
+    audio = np.random.RandomState(10).randn(4000).astype(np.float32)
+    kw = dict(n_fft=n_fft, n_mels=40, hop_length=160)
+    got = kmel.mel_spectrogram_plain(torch.from_numpy(audio)[None],
+                                     **kw)[0].numpy()
+    assert kmel.route(n_fft, 40) == "dft"
+    for want, extra in ((jmel.mel_spectrogram(jnp.asarray(audio), **kw), 0),
+                        (pallas_mel_spectrogram(jnp.asarray(audio),
+                                                interpret=True, **kw),
+                         n_fft % 2)):
+        want = np.asarray(want)
+        assert want.shape[-1] == got.shape[-1] + extra
+        np.testing.assert_allclose(got, want[:, :got.shape[-1]], rtol=2e-3,
+                                   atol=2e-3)
+
+
+@pytest.mark.parametrize("n_mod", [1, 12])
+def test_fused_router_12_types_matches_jax(n_mod, monkeypatch):
+    """12 types (two passes of 8 in the kernel), with types 3, 7 and 11
+    given type 1's top weights: tied top scores."""
+    rng = np.random.RandomState(26)
+    x = rng.randn(2, 2, 128).astype(np.float32)
+    jm = JRouter(dims=128, num_types=12)
+    jx = jnp.asarray(x)
+    params = jax.device_get(jm.init({"params": jax.random.key(1)},
+                                    *(jx,) * n_mod)["params"])
+    top = np.array(params["top"]["kernel"])
+    top[:, [3, 7, 11]] = top[:, [1]]
+    bias = np.array(params["top"]["bias"])
+    bias[[3, 7, 11]] = bias[1]
+    params["top"] = {"kernel": jnp.asarray(top), "bias": jnp.asarray(bias)}
+    wants = _both(monkeypatch, jgm, "_PALLAS_ROUTER",
+                  lambda p, x: jm.apply({"params": p}, *(x,) * n_mod),
+                  params, jx)
+    tm = Router(128, 12, n_mod, fused=True, device="cpu")
+    tm.load_state_dict(from_jax_params(params), strict=True)
+    kernels.reset_counts()
+    got = tm(*(torch.from_numpy(x),) * n_mod)
+    _engaged("fused_router_same")
+    for want in wants:
+        np.testing.assert_allclose(got.numpy(), want, **FTOL)
+
+
+def test_router_top2_ties_go_to_the_first_occurrence():
+    """The plain router's top-2 at 12 types with tied scores picks the
+    same columns, in the same rank order, as the JAX router kernel's
+    (jax.lax.top_k's order)."""
+    from asr_model_tpu.ops.pallas.router_kernel import _topk2_hard
+    rng = np.random.RandomState(27)
+    s = rng.randn(64, 12).astype(np.float32)
+    s[:16, [2, 5, 9]] = 3.0            # three-way tie for the top
+    s[16:32, [0, 11]] = 3.0            # two-way tie for the top
+    s[32:48, 4] = 3.0                  # a tie for the second place
+    s[32:48, [6, 10]] = 2.0
+    got = _topk_hard(torch.from_numpy(s), 2).numpy()
+    want = np.asarray(_topk2_hard(jnp.asarray(s)))
+    np.testing.assert_array_equal(got != 0, want != 0)
+    np.testing.assert_allclose(got, want, atol=1e-7)
+
+
 # --------------------------------------------------------------- gates
 
-GATE_DIMS = [128, 256, 384, 512, 768, 1024, 1280, 1536, 2048]
+GATE_DIMS = [128, 256, 384, 512, 768, 1024, 1280, 1536, 2048, 2304, 3072,
+             4096]
 GATE_DTYPES = [(torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32),
                (torch.float16, jnp.float16)]
 
 
 def _heads(d):
-    """Head counts of width 128 or 256, and of width 64 (no gate admits
+    """Head counts of width 128 to 512, and of width 64 (no gate admits
     it)."""
-    return [d // w for w in (64, 128, 256) if d % w == 0]
+    return [d // w for w in (64, 128, 256, 384, 512) if d % w == 0]
 
 
 def test_attention_gates_agree_with_jax(monkeypatch):
@@ -219,7 +398,7 @@ def test_mlp_gates_agree_with_jax(monkeypatch):
     monkeypatch.setattr(jdm, "_PALLAS_MLP", "on")
     admitted = 0
     for d in GATE_DIMS:
-        for nt in (1, 3, 8):
+        for nt in (1, 3, 8, 12):
             jm = JResidual(dims=d, head=max(1, d // 128), layer=4,
                            act="gelu", n_type="AbbyNormal",
                            num_types=nt).bind({})
@@ -236,3 +415,24 @@ def test_mlp_gates_agree_with_jax(monkeypatch):
                         admitted += 1
                         assert mlp.supports(d, nt), (d, nt)
     assert admitted > 50
+
+
+def test_router_gates_agree_with_jax(monkeypatch):
+    monkeypatch.setattr(jgm, "_PALLAS_ROUTER", "on")
+    admitted = 0
+    for d in GATE_DIMS:
+        for nt in (2, 3, 8, 12):
+            jm = JRouter(dims=d, num_types=nt).bind({})
+            for n_mod in (1, 3):
+                tm = Router(d, nt, n_mod, fused=True, device="meta")
+                for (tdt, jdt) in GATE_DTYPES:
+                    for b, t in ((1, 1), (8, 9), (8, 65), (8, 1001)):
+                        x = torch.empty(b, t, d, dtype=tdt, device="meta")
+                        jx = jax.ShapeDtypeStruct((b, t, d), jdt)
+                        want = jm._fused_eligible((jx,) * n_mod)
+                        got = tm._fused_ok((x,) * n_mod)
+                        assert got == want, (d, nt, n_mod, b, t, tdt)
+                        if got:
+                            admitted += 1
+                            assert router.supports(d, nt), (d, nt)
+    assert admitted > 100
