@@ -11,9 +11,13 @@ channels, 4 heads of 128) and at encoder length (1001 frames), each
 held against its plain version:
 - flash: bf16 ``flash_attention`` against the cached cross K/V of a
   1001-frame encoding, and the self causal call at width 65 with a
-  kv_valid mask, beside ``F.scaled_dot_product_attention``;
+  kv_valid mask, beside ``F.scaled_dot_product_attention``; and the
+  streaming decode's step: one query row (8, 4, 1, 128) against a
+  65-position self cache with a prefix mask (33 live) and against the
+  1001-frame audio cache;
 - abby: bf16 ``fused_abby`` at (8 w, 512), the per-head norms at
-  (8 * 4 * w, 128), and the encoder's (8 * 1001, 512);
+  (8 * 4 * w, 128), the encoder's (8 * 1001, 512), and the streaming
+  step's (8, 512) and (8 * 4, 128);
 - sheath: ``fused_sheath_scan`` of a seeded bf16 flagship MSheath (D
   512, M 64, 4 slots) over bf16 x at (8 w, 512) with a kv-style valid
   mask, and at (8 * 1001, 512) without one;
@@ -66,12 +70,19 @@ def bench_flash(dev, repeats, rows):
     rnd = lambda t: torch.randn(b, h, t, hd, device=dev,
                                 generator=g).bfloat16()
     k_enc, v_enc = rnd(tk_enc), rnd(tk_enc)
+    # (label, query rows, keys (None: the encoding's), causal, live keys
+    # of a prefix mask (None: no mask))
     shapes = [(f"cached cross ({b},{h},{w},{hd})x({b},{h},{tk_enc},{hd})",
-               w, False) for w in WIDTHS]
-    shapes.append((f"self causal ({b},{h},65,{hd}) + kv_valid", 65, True))
-    for label, tq, causal in shapes:
+               w, None, False, None) for w in WIDTHS]
+    shapes += [
+        (f"self causal ({b},{h},65,{hd}) + kv_valid", 65, 65, True, None),
+        (f"stream step ({b},{h},1,{hd})x({b},{h},65,{hd}) + prefix mask "
+         "(33 live)", 1, 65, False, 33),
+        (f"stream step ({b},{h},1,{hd})x({b},{h},{tk_enc},{hd})", 1, None,
+         False, None)]
+    for label, tq, tk, causal, live in shapes:
         q = rnd(tq)
-        k, v = (rnd(tq), rnd(tq)) if causal else (k_enc, v_enc)
+        k, v = (k_enc, v_enc) if tk is None else (rnd(tk), rnd(tk))
         tk = k.shape[2]
         valid, mask = None, None
         if causal:
@@ -79,6 +90,10 @@ def bench_flash(dev, repeats, rows):
             valid = torch.arange(tk, device=dev)[None] < lens[:, None]
             mask = (torch.ones(tq, tk, dtype=torch.bool, device=dev)
                     .tril(tk - tq)[None, None] & valid[:, None, None, :])
+        elif live is not None:
+            valid = (torch.arange(tk, device=dev) < live)[None].expand(
+                b, tk).contiguous()
+            mask = valid[:, None, None, :]
         got = attention.flash_attention(q, k, v, causal, valid)
         want = attention.attention_plain(q.float(), k.float(), v.float(),
                                          causal, valid)
@@ -101,7 +116,8 @@ def bench_abby(dev, repeats, rows):
     from asr_model_tpu_torch.ops.cuda import abby
     g = torch.Generator(device=dev).manual_seed(1)
     shapes = [(8 * w, 512) for w in WIDTHS] + \
-        [(8 * 4 * w, 128) for w in WIDTHS] + [(8 * 1001, 512)]
+        [(8 * 4 * w, 128) for w in WIDTHS] + [(8 * 1001, 512)] + \
+        [(8, 512), (8 * 4, 128)]
     for n, d in shapes:
         r = lambda *s, sc=1.0: (sc * torch.randn(*s, device=dev, generator=g)
                                 ).bfloat16()

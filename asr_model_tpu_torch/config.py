@@ -30,11 +30,19 @@ class Dimensions:
 class ModelConfig:
     """The options of ``asr_model_tpu``'s ModelConfig that the port
     reads; every other option is at its reference default (no chained
-    blocks, no streaming, no MoE, ...) and comes with the slice that
-    implements it."""
+    blocks, no MoE, ...) and comes with the slice that implements it."""
 
     ctx: int = 2048              # decoder context cap (learned positions)
     theta: float = THETA         # sinusoid / rotary base
+    # the reference masks only the first self-attention call of a block
+    # causally; causal_all masks every decoder self-attention
+    causal_all: bool = False
+    # streaming-causal decoder: implies causal_all, makes MSheath's
+    # pooling a per-position causal running mean with the jump policy
+    # read from position 0, and masks the d||e cross causally, so the
+    # logits of position t depend on tokens <= t only (and
+    # ``greedy_decode_stream`` decodes incrementally)
+    streaming: bool = False
     num_types: int = 3           # router / tgate modality count
     msheath_mem: int = 64        # v_gate memory slots
     # whole-call decode kernels, the counterparts of the JAX package's

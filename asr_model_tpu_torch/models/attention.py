@@ -8,7 +8,13 @@ rotary.
 * rotary on q conditioned on the query source and on k conditioned on
   the kv source, then the per-head norm ``head_norm`` on both.
 * self-attention when ``xa`` is None, cross-attention over ``xa``
-  otherwise, or over a precomputed K/V (``cached_kv``).
+  otherwise (``causal`` masks it too: the streaming decoder's d||e
+  call, where x and xa are position-aligned), or over a precomputed
+  K/V (``cached_kv``).
+* the incremental decode's one-position pieces: ``q_step`` and
+  ``kv_step`` (the same projection -> scale -> rotary at position
+  ``pos`` -> head norm as the buffer call computes for that position)
+  and ``attend_cached`` (``sdpa`` against the caches, then out_proj).
 
 Every ``sdpa`` call runs the flash kernel on a CUDA tensor
 (``ops/cuda/attention.py``) and the plain masked softmax on a CPU one.
@@ -90,6 +96,28 @@ class Attention(nn.Module):
         k, v = self._kv(xa)
         k = self.rot(k * self.scale, cond=xa, causal=False)
         return self.head_norm(k).contiguous(), v.contiguous()
+
+    # ---- one position at a time (models/generate.py:greedy_decode_stream)
+
+    def q_step(self, x_t, pos: int, causal: bool):
+        """(B, 1, D) at position ``pos`` -> normed rotated query heads
+        (B, H, 1, hd)."""
+        q = self.rot(self._q(x_t) * self.scale, cond=x_t, causal=causal,
+                     offset=pos)
+        return self.head_norm(q)
+
+    def kv_step(self, src_t, pos: int, causal: bool):
+        """(B, 1, D) at position ``pos`` -> (normed rotated key heads,
+        raw value heads), each (B, H, 1, hd)."""
+        k, v = self._kv(src_t)
+        k = self.rot(k * self.scale, cond=src_t, causal=causal, offset=pos)
+        return self.head_norm(k), v
+
+    def attend_cached(self, qn, kn, v, kv_valid=None):
+        """Attention of processed query heads over processed K/V (a
+        decode cache, masked by ``kv_valid``), then out_proj."""
+        return self.out_proj(merge_heads(sdpa(qn, kn, v, causal=False,
+                                              kv_valid=kv_valid)))
 
     # ---- the whole-call kernels (ops/cuda/xattn.py)
 

@@ -6,7 +6,10 @@ Residual (per call):
          xa += sinusoids; xa, _ = MSheath(ln(xa));
          x += attn(ln(x), xa=router(xa x (layer-1)))
   return x + ln(mlp_out(gelu(mlp_in(tgate(ln(x))))))
-with one ``ln`` shared by every position.  With ``fused_mlp`` the last
+with one ``ln`` shared by every position.  ``streaming`` takes the
+x-side MSheath's streaming branch, ``xa_streaming`` the xa side's (a
+text-derived xa; audio xa stays global), ``cross_causal`` masks the
+cross call causally (x and xa position-aligned).  With ``fused_mlp`` the last
 line is one call of ``ops/cuda/mlp.py`` wherever the JAX package's
 PALLAS_MLP gate would route it (``Residual._mlp_fused_ok``); the fields
 ``fused_attention`` and ``fused_router`` go to the block's Attention and
@@ -15,9 +18,15 @@ Router.
 Processor (chained=False, the reference's configuration): only the last
 block reaches the output, so it is the only block built.  Per call:
   a = blk(x, causal);  b/c/d = blk(prev, cross = slot a/b/c);
-  e = a + b + c;  g = blk(d, xa = e);  logits from g (decode) or from
-  sigmoid(blend) d + (1 - sigmoid(blend)) g (forward), through the final
-  norm and the weight-tied token embedding.
+  e = a + b + c;  g = blk(d, xa = e);  logits from g (the buffer decode
+  of a non-streaming model) or from sigmoid(blend) d + (1 -
+  sigmoid(blend)) g (forward, and every decode of a streaming model),
+  through the final norm and the weight-tied token embedding.
+  ``causal_all`` masks b, c, d and g's self-attention causally too;
+  ``streaming`` implies it and makes every text-side path prefix-causal
+  (the MSheath streaming branch on x, and on g's xa with a causal
+  cross), which lets ``decode_stream_step`` run one position at a time
+  against per-site state (``StreamingResidual``).
 The per-slot re-encode blk(xa[k]) and the cross K/V precompute run once
 per utterance (``encode_xa``, ``precompute_cross``); every
 length-dependent op reads ``text_valid``, so a fixed buffer computes
@@ -107,22 +116,29 @@ class Residual(nn.Module):
         xa, _ = self.jump(self.ln(self._pe(xa)), valid=xa_valid)
         return self.attn.precompute_kv(self.router(*[xa] * (self.layer - 1)))
 
+    def mlp_residual(self, x):
+        """x + mlp(x): one ``fused_mlp_residual`` call where the gate
+        admits it."""
+        if self._mlp_fused_ok(x):
+            return self._mlp_residual_fused(x)
+        return x + self.mlp(x)
+
     def forward(self, x, xa=None, causal: bool = False, x_valid=None,
-                xa_valid=None, cached_kv=None):
+                xa_valid=None, cached_kv=None, streaming: bool = False,
+                cross_causal: bool = False, xa_streaming: bool = False):
         n_router = self.layer - 1
-        x, _ = self.jump(self.ln(x), valid=x_valid)
+        x, _ = self.jump(self.ln(x), valid=x_valid, streaming=streaming)
         x = (self.router(*[x] * n_router)
              + self.attn(self.ln(x), causal=causal, kv_valid=x_valid))
         if cached_kv is not None:
             x = x + self.attn(self.ln(x), cached_kv=cached_kv,
                               kv_valid=xa_valid)
         elif xa is not None:
-            xa, _ = self.jump(self.ln(self._pe(xa)), valid=xa_valid)
+            xa, _ = self.jump(self.ln(self._pe(xa)), valid=xa_valid,
+                              streaming=xa_streaming)
             x = x + self.attn(self.ln(x), xa=self.router(*[xa] * n_router),
-                              kv_valid=xa_valid)
-        if self._mlp_fused_ok(x):
-            return self._mlp_residual_fused(x)
-        return x + self.mlp(x)
+                              causal=cross_causal, kv_valid=xa_valid)
+        return self.mlp_residual(x)
 
 
 def encode_xa(blk: Residual, xa: Dict[str, torch.Tensor]):
@@ -140,31 +156,101 @@ def encode_xa(blk: Residual, xa: Dict[str, torch.Tensor]):
     return out
 
 
-def run_block(blk: Residual, x, xa_kv: Dict, text_valid=None):
+def run_block(blk: Residual, x, xa_kv: Dict, text_valid=None,
+              streaming: bool = False, causal_all: bool = False):
     """One block's a/b/c/d/e/(d, e -> g) flow against precomputed cross
-    K/V; only the ``a`` call is causal.  Returns (d, g)."""
+    K/V.  The ``a`` call is causal; with ``ca = causal_all or
+    streaming`` so are b, c, d and g's self-attention, and with
+    ``streaming`` every MSheath on the text side streams and g's cross
+    is causal.  Returns (d, g)."""
     T = x.shape[1]
-    a = blk(x, causal=True, x_valid=text_valid)
-    b = blk(a, cached_kv=xa_kv["a"], x_valid=text_valid) if "a" in xa_kv \
-        else a
-    c = blk(b, cached_kv=xa_kv["b"], x_valid=text_valid) if "b" in xa_kv \
-        else b
-    d = blk(c, cached_kv=xa_kv["c"], x_valid=text_valid) if "c" in xa_kv \
-        else c
+    st, ca = streaming, causal_all or streaming
+    kw = dict(causal=ca, x_valid=text_valid, streaming=st)
+    a = blk(x, causal=True, x_valid=text_valid, streaming=st)
+    b = blk(a, cached_kv=xa_kv["a"], **kw) if "a" in xa_kv else a
+    c = blk(b, cached_kv=xa_kv["b"], **kw) if "b" in xa_kv else b
+    d = blk(c, cached_kv=xa_kv["c"], **kw) if "c" in xa_kv else c
     e = a + b + c
     f = torch.cat([d, e], dim=1)
-    g = blk(f[:, :T], xa=f[:, T:], x_valid=text_valid, xa_valid=text_valid)
+    g = blk(f[:, :T], xa=f[:, T:], xa_valid=text_valid, cross_causal=st,
+            xa_streaming=st, **kw)
     return d, g
+
+
+def _update_cache(cache, new, pos: int):
+    """Write the (B, H, 1, hd) slice ``new`` at time index ``pos`` of a
+    (B, H, Tmax, hd) cache, in place."""
+    cache[:, :, pos:pos + 1].copy_(new)
+
+
+class StreamingResidual:
+    """One position of ``Residual`` for the streaming-causal variant,
+    against per-call-site state: the MSheath stream state (``jump``)
+    and (B, H, Tmax, hd) self K/V caches in the model's dtype, written
+    after scale, rotary and head norm (what the buffer call recomputes
+    for every prefix position each step); the g site adds the state of
+    its growing text-derived cross source (``xa_jump``, ``xa_k``,
+    ``xa_v``).  The numerics of a position equal the buffer call's
+    newest position."""
+
+    @staticmethod
+    def init_state(blk: Residual, batch: int, t_max: int, dtype, device,
+                   with_xa: bool = False) -> dict:
+        h = blk.attn.head
+        shape = (batch, h, t_max, blk.dims // h)
+        zeros = lambda: torch.zeros(shape, dtype=dtype, device=device)
+        st = {"jump": blk.jump.init_stream_state(batch, device),
+              "k": zeros(), "v": zeros()}
+        if with_xa:
+            st |= {"xa_jump": blk.jump.init_stream_state(batch, device),
+                   "xa_k": zeros(), "xa_v": zeros()}
+        return st
+
+    @staticmethod
+    def step(blk: Residual, x_t, pos: int, st: dict, prefix_valid,
+             cached_kv=None, xa_t=None, pe_row=None):
+        """x_t (B, 1, D) at position ``pos``; prefix_valid (B, Tmax) the
+        positions <= pos.  Updates ``st`` in place; returns y_t."""
+        n_router = blk.layer - 1
+        at = blk.attn
+        x1, _ = blk.jump.stream_step(blk.ln(x_t), st["jump"])
+        ax = blk.ln(x1)
+        qn = at.q_step(ax, pos, causal=True)
+        kn, v = at.kv_step(ax, pos, causal=True)
+        _update_cache(st["k"], kn, pos)
+        _update_cache(st["v"], v, pos)
+        x2 = blk.router(*[x1] * n_router) + at.attend_cached(
+            qn, st["k"], st["v"], kv_valid=prefix_valid)
+        if cached_kv is not None:
+            # the audio source: precomputed K/V, the non-causal ladder
+            q2 = at.q_step(blk.ln(x2), pos, causal=False)
+            x2 = x2 + at.attend_cached(q2, *cached_kv)
+        elif xa_t is not None:
+            # the growing text-derived source of the d||e call: causal
+            # on both sides
+            xa1, _ = blk.jump.stream_step(
+                blk.ln(xa_t + pe_row.to(xa_t.dtype)), st["xa_jump"])
+            kx, vx = at.kv_step(blk.router(*[xa1] * n_router), pos,
+                                causal=True)
+            _update_cache(st["xa_k"], kx, pos)
+            _update_cache(st["xa_v"], vx, pos)
+            q3 = at.q_step(blk.ln(x2), pos, causal=True)
+            x2 = x2 + at.attend_cached(q3, st["xa_k"], st["xa_v"],
+                                       kv_valid=prefix_valid)
+        return blk.mlp_residual(x2)
 
 
 class Processor(nn.Module):
     def __init__(self, tokens: int, dims: int, head: int, layer: int,
                  act: str, n_type: str, ctx: int = 2048, num_types: int = 3,
                  mem: int = 64, theta: float = THETA,
+                 causal_all: bool = False, streaming: bool = False,
                  fused_attention: bool = False, fused_mlp: bool = False,
                  fused_router: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.dims, self.theta = dims, theta
+        self.causal_all, self.streaming = causal_all, streaming
         self.ln = get_norm(n_type, dims, **kw)
         self.token = Embed(tokens, dims, **kw)
         self.position = param(ctx, dims, **kw)
@@ -210,6 +296,53 @@ class Processor(nn.Module):
         x = self.embed(ids)
         if xa_kv is None:
             xa_kv = self.precompute_cross(self.encode_xa(xa))
-        d, g = run_block(self.block, x, xa_kv, text_valid=text_valid)
+        d, g = run_block(self.block, x, xa_kv, text_valid=text_valid,
+                         streaming=self.streaming,
+                         causal_all=self.causal_all)
         return self.logits_head(d, g, seq=seq,
                                 logits_position=logits_position)
+
+    # ---- the incremental decode of the streaming variant
+
+    def init_stream_state(self, batch: int, t_max: int, dtype) -> dict:
+        """The state of ``decode_stream_step``: the five call sites
+        a/b/c/d/g of the block (chained=False, the only configuration
+        built), on the model's device."""
+        S, blk = StreamingResidual, self.block
+        dev = self.position.device
+        return {k: S.init_state(blk, batch, t_max, dtype, dev)
+                for k in ("a", "b", "c", "d")} | {
+            "g": S.init_state(blk, batch, t_max, dtype, dev, with_xa=True)}
+
+    def decode_stream_step(self, token_t, pos: int, state: dict,
+                           xa_kv: Dict, pe_table):
+        """One decode step of the streaming variant: the newest token
+        (B,) at position ``pos`` through the a/b/c/d/e/(d||e -> g) flow
+        for that position against ``state`` (updated in place; the
+        sinusoid table ``pe_table`` (Tmax, D) gives g's cross source its
+        positions).  Returns the blended (seq=False) head's logits (B,
+        vocab) in f32.  The one host read of a decode: at position 1, the
+        MSheath states' position-0 jump actions, which the later steps
+        replay."""
+        if not self.streaming:
+            raise ValueError("decode_stream_step needs a streaming model")
+        S, blk = StreamingResidual, self.block
+        if pos > 0:     # the position-0 jump actions, one host read
+            MSheath.pin_actions([st[k] for st in state.values()
+                                 for k in ("jump", "xa_jump") if k in st])
+        t_max = state["a"]["k"].shape[2]
+        batch = token_t.shape[0]
+        prefix_valid = (torch.arange(t_max, device=token_t.device) <= pos)[
+            None].expand(batch, t_max).contiguous()
+        x = self.token(token_t[:, None]) + self.position[pos:pos + 1]
+        a = S.step(blk, x, pos, state["a"], prefix_valid)
+        prev, out = a, {}
+        for site, slot in (("b", "a"), ("c", "b"), ("d", "c")):
+            if slot in xa_kv:
+                prev = S.step(blk, prev, pos, state[site], prefix_valid,
+                              cached_kv=xa_kv[slot])
+            out[site] = prev
+        b, c, d = out["b"], out["c"], out["d"]
+        g = S.step(blk, d, pos, state["g"], prefix_valid, xa_t=a + b + c,
+                   pe_row=pe_table[pos:pos + 1])
+        return self.logits_head(d, g, seq=False)[:, 0], state

@@ -1,10 +1,13 @@
-"""Greedy full-prefix buffer decode.
+"""Greedy decode: the full-prefix buffer decode, and the incremental
+decode of the streaming variant.
 
 BOS starts each row; each step runs the decoder over the prefix
 buffer (every length-dependent op masked to the live prefix by
 ``text_valid``), takes the argmax of the newest position's logits
-(the seq=True head), writes it, and turns the row to PAD after its
-EOS.  ``suppress_eos`` forbids EOS until the last token of the budget.
+(the seq=True head; a streaming model decodes from the blended head it
+trains, seq=False, as in the JAX package), writes it, and turns the row
+to PAD after its EOS.  ``suppress_eos`` forbids EOS until the last token
+of the budget.
 
 What runs once per utterance: the AudioEncoder, the last block's
 per-slot re-encode and the cross-attention K/V precompute.  Short
@@ -15,6 +18,13 @@ length-dependent op reads the mask and positions are absolute.  The
 step loop is a plain Python loop that never waits on the device inside
 a bucket: whether every row has finished is read once per bucket
 boundary, and steps past a row's EOS write PAD either way.
+
+``greedy_decode_stream`` (streaming models only) runs one position a
+step through ``Processor.decode_stream_step`` against per-site caches
+and MSheath running sums: O(1) work a token besides the attention reads
+of the caches, the same tokens as ``greedy_decode`` on the same model.
+Whether every row has finished is read once every ``STREAM_CHECK``
+positions.
 """
 
 from __future__ import annotations
@@ -25,6 +35,9 @@ import torch
 
 from asr_model_tpu_torch.config import BOS_ID, EOS_ID, PAD_ID
 from asr_model_tpu_torch.models.model import Model, modality_slots
+from asr_model_tpu_torch.ops.audio import sinusoids
+
+STREAM_CHECK = 8    # positions between the stream decode's done checks
 
 
 def _decode_stages() -> int:
@@ -59,10 +72,29 @@ def decode_step(model: Model, ids, xa_kv: dict, length: int):
     batch, s = ids.shape
     valid = (torch.arange(s, device=ids.device) < length)[None].expand(
         batch, s).contiguous()
-    logits = model.processor(ids, seq=True, text_valid=valid,
+    logits = model.processor(ids, seq=not model.cfg.streaming,
+                             text_valid=valid,
                              logits_position=min(max(length - 1, 0), s - 1),
                              xa_kv=xa_kv)
     return logits[:, 0]
+
+
+def _next_tokens(logits, done, length: int, T: int, suppress_eos: bool):
+    """The argmax token of each row, EOS forbidden before the budget's
+    last token under ``suppress_eos``, PAD on finished rows."""
+    if suppress_eos and length < T - 1:
+        logits[:, EOS_ID] = float("-inf")
+    nxt = torch.argmax(logits, dim=-1)
+    return torch.where(done, torch.full_like(nxt, PAD_ID), nxt)
+
+
+def _start(xa: dict, max_new_tokens: int):
+    fx = next(iter(xa.values()))
+    batch, dev = fx.shape[0], fx.device
+    T = 1 + int(max_new_tokens)
+    ids = torch.full((batch, T), PAD_ID, dtype=torch.long, device=dev)
+    ids[:, 0] = BOS_ID
+    return ids, torch.zeros(batch, dtype=torch.bool, device=dev), T
 
 
 @torch.no_grad()
@@ -72,12 +104,7 @@ def greedy_decode(model: Model, spectrogram=None, pitch=None, waveform=None,
     tokens, PAD after a row's EOS."""
     xa = modality_slots(pitch, spectrogram, waveform)
     xa_kv = prepare_cross(model, xa)
-    fx = next(iter(xa.values()))
-    batch, dev = fx.shape[0], fx.device
-    T = 1 + int(max_new_tokens)
-    ids = torch.full((batch, T), PAD_ID, dtype=torch.long, device=dev)
-    ids[:, 0] = BOS_ID
-    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    ids, done, T = _start(xa, max_new_tokens)
     length = 1
     for s in _bucket_sizes(T, _decode_stages()):
         if length >= s:
@@ -86,11 +113,38 @@ def greedy_decode(model: Model, spectrogram=None, pitch=None, waveform=None,
             break
         while length < s:
             logits = decode_step(model, ids[:, :s], xa_kv, length)
-            if suppress_eos and length < T - 1:
-                logits[:, EOS_ID] = float("-inf")
-            nxt = torch.argmax(logits, dim=-1)
-            nxt = torch.where(done, torch.full_like(nxt, PAD_ID), nxt)
+            nxt = _next_tokens(logits, done, length, T, suppress_eos)
             ids[:, length] = nxt
             done = done | (nxt == EOS_ID)
             length += 1
+    return ids
+
+
+@torch.no_grad()
+def greedy_decode_stream(model: Model, spectrogram=None, pitch=None,
+                         waveform=None, max_new_tokens: int = 150,
+                         suppress_eos: bool = False):
+    """The incremental greedy decode of a streaming model (``ModelConfig.
+    streaming``): the output contract of ``greedy_decode``, one position
+    a step.  The K/V caches take the features' dtype (MSheath's running
+    sums are f32)."""
+    if not model.cfg.streaming:
+        raise ValueError("greedy_decode_stream needs ModelConfig("
+                         "streaming=True); use greedy_decode")
+    xa = modality_slots(pitch, spectrogram, waveform)
+    xa_kv = prepare_cross(model, xa)
+    ids, done, T = _start(xa, max_new_tokens)
+    proc = model.processor
+    fx = next(iter(xa.values()))
+    state = proc.init_stream_state(ids.shape[0], T, fx.dtype)
+    pe = sinusoids(T, proc.dims, proc.theta, device=ids.device)
+    for length in range(1, T):
+        if length > 1 and (length - 1) % STREAM_CHECK == 0 \
+                and bool(done.all()):
+            break
+        logits, state = proc.decode_stream_step(ids[:, length - 1],
+                                                length - 1, state, xa_kv, pe)
+        nxt = _next_tokens(logits, done, length, T, suppress_eos)
+        ids[:, length] = nxt
+        done = done | (nxt == EOS_ID)
     return ids

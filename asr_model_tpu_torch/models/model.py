@@ -53,6 +53,7 @@ class Model(nn.Module):
             dims.tokens, dims.dims, dims.head, dims.layer, dims.act,
             dims.n_type, ctx=cfg.ctx, num_types=cfg.num_types,
             mem=cfg.msheath_mem, theta=cfg.theta,
+            causal_all=cfg.causal_all, streaming=cfg.streaming,
             fused_attention=cfg.fused_attention, fused_mlp=cfg.fused_mlp,
             fused_router=cfg.fused_router, **kw)
         self.enc = AudioEncoder(dims.mels, dims.dims, dims.head, dims.layer,

@@ -1,4 +1,4 @@
-"""MSheath: the adaptive-depth layer-slot stack, eval and non-streaming.
+"""MSheath: the adaptive-depth layer-slot stack, eval.
 
 The layer-slot recurrence (v_gate, LayerNorm, even-slot adapter, skip
 gate, working-memory EMA and the scalar jump policy over ``layer``
@@ -9,6 +9,19 @@ the caller as in the reference, and the post-scan gated MLP
 ``x + sigmoid(x w + b) * mlp2(silu(mlp1(LayerNorm(x))))``.  Jump control
 is one scalar per call: a caller that stacks independent inputs must
 call once per input to keep their statistics apart.
+
+``streaming=True`` (the streaming-causal decoder) makes output position
+t a function of input positions <= t: the working memory is a
+per-position causal running mean (f32 cumulative sums) instead of one
+pooled row, and the policy input and the forced-skip potential come
+from position 0.  The JAX package never sends this scan to its kernel;
+here too it is PyTorch ops on every device (``_stream_scan``), sharing
+the per-slot math with the kernel's plain version
+(``ops/cuda/sheath.py:slot_rows``), with the slot index and the jump
+control on the device (no host read).  ``init_stream_state`` and
+``stream_step`` run it one position at a time with running sums: the
+incremental decode's form, equal by induction to the buffer form's
+newest position.
 """
 
 from __future__ import annotations
@@ -20,6 +33,7 @@ import torch.nn.functional as F
 from asr_model_tpu_torch.models.gates import MPNet
 from asr_model_tpu_torch.models.tlayers import Dense, normal_, param, uniform_
 from asr_model_tpu_torch.ops.cuda import sheath as K
+from asr_model_tpu_torch.utils import l2norm
 
 
 def masked_mean(x, valid, dim):
@@ -121,23 +135,172 @@ class MSheath(nn.Module):
                     stacks.values())
         if self._scan_cache[0] != key:
             ct = torch.promote_types(self.mkey.dtype, torch.float32)
-            self._scan_cache = (key, {k: v.to(ct).contiguous()
-                                      for k, v in stacks.items()})
+            w = {k: v.to(ct).contiguous() for k, v in stacks.items()}
+            # the memory keys normalised once (the streaming scan's)
+            w["mkey_n"] = l2norm(w["mkey"])
+            self._scan_cache = (key, w)
         return self._scan_cache[1]
 
-    def forward(self, x, valid=None):
+    def _stream_scan(self, x, sampled, mean_fn):
+        """The layer-slot scan of the streaming variant over x (B, T, D),
+        all of it on x's device: ``mean_fn(step, x_new, active)`` gives
+        the causal mean (B, T, D) of this scan step; the jump action
+        comes from position 0's ion (the forced skip) and ``sampled``.
+        Returns (x in f32, actions (L,) int32, jstat (3,) int32)."""
+        L = self.layer
+        w = self.scan_weights()
+        dev = x.device
+        x = x.to(w["mkey"].dtype)
+        x0 = x
+        mem_w = w["mem0"].expand_as(x)
+        i = torch.zeros((), dtype=torch.int64, device=dev)
+        jstat = torch.zeros(3, dtype=torch.int32, device=dev)
+        kinds = torch.arange(3, device=dev)
+        actions = []
+        for step in range(L):
+            active = i < L
+            x_new, ion = K.slot_rows(x, w, torch.clamp(i, max=L - 1),
+                                     self.thresh)
+            mem_w_new = self._mem_ema(w, mem_w, mean_fn(step, x_new, active))
+            forced = ion[:, 0].mean() < 0.1
+            action = torch.where(i >= L - 1, 0, torch.where(
+                forced, 1, sampled.to(torch.int64)))
+            jw = w["jump_s"].index_select(
+                0, torch.clamp(action - 1, 0, 2).reshape(1))
+            x_out = torch.where(action > 0, x_new + (jw * x0 + (1.0 - jw)
+                                                     * mem_w_new), x_new)
+            i_next = torch.where(action > 0,
+                                 torch.clamp(i + action + 1, max=L), i + 1)
+            x = torch.where(active, x_out, x)
+            mem_w = torch.where(active, mem_w_new, mem_w)
+            i = torch.where(active, i_next, i)
+            jstat = jstat + (active & (kinds == action)).to(
+                torch.int32) * x.shape[0]
+            actions.append(action)
+        return x, torch.stack(actions).to(torch.int32), jstat
+
+    def _replay_scan(self, x, actions, mean_fn):
+        """The same scan with its actions known on the host (``actions``,
+        a tuple of L ints): only the executed slots run, each slot's
+        weights a view, and the memory EMA only while a later jump reads
+        it.  The same values as ``_stream_scan`` with those actions."""
+        L = self.layer
+        w = self.scan_weights()
+        x = x.to(w["mkey"].dtype)
+        x0 = x
+        mem_w = w["mem0"].expand_as(x)
+        i = 0
+        for step in range(L):
+            if i >= L:
+                break
+            x_new, _ = K.slot_rows(x, w, i, self.thresh)
+            mem = mean_fn(step, x_new, None)
+            action = actions[step]
+            if any(a > 0 for a in actions[step:]):
+                mem_w = self._mem_ema(w, mem_w, mem)
+            if action > 0:
+                jw = w["jump_s"][min(action - 1, 2)]
+                x_new = x_new + (jw * x0 + (1.0 - jw) * mem_w)
+                i = min(i + action + 1, L)
+            else:
+                i += 1
+            x = x_new
+        return x
+
+    @staticmethod
+    def _mem_ema(w, mem_w, mem):
+        mem_v = torch.sigmoid(mem @ w["memgate_w"] + w["memgate_b"])[..., None]
+        return mem_v * mem_w + (1.0 - mem_v) * mem
+
+    def _mlp_tail(self, x):
+        gate = torch.sigmoid(x @ self.mlpgate_w + self.mlpgate_b)
+        h = layer_norm(x, self.mlp_ln_scale, self.mlp_ln_bias)
+        return x + gate * self.mlp2(F.silu(self.mlp1(h)))
+
+    def _sampled(self, pooled):
+        return torch.argmax(self.pnet(pooled).mean(dim=0)).to(torch.int32)
+
+    def forward(self, x, valid=None, streaming: bool = False):
+        if streaming:
+            return self._forward_streaming(x, valid)
         b, ctx, d = x.shape
-        pooled = masked_mean(x, valid, dim=1)[:, 0]
-        policy_mean = self.pnet(pooled).mean(dim=0)
-        sampled = torch.argmax(policy_mean).to(torch.int32)
+        sampled = self._sampled(masked_mean(x, valid, dim=1)[:, 0])
         w = self.scan_weights()
         xk, actions, jstat = K.fused_sheath_scan(
             x.reshape(b * ctx, d).contiguous(), b,
             None if valid is None else valid.contiguous(), w["mem0"],
             sampled, w["jump_s"], {k: w[k] for k in K.WEIGHT_NAMES},
             self.layer, self.thresh)
-        x = xk.reshape(b, ctx, d)
-        gate = torch.sigmoid(x @ self.mlpgate_w + self.mlpgate_b)
-        h = layer_norm(x, self.mlp_ln_scale, self.mlp_ln_bias)
-        x = x + gate * self.mlp2(F.silu(self.mlp1(h)))
+        x = self._mlp_tail(xk.reshape(b, ctx, d))
         return x, {"jstat": jstat, "actions": actions}
+
+    def _forward_streaming(self, x, valid):
+        if valid is None:
+            n = torch.arange(1, x.shape[1] + 1, dtype=torch.float32,
+                             device=x.device)[None, :, None]
+            m = None
+        else:
+            m = valid.to(torch.float32)[..., None]
+            n = torch.clamp(torch.cumsum(m, dim=1), min=1.0)
+
+        def causal_mean(step, x_new, active):
+            f32 = x_new.to(torch.float32)
+            s = torch.cumsum(f32 if m is None else f32 * m, dim=1)
+            return (s / n).to(x_new.dtype)
+
+        xs, actions, jstat = self._stream_scan(
+            x, self._sampled(x[:, 0]), causal_mean)
+        x = self._mlp_tail(xs.to(x.dtype))
+        return x, {"jstat": jstat, "actions": actions}
+
+    def init_stream_state(self, batch: int, device=None) -> dict:
+        """The zero state of ``stream_step``: per scan step the running
+        f32 sums (L, B, D) of its x_new, the positions seen (a host int:
+        every caller steps once a position), and the jump actions (L,)
+        decided at position 0."""
+        dev = device if device is not None else self.mkey.device
+        return {"sums": torch.zeros(self.layer, batch, self.dims,
+                                    dtype=torch.float32, device=dev),
+                "count": 0,
+                "actions": torch.zeros(self.layer, dtype=torch.int32,
+                                       device=dev)}
+
+    @staticmethod
+    def pin_actions(states) -> None:
+        """Read the position-0 actions of stream states to the host, in
+        one read for all of them: the steps after position 0 replay them
+        there (``replay``)."""
+        states = [st for st in states if "replay" not in st]
+        if states:
+            got = torch.stack([st["actions"] for st in states]).tolist()
+            for st, acts in zip(states, got):
+                st["replay"] = tuple(acts)
+
+    def stream_step(self, x_t, state: dict):
+        """One position (B, 1, D) of the streaming scan against ``state``
+        (updated in place and returned): the causal mean of scan step s
+        is its running f32 sum over the positions so far divided by their
+        count, as ``forward(streaming=True)`` divides its cumulative
+        sums; the jump actions are decided on the device at position 0
+        (from its policy and potential), then replayed from the host
+        (read once, ``pin_actions``).  Equals ``forward(prefix,
+        streaming=True)[0][:, -1:]`` by induction."""
+        count = state["count"]
+        sums = state["sums"]
+        n = torch.full((1, 1), count + 1, dtype=torch.float32,
+                       device=sums.device)
+
+        def running_mean(step, x_new, active):
+            row = sums[step] + x_new[:, 0].to(torch.float32)
+            sums[step] = row if active is None else torch.where(
+                active, row, sums[step])
+            return (row / n)[:, None].to(x_new.dtype)
+
+        if count == 0:
+            xs, state["actions"], _ = self._stream_scan(
+                x_t, self._sampled(x_t[:, 0]), running_mean)
+        else:
+            self.pin_actions([state])
+            xs = self._replay_scan(x_t, state["replay"], running_mean)
+        state["count"] = count + 1
+        return self._mlp_tail(xs.to(x_t.dtype)), state

@@ -33,6 +33,45 @@ WEIGHT_NAMES = ("ln_scale", "ln_bias", "gate_w", "gate_b", "mkey", "mval",
                 "vcat_b", "adapt_w", "adapt_b", "memgate_w", "memgate_b")
 
 
+def slot_rows(x, w: dict, i, thresh: float):
+    """One executed slot of the scan on rows x (..., D) in f32 (or f64):
+    v_gate's ion (the memory-key and MLP scores through ``vcat``, then
+    the threshold), the slot's layer norm, the adapter on even slots and
+    the skip gate.  ``i`` is the slot, a Python int or a 0-d int64
+    tensor on x's device (the streaming scan keeps its slot index there:
+    its weights are gathered with ``index_select``, which reads no index
+    back to the host).  Returns (x + gate * (adapted * ion), ion (...,
+    1)).  ``w["mkey_n"]``, where given, holds the memory keys already
+    normalised.  Uncounted: the plain scan and the model's streaming
+    scan share it."""
+    if isinstance(i, int):
+        pick = lambda t, j=i: t[j]
+    else:
+        pick = lambda t, j=i: t.index_select(0, j.reshape(1))[0]
+    d = x.shape[-1]
+    keys = pick(w["mkey_n"]) if "mkey_n" in w else l2norm(pick(w["mkey"]))
+    logits = l2norm(x) @ keys.t() / math.sqrt(d)
+    mem_score = torch.softmax(logits, dim=-1) @ pick(w["mval"])
+    h = torch.nn.functional.silu(x @ pick(w["vmlp1_w"]) + pick(w["vmlp1_b"]))
+    mlp_score = h @ pick(w["vmlp2_w"]) + pick(w["vmlp2_b"])
+    vcat = pick(w["vcat_w"])
+    x_val = mem_score * vcat[0] + mlp_score * vcat[1] + pick(w["vcat_b"])
+    ion = ste_threshold(x_val, thresh)[..., None]
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) * (x - mu)).mean(dim=-1, keepdim=True)
+    px = (x - mu) * torch.rsqrt(var + 1e-5) * pick(w["ln_scale"]) \
+        + pick(w["ln_bias"])
+    if isinstance(i, int):
+        apx = (px @ w["adapt_w"][i // 2] + w["adapt_b"][i // 2]
+               if i % 2 == 0 else px)
+    else:
+        a = i // 2
+        apx = torch.where(i % 2 == 0, px @ pick(w["adapt_w"], a)
+                          + pick(w["adapt_b"], a), px)
+    g = torch.sigmoid(px @ pick(w["gate_w"]) + pick(w["gate_b"]))[..., None]
+    return x + g * (apx * ion), ion
+
+
 def sheath_scan_plain(x2, batch: int, valid, mem0, sampled, jump_s,
                       weights: dict, L: int, thresh: float):
     """x2 (N, D) with N = batch * C rows; valid (batch, C) bool or None;
@@ -57,21 +96,7 @@ def sheath_scan_plain(x2, batch: int, valid, mem0, sampled, jump_s,
         if i >= L:
             actions.append(0)
             continue
-        logits = l2norm(x) @ l2norm(w["mkey"][i]).t() / math.sqrt(d)
-        mem_score = torch.softmax(logits, dim=-1) @ w["mval"][i]
-        h = torch.nn.functional.silu(x @ w["vmlp1_w"][i] + w["vmlp1_b"][i])
-        mlp_score = h @ w["vmlp2_w"][i] + w["vmlp2_b"][i]
-        x_val = (mem_score * w["vcat_w"][i, 0] + mlp_score * w["vcat_w"][i, 1]
-                 + w["vcat_b"][i])
-        ion = ste_threshold(x_val, thresh)[:, None]
-        mu = x.mean(dim=-1, keepdim=True)
-        var = ((x - mu) * (x - mu)).mean(dim=-1, keepdim=True)
-        px = (x - mu) * torch.rsqrt(var + 1e-5) * w["ln_scale"][i] \
-            + w["ln_bias"][i]
-        apx = (px @ w["adapt_w"][i // 2] + w["adapt_b"][i // 2]
-               if i % 2 == 0 else px)
-        g = torch.sigmoid(px @ w["gate_w"][i] + w["gate_b"][i])[:, None]
-        x_new = x + g * (apx * ion)
+        x_new, ion = slot_rows(x, w, i, thresh)
         mem = (x_new.reshape(batch, c, d) * m[..., None]).sum(dim=1) / n_b
         mem_v = torch.sigmoid(mem @ w["memgate_w"] + w["memgate_b"])[:, None]
         mem_w = mem_v * mem_w + (1.0 - mem_v) * mem

@@ -31,14 +31,27 @@
    prints its RTFx (median of 5 timed runs), decode ms per step and the
    device kernels of one decode step at width 65 (torch.profiler), where
    the kernels of each wrapper in ``PROFILED`` the profiler sees must be
-   the launches the wrapper counted.
+   the launches the wrapper counted.  Then the same weights as a
+   streaming model (``ModelConfig(streaming=True)``) through the
+   incremental decode ``greedy_decode_stream``: the stream path (the
+   mel, flash, fused_abby and fused_sheath_scan kernels: the streaming
+   MSheath scan is PyTorch ops, as the JAX package runs it in XLA) and
+   stream+fused (adding the MLP and router kernels, no whole-call
+   attention), the same counted run and checks, one stream step at
+   position 64 under torch.profiler, and the stream path's RTFx at B 64
+   (median of 3), a record.
 4. Checks the output ids, the first decode step's logits on each path's
    kernel route against its plain route on the card (bf16 and f32, and
-   bf16 at B 128; argmax identical in every row), the fused path against
-   the default path (f32), and small f32 models (both paths) on the card
-   against the same models' plain route on the CPU.
-5. Prints the paths' JSON line, the ``kernels`` JSON line, the card
-   line, and as its last line ``{"ok": true, "device": {...}}``.
+   bf16 at B 128; argmax identical in every row; the stream path's first
+   step too), the fused path against the default path (f32), the stream
+   decode's tokens against the buffer decode's on the streaming model
+   (f32: equal, or a near tie at the first difference; bf16: the share
+   printed), and small f32 models (both paths, and a streaming one
+   through its stream steps) on the card against the same models' plain
+   route on the CPU.
+5. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
+   path), the card line, and as its last line ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -327,7 +340,14 @@ def check_kernels(model):
               # head width 256: 2 heads of a 512-wide model
               ("encoder self (8,2,1001,256)", 1001, 1001, False, False, 2),
               ("decode cached cross (8,2,65,256)x(8,2,1001,256)", 65, 1001,
-               False, False, 2)]
+               False, False, 2),
+              # the stream decode's step: one query row against the
+              # 65-position self/xa caches with the prefix mask (33 live),
+              # and against the audio caches
+              ("stream step (8,4,1,128)x(8,4,65,128) + prefix mask (33 "
+               "live)", 1, 65, False, 33, 4),
+              ("stream step (8,4,1,128)x(8,4,1001,128)", 1, 1001, False,
+               False, 4)]
     entries = []
     for label, tq, tk, causal, masked, H in shapes:
         hd = 512 // H
@@ -335,8 +355,10 @@ def check_kernels(model):
         k = torch.randn(BATCH, H, tk, hd, device=dev, generator=g).bfloat16()
         v = torch.randn(BATCH, H, tk, hd, device=dev, generator=g).bfloat16()
         valid = None
-        if masked:
-            lens = torch.arange(BATCH, device=dev) * 3 + 40
+        if masked:              # ragged lengths, or a prefix of ``masked``
+            lens = (torch.arange(BATCH, device=dev) * 3 + 40
+                    if masked is True else
+                    torch.full((BATCH,), masked, device=dev))
             valid = torch.arange(tk, device=dev)[None] < lens[:, None]
         got = attention.flash_attention(q, k, v, causal, valid)
         want = attention.attention_plain(q.float(), k.float(), v.float(),
@@ -348,9 +370,10 @@ def check_kernels(model):
               f"split(s) (tolerance {FLASH_TOL:g} max|plain|: the softmax "
               "weights and the output rounded to bf16; about twice the "
               "largest reading, 2.7e-3)")
-        pairs = tq * tk if not causal else sum(
-            min(tk, i + 1 + tk - tq) for i in range(tq))
-        flops = 4.0 * BATCH * H * pairs * hd
+        pairs = (tq * tk * BATCH if valid is None and not causal else
+                 _pairs(tq, tk, causal, valid if valid is not None else
+                        torch.ones(BATCH, tk, dtype=torch.bool, device=dev)))
+        flops = 4.0 * H * pairs * hd
         b_ms, b_by = bound_ms(flops, nbytes(q, k, v, got, valid), BF16_PEAK)
         mask = None
         if causal or masked:
@@ -383,7 +406,10 @@ def check_kernels(model):
                            ("decode (8*9, 512)", BATCH * 9, blk.ln),
                            ("decode head norm (8*4*65, 128)",
                             BATCH * 4 * 65, blk.attn.head_norm),
-                           ("encoder (8*1001, 512)", BATCH * 1001, blk.ln)]:
+                           ("encoder (8*1001, 512)", BATCH * 1001, blk.ln),
+                           ("stream step (8, 512)", BATCH, blk.ln),
+                           ("stream step head norm (8*4, 128)", BATCH * 4,
+                            blk.attn.head_norm)]:
         d = norm.dims
         x = (2 * torch.randn(n, d, device=dev, generator=g)).bfloat16()
         w = (norm.router_in.weight, norm.router_in.bias,
@@ -665,7 +691,10 @@ def check_fused_kernels(model, audio):
             ("self (8,65,512) + kv_valid", False, False, T),
             ("g cross (8,65,512) x (8,65,512) + kv_valid", False, True, T),
             ("self causal (8,9,512) + kv_valid", True, False, 9),
-            ("g cross (8,9,512) x (8,9,512) + kv_valid", False, True, 9)]:
+            ("g cross (8,9,512) x (8,9,512) + kv_valid", False, True, 9),
+            # the streaming model's g call: its cross causal too
+            ("g cross causal (8,65,512) x (8,65,512) + kv_valid", True,
+             True, T)]:
         x = rnd(BATCH, w, D)
         xa = rnd(BATCH, w, D) if cross else x
         vw = valid[:, :w] if w == T else (
@@ -705,7 +734,8 @@ def check_fused_kernels(model, audio):
     # the first bucket's width
     entries = []
     for label, n in [("decode (8*65, 512)", N), ("decode (8*9, 512)",
-                                                  BATCH * 9)]:
+                                                  BATCH * 9),
+                     ("stream step (8, 512)", BATCH)]:
         args = blk.mlp_fused_args(rnd(n, D))
         got = mlp.fused_mlp_residual(*args)
         want = mlp.mlp_residual_plain(*args)
@@ -740,6 +770,10 @@ def check_fused_kernels(model, audio):
         lg = torch.randn(n, 3, device=dev, generator=g)
         t_entries.append(_tail_entry(f"{label} + f32 logits",
                                      (x, lg, size_d, 1e-4, 1.0, 0.75)))
+    args = blk.router.fused_args(rnd(BATCH, D), blk.layer - 1)
+    r_entries.append(_router_entry(
+        f"stream step (8, 512), 3 modalities, {args[1].shape[0]} types",
+        args))
     out.append(_entry(
         "fused_router_same", "asr_model_tpu_torch/csrc/router.cu",
         "asr_model_tpu/ops/pallas/router_kernel.py:97", r_entries))
@@ -1085,20 +1119,25 @@ def frontend(audio, dtype=None):
     return mel.to(dtype), f0.to(dtype), wav.to(dtype)
 
 
-def transcribe(model, audio):
-    from asr_model_tpu_torch.models.generate import greedy_decode
-    mel, f0, wav = frontend(audio)
-    return greedy_decode(model, spectrogram=mel, pitch=f0, waveform=wav,
-                         max_new_tokens=NEW_TOKENS, suppress_eos=True)
+def transcribe(model, audio, stream: bool = False, dtype=None):
+    """The ids of a decode of ``audio``: the buffer decode, or with
+    ``stream`` the incremental decode of a streaming model."""
+    from asr_model_tpu_torch.models.generate import (greedy_decode,
+                                                     greedy_decode_stream)
+    mel, f0, wav = frontend(audio, dtype)
+    decode = greedy_decode_stream if stream else greedy_decode
+    return decode(model, spectrogram=mel, pitch=f0, waveform=wav,
+                  max_new_tokens=NEW_TOKENS, suppress_eos=True)
 
 
-def flagship(fused: bool, dtype=None):
-    """The flagship model from seed 0 (the same weights on both paths),
-    bf16 unless ``dtype`` says otherwise."""
+def flagship(fused: bool, dtype=None, streaming: bool = False):
+    """The flagship model from seed 0 (the same weights on every path:
+    a streaming model has the same parameters), bf16 unless ``dtype``
+    says otherwise."""
     import torch
     from asr_model_tpu_torch.config import Dimensions, ModelConfig
     from asr_model_tpu_torch.models.model import Model, cast_variables
-    cfg = ModelConfig(**FUSED_FIELDS) if fused else ModelConfig()
+    cfg = ModelConfig(streaming=streaming, **(FUSED_FIELDS if fused else {}))
     m = Model(Dimensions(), cfg, device=DEV, seed=0)
     return m if dtype == torch.float32 else cast_variables(m)
 
@@ -1132,6 +1171,33 @@ def first_step_logits(model, audio, dtype):
     return decode_step(model, ids, xa_kv, 1)
 
 
+def stream_state(model, audio, dtype=None, ids=None, upto: int = 0):
+    """The stream decode's inputs for ``audio``: the cross K/V, the
+    state after the steps at positions 0..upto-1 (tokens from ``ids``),
+    and the sinusoid table."""
+    from asr_model_tpu_torch.models.generate import prepare_cross
+    from asr_model_tpu_torch.models.model import modality_slots
+    from asr_model_tpu_torch.ops.audio import sinusoids
+    mel, f0, wav = frontend(audio, dtype)
+    xa_kv = prepare_cross(model, modality_slots(f0, mel, wav))
+    proc, T = model.processor, 1 + NEW_TOKENS
+    state = proc.init_stream_state(audio.shape[0], T, mel.dtype)
+    pe = sinusoids(T, proc.dims, proc.theta, device=audio.device)
+    for pos in range(upto):
+        proc.decode_stream_step(ids[:, pos], pos, state, xa_kv, pe)
+    return xa_kv, state, pe
+
+
+def first_stream_logits(model, audio, dtype):
+    """The logits of the stream decode's first step (BOS at position 0)."""
+    import torch
+    from asr_model_tpu_torch.config import BOS_ID
+    xa_kv, state, pe = stream_state(model, audio, dtype)
+    bos = torch.full((audio.shape[0],), BOS_ID, dtype=torch.long,
+                     device=audio.device)
+    return model.processor.decode_stream_step(bos, 0, state, xa_kv, pe)[0]
+
+
 def compare_logits(lk, lp, tol: float, what: str) -> float:
     """Fails past ``tol`` of the largest reference logit or when any
     row's argmax differs."""
@@ -1145,13 +1211,14 @@ def compare_logits(lk, lp, tol: float, what: str) -> float:
     return rel
 
 
-def route_check(model, audio, dtype, tol: float, why: str, label: str):
+def route_check(model, audio, dtype, tol: float, why: str, label: str,
+                logits=first_step_logits):
     """The first decode step's logits on the kernel route against the
     plain route on the card."""
-    lk = first_step_logits(model, audio, dtype)
+    lk = logits(model, audio, dtype)
     undo = plain_route()
     try:
-        lp = first_step_logits(model, audio, dtype)
+        lp = logits(model, audio, dtype)
     finally:
         undo()
     rel = compare_logits(lk, lp, tol, f"{label}: first decode step logits, "
@@ -1180,12 +1247,20 @@ PROFILED = {("fused_abby",): ("abby_cluster_kernel",),
                                       "mlp_linear_tc")}
 
 
-def step_profile(model, audio, ids):
-    """Every device kernel of one decode step at the last bucket (width
-    65, 64 live positions), PyTorch's own included, under torch.profiler:
-    (kernel launches, their device ms, copies and fills, top kernels, and
-    for each wrapper of ``PROFILED`` its launches as (the profiler's
-    count, the wrapper's count))."""
+def _clone(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def step_profile(model, audio, ids, stream: bool = False):
+    """Every device kernel of one decode step, PyTorch's own included,
+    under torch.profiler: the buffer decode's at the last bucket (width
+    65, 64 live positions), or the stream decode's at position 64 (its
+    caches full).  Returns (kernel launches, their device ms, copies and
+    fills, top kernels, and for each wrapper of ``PROFILED`` its
+    launches as (the profiler's count, the wrapper's count))."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1193,15 +1268,30 @@ def step_profile(model, audio, ids):
     from asr_model_tpu_torch.models.generate import decode_step, prepare_cross
     from asr_model_tpu_torch.models.model import modality_slots
     from asr_model_tpu_torch.ops import cuda as kernels
-    mel, f0, wav = frontend(audio)
-    xa_kv = prepare_cross(model, modality_slots(f0, mel, wav))
-    buf = ids[:, :1 + NEW_TOKENS].contiguous()
-    decode_step(model, buf, xa_kv, NEW_TOKENS)
+    if stream:
+        xa_kv, state, pe = stream_state(model, audio, ids=ids,
+                                        upto=NEW_TOKENS)
+        warm = _clone(state)
+
+        def step(st):
+            model.processor.decode_stream_step(ids[:, NEW_TOKENS],
+                                               NEW_TOKENS, st, xa_kv, pe)
+        step(warm)
+        args = (state,)
+    else:
+        mel, f0, wav = frontend(audio)
+        xa_kv = prepare_cross(model, modality_slots(f0, mel, wav))
+        buf = ids[:, :1 + NEW_TOKENS].contiguous()
+
+        def step():
+            decode_step(model, buf, xa_kv, NEW_TOKENS)
+        step()
+        args = ()
     torch.cuda.synchronize()
     kernels.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        decode_step(model, buf, xa_kv, NEW_TOKENS)
+        step(*args)
         torch.cuda.synchronize()
     counted = kernels.counts()
     rows, copies = [], 0
@@ -1223,20 +1313,23 @@ def step_profile(model, audio, ids):
             seen)
 
 
-def drive_path(model, audio, label: str, expect, runs: int = 5):
+def drive_path(model, audio, label: str, expect, runs: int = 5,
+               stream: bool = False, step_expect=None):
     """One decode path: a warm-up, the counted run (every kernel in
     ``expect`` launched, no other, no plain version), ``runs`` timed runs,
-    the phase split and the launches of one decode step."""
+    the phase split and the launches of one decode step (where the
+    wrappers of ``step_expect``, default ``expect``, must show in the
+    profile).  ``stream``: the incremental decode of a streaming model."""
     import torch
     from asr_model_tpu_torch.config import BOS_ID, EOS_ID, PAD_ID
     from asr_model_tpu_torch.models.generate import prepare_cross
     from asr_model_tpu_torch.models.model import modality_slots
     from asr_model_tpu_torch.ops import cuda as kernels
 
-    transcribe(model, audio)                 # warm-up
+    transcribe(model, audio, stream)         # warm-up
     torch.cuda.synchronize()
     kernels.reset_counts()
-    ids = transcribe(model, audio)
+    ids = transcribe(model, audio, stream)
     torch.cuda.synchronize()
     counts = kernels.counts()
     log(f"{label} path kernels " + json.dumps(counts))
@@ -1264,7 +1357,7 @@ def drive_path(model, audio, label: str, expect, runs: int = 5):
     for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        transcribe(model, audio)
+        transcribe(model, audio, stream)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     total = float(np.median(times))
@@ -1280,9 +1373,10 @@ def drive_path(model, audio, label: str, expect, runs: int = 5):
     front_ms, prep_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
     step_ms = (total * 1e3 - front_ms - prep_ms) / NEW_TOKENS
     rtfx = BATCH * UTT_SEC / total
-    launches, dev_ms, copies, top, seen = step_profile(model, audio, ids)
+    launches, dev_ms, copies, top, seen = step_profile(model, audio, ids,
+                                                       stream)
     for ws, (prof_n, wrap_n) in seen.items():
-        if not all(w in expect for w in ws):
+        if not all(w in (step_expect or expect) for w in ws):
             continue
         # the profiler may drop an event (a run read 15 of 16), never add
         check(0 < prof_n <= wrap_n, f"{label} path, one decode step: the "
@@ -1292,9 +1386,10 @@ def drive_path(model, audio, label: str, expect, runs: int = 5):
         + ", ".join(f"{t * 1e3:.1f}" for t in times)
         + f" ms per batch of {BATCH} x {UTT_SEC:.0f} s); frontend "
         f"{front_ms:.3f} ms, encode + re-encode + cross K/V {prep_ms:.3f} ms")
-    log(f"{label} path: decode {step_ms:.3f} ms per step; one step at width "
-        f"65: {launches} kernel launches ({dev_ms:.3f} ms of device time) "
-        f"and {copies} copies/fills under torch.profiler")
+    where = "position 64" if stream else "width 65"
+    log(f"{label} path: decode {step_ms:.3f} ms per step; one step at "
+        f"{where}: {launches} kernel launches ({dev_ms:.3f} ms of device "
+        f"time) and {copies} copies/fills under torch.profiler")
     return dict(rtfx=rtfx, ms_per_batch=total * 1e3,
                 ms_per_batch_runs=[t * 1e3 for t in times],
                 frontend_ms=front_ms, prepare_ms=prep_ms,
@@ -1303,16 +1398,18 @@ def drive_path(model, audio, label: str, expect, runs: int = 5):
                 counts=counts, ids=ids)
 
 
-def small_reference(fused: bool):
+def small_reference(fused: bool, streaming: bool = False):
     """A small f32 model (head width 128, so the fused gate admits it):
     kernel route on the card against the plain route on the CPU (the
-    route the CPU tests hold against the JAX package)."""
+    route the CPU tests hold against the JAX package); a streaming one
+    also through its stream decode's steps."""
     import torch
     from asr_model_tpu_torch.config import Dimensions, ModelConfig
     from asr_model_tpu_torch.models.model import Model
     from asr_model_tpu_torch.ops import cuda as kernels
     dims = Dimensions(tokens=512, mels=16, dims=128, head=1, layer=4)
-    cfg = ModelConfig(**FUSED_FIELDS) if fused else ModelConfig()
+    cfg = ModelConfig(streaming=streaming,
+                      **(FUSED_FIELDS if fused else {}))
     rng = np.random.RandomState(0)
     feats = dict(spectrogram=rng.randn(2, 16, 48).astype(np.float32),
                  pitch=rng.rand(2, 1, 48).astype(np.float32),
@@ -1330,12 +1427,101 @@ def small_reference(fused: bool):
              ("flash_attention", "fused_abby", "fused_sheath_scan"))
     rel = float((got["logits"].cpu() - want["logits"]).abs().max()) \
         / float(want["logits"].abs().max())
+    what = "streaming " if streaming else ""
+    what += "f32 model" + (" (fused path)" if fused else "")
     check(rel < 1e-3 and all(c[n]["launches"] > 0 for n in names),
-          f"small f32 model{' (fused path)' if fused else ''}, card kernels "
-          f"vs CPU plain: max abs err / max|ref| = {rel:.3e} (tolerance "
-          "1e-3: f32 sums in other orders through the stack); launched "
+          f"small {what}, card kernels vs CPU plain: max abs err / max|ref| "
+          f"= {rel:.3e} (tolerance 1e-3: f32 sums in other orders through "
+          "the stack); launched "
           + ", ".join(f"{n} {c[n]['launches']}" for n in names))
+    if streaming:
+        steps = [_small_stream_logits(m, ids, feats) for m in (cpu, gpu)]
+        srel = float((steps[1].cpu() - steps[0]).abs().max()) \
+            / float(steps[0].abs().max())
+        check(srel < 1e-3, f"small {what}, the stream decode's logits at "
+              f"positions 0..{ids.shape[1] - 1} (tokens teacher-forced), "
+              f"card kernels vs CPU plain: max abs err / max|ref| = "
+              f"{srel:.3e} (tolerance 1e-3)")
+        rel = max(rel, srel)
     return rel
+
+
+def _small_stream_logits(model, ids, feats):
+    """(T, B, vocab) logits of the stream decode's steps over ``ids``."""
+    import torch
+    from asr_model_tpu_torch.models.generate import prepare_cross
+    from asr_model_tpu_torch.models.model import modality_slots
+    from asr_model_tpu_torch.ops.audio import sinusoids
+    dev = model.device
+    f = {k: torch.from_numpy(v).to(dev) for k, v in feats.items()}
+    xa_kv = prepare_cross(model, modality_slots(f["pitch"], f["spectrogram"],
+                                                f["waveform"]))
+    proc, (b, t) = model.processor, ids.shape
+    state = proc.init_stream_state(b, t, torch.float32)
+    pe = sinusoids(t, proc.dims, proc.theta, device=dev)
+    ids = ids.to(dev)
+    return torch.stack([proc.decode_stream_step(ids[:, p], p, state, xa_kv,
+                                                pe)[0] for p in range(t)])
+
+
+def stream_vs_buffer(model, audio, dtype, tol: float):
+    """The stream decode's tokens against the buffer decode's on the same
+    streaming model.  In f32 (``tol`` given) they must be equal, unless
+    at the first step where they differ the buffer's two largest logits
+    of each differing row lie within ``tol`` max|logits| (a near tie that
+    sums in other orders may break the other way); in bf16 the share of
+    identical tokens is a record.  Returns that share."""
+    import torch
+    from asr_model_tpu_torch.config import EOS_ID
+    from asr_model_tpu_torch.models.generate import decode_step, prepare_cross
+    from asr_model_tpu_torch.models.model import modality_slots
+    ids_s = transcribe(model, audio, True, dtype)
+    ids_b = transcribe(model, audio, False, dtype)
+    share = float((ids_s == ids_b).float().mean())
+    if tol is None:
+        log(f"stream vs buffer decode of the streaming model "
+            f"({str(dtype)[6:]}): {100 * share:.1f}% of the tokens identical")
+        return share
+    if share == 1.0:
+        check(True, f"stream vs buffer decode of the streaming model "
+              f"({str(dtype)[6:]}): tokens identical")
+        return share
+    col = int((ids_s != ids_b).any(dim=0).nonzero()[0])
+    rows = (ids_s[:, col] != ids_b[:, col]).nonzero()[:, 0]
+    mel, f0, wav = frontend(audio, dtype)
+    xa_kv = prepare_cross(model, modality_slots(f0, mel, wav))
+    lg = decode_step(model, ids_b, xa_kv, col)
+    if col < ids_b.shape[1] - 1:
+        lg[:, EOS_ID] = float("-inf")
+    top2 = lg[rows].topk(2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).max()) / float(
+        lg[torch.isfinite(lg)].abs().max())
+    check(margin <= tol, f"stream vs buffer decode of the streaming model "
+          f"({str(dtype)[6:]}): {100 * share:.1f}% identical; first "
+          f"difference at step {col} in rows {rows.tolist()}, the buffer's "
+          f"top-two margin there {margin:.3e} max|logits| (a near tie "
+          f"passes within {tol:g}, the route tolerance)")
+    return share
+
+
+def stream_rtfx_at(model, batch: int, runs: int = 3) -> float:
+    """RTFx of the stream decode at ``batch`` utterances (median of
+    ``runs`` after a warm-up)."""
+    import torch
+    audio = torch.from_numpy(tones(batch, UTT_SEC)).to(DEV)
+    transcribe(model, audio, True)
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        transcribe(model, audio, True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rtfx = batch * UTT_SEC / float(np.median(times))
+    log(f"stream path at B {batch}: RTFx {rtfx:.3f} (median of {runs} runs "
+        "of " + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms per batch "
+        f"of {batch} x {UTT_SEC:.0f} s)")
+    return rtfx
 
 
 def main() -> int:
@@ -1398,6 +1584,32 @@ def main() -> int:
         model, audio128, torch.bfloat16, 7e-2,
         "bf16 rounds at other places on the two routes", "B 128")[0]
     del model, fused, audio128
+
+    # the streaming variant (same weights): the incremental decode, then
+    # the same with the fused fields (the stream step's MLPs and routers
+    # through their kernels; its attention is flash against the caches)
+    stream, stream_fused = (flagship(False, streaming=True),
+                            flagship(True, streaming=True))
+    stream_only = ("flash_attention", "fused_abby")
+    mlp_router = ("fused_mlp_residual", "fused_router_same")
+    paths["stream"] = drive_path(stream, audio, "stream",
+                                 kernels.DEFAULT_PATH, stream=True,
+                                 step_expect=stream_only)
+    paths["stream_fused"] = drive_path(
+        stream_fused, audio, "stream+fused", kernels.DEFAULT_PATH
+        + mlp_router, runs=3, stream=True,
+        step_expect=stream_only + mlp_router)
+    same = float((paths["stream_fused"]["ids"] == paths["stream"]["ids"])
+                 .float().mean())
+    log(f"bf16 tokens identical on the stream and stream+fused paths: "
+        f"{100 * same:.1f}%")
+    stream_vs_buffer(stream, audio, torch.bfloat16, None)
+    rel["stream_bf16"] = route_check(
+        stream, audio, torch.bfloat16, 7e-2,
+        "bf16 rounds at other places on the two routes", "stream path",
+        first_stream_logits)[0]
+    paths["stream"]["rtfx_b64"] = stream_rtfx_at(stream, 64)
+    del stream, stream_fused
     m32, fus32 = flagship(False, torch.float32), flagship(True, torch.float32)
     rel["default_f32"], l_def = route_check(
         m32, audio, torch.float32, 6e-5, "f32 sums in other orders",
@@ -1410,8 +1622,15 @@ def main() -> int:
         "path, both on their kernels (f32; the fused kernels sum and round "
         "in other places)")
     del m32, fus32
+    s32 = flagship(False, torch.float32, streaming=True)
+    stream_vs_buffer(s32, audio, torch.float32, 6e-5)
+    rel["stream_f32"] = route_check(
+        s32, audio, torch.float32, 6e-5, "f32 sums in other orders",
+        "stream path", first_stream_logits)[0]
+    del s32
     rel["small_default"] = small_reference(False)
     rel["small_fused"] = small_reference(True)
+    rel["small_stream"] = small_reference(False, streaming=True)
 
     for k in kern:
         by_path = {p: r["counts"][k["name"]]["launches"]

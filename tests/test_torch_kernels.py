@@ -126,6 +126,11 @@ FLASH_CASES = {
     # causal past head width 256 with a fully masked batch row: its key
     # tiles past the diagonal are kept (the uniform mean of V)
     "hd384_causal_200_masked_row": (2, 4, 200, 200, 384, True, [200, 0]),
+    # the streaming decode's step: one query row against the 65-position
+    # self/xa caches with the prefix mask, and against the 1001-frame
+    # audio caches (keys split over blocks)
+    "stream_1x65_prefix": (8, 4, 1, 65, 128, False, [33] * 8),
+    "stream_1x1001": (8, 4, 1, 1001, 128, False, None),
 }
 
 
@@ -144,6 +149,25 @@ def test_flash_kernel(dev, dtype, case):
     want = attention.attention_plain(q.float(), k.float(), v.float(),
                                      causal=causal, kv_valid=valid)
     assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_flash_stream_step_split_counters(dev):
+    """One query row against 1001 keys splits the keys over blocks; the
+    merge leaves its tile counters zero for the next call, and two calls
+    give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(28)
+    q, k, v = (torch.randn(8, 4, t, 128, device=dev, generator=g).bfloat16()
+               for t in (1, 1001, 1001))
+    assert attention.splits(32, 1, 1001, torch.cuda.get_device_properties(
+        dev).multi_processor_count) > 1
+    got = attention.flash_attention(q, k, v)
+    again = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert all(int(buf.abs().sum()) == 0
+               for buf in attention._COUNTERS.values())
+    want = attention.attention_plain(q.float(), k.float(), v.float())
+    assert _rel(got, want) < 2e-2
 
 
 @pytest.mark.parametrize("d", [128, 512])
@@ -173,7 +197,9 @@ ABBY_PATH = [(520, 512), (72, 512), (2080, 128), (8008, 512), (33, 512),
              # past D 2048 the rows stay in device memory (x streamed
              # through the W1 ring in bf16, 512 columns at a time in f32),
              # windows of 115 and 205 taps
-             (72, 2304), (520, 4096)]
+             (72, 2304), (520, 4096),
+             # the streaming decode's step: 8 rows, the heads' 8 * 4
+             (8, 512), (32, 128)]
 
 
 @pytest.mark.parametrize("n,d", ABBY_PATH)
@@ -330,13 +356,15 @@ def test_router_kernel(dev, dtype, n_mod):
 
 
 # (rows, D, types): the flagship's widths 65 and 9 at nt 2, 3, 8 and 12
-# (4 and 8 types a pass, two passes at 12), rows wider than the
+# (4 and 8 types a pass, two passes at 12), the streaming decode's
+# step (8 rows), rows wider than the
 # registers hold (D 4096 at two rows a CTA: read again), nt 8 at (8*9,
 # 4096) (bf16: the fold in shared memory, 128 KB; f32: past it, folded
 # into a workspace first), one row, rows of no 16-byte multiple, four
 # rows a CTA (2080 rows; at D 2048, 12 types, read again, the f32 fold
 # in a workspace)
 ROUTER_SHAPES = [(8 * 65, 512, 2), (8 * 65, 512, 3), (8 * 9, 512, 3),
+                 (8, 512, 3),
                  (8 * 65, 512, 8), (8 * 9, 512, 12), (8 * 65, 512, 12),
                  (520, 4096, 3), (8 * 9, 4096, 8), (1, 512, 3),
                  (40, 100, 5), (2080, 512, 3), (2080, 2048, 12)]
@@ -382,7 +410,7 @@ def _mlp_args(r, n, d, hid=None, nt=3):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [12, 8 * 65, 8 * 9])
+@pytest.mark.parametrize("n", [12, 8 * 65, 8 * 9, 8])
 def test_mlp_kernel(dev, dtype, n):
     r = _rand(dev, 7, dtype)
     args = _mlp_args(r, n, 512)
@@ -737,12 +765,13 @@ def _full_args(dev, dtype, b, t, ta, d, cross, causal, masked, seed=17,
 
 
 # the fused decode's full calls at the flagship width: the self calls
-# (causal with the prefix mask, non-causal) and the g block's cross call,
-# at the last and the first bucket's width
+# (causal with the prefix mask, non-causal) and the g block's cross call
+# (and the streaming model's causal one, x and xa position-aligned), at
+# the last and the first bucket's width
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("width", [65, 9])
 @pytest.mark.parametrize("causal,cross", [(True, False), (False, False),
-                                          (False, True)])
+                                          (False, True), (True, True)])
 def test_attn_full_kernel_flagship(dev, dtype, width, causal, cross):
     args, kw = _full_args(dev, dtype, 8, width, width, 512, cross, causal,
                           True)
