@@ -4,7 +4,7 @@ width, on one GPU, for one checkout of the package.
 
     python3 asr_model_tpu_torch/bench_kernels.py [--root DIR] [--repeats 5]
         [--only flash,abby,sheath,attn_full,attn_cached,mlp,router,tail,
-        floor] [--profile]
+        dio,floor] [--profile]
 
 At every decode width w (9, 17, ..., 65; 8 utterances, the flagship's 512
 channels, 4 heads of 128) and at encoder length (1001 frames), each
@@ -31,6 +31,11 @@ held against its plain version:
 - router: bf16 ``fused_router_same`` at (8 w, 512), 3 types, 3
   modalities (the fused decode's routers);
 - tail: bf16 ``fused_abby_tail`` at (8 w, 512) on f32 logits;
+- dio: ``dio_contour`` on DIO's own candidates of bench.py's tones, at
+  the serve batch (8, 7, 1001), a 30 s long-form chunk (1, 7, 3001) and
+  the tones with noise gaps every 0.25 s (8, 7, 1001); and the wall
+  time of the whole ``dio_pitch_track`` on the serve batch (host clock
+  around a synchronised call, median of 20 x ``--repeats``);
 - floor: one PyTorch kernel on a one-element tensor (``add_``), the
   device time this harness reads for a launch that does no work.
 Times are device time (chip_smoke.py's ``cuda_ms``), the median of
@@ -327,6 +332,50 @@ def bench_tail(dev, repeats, rows):
              lambda: abby.fused_abby_tail(*args), repeats)
 
 
+def bench_dio(dev, repeats, rows):
+    import time
+
+    import numpy as np
+    import torch
+    from chip_smoke import HOP, SR, tones
+    from asr_model_tpu_torch.ops import dio
+    from asr_model_tpu_torch.ops.cuda import dio as K
+    period = HOP / SR * 1000.0
+    vrm = dio.short_run(period)
+    batch = torch.from_numpy(tones(8, 10.0)).to(dev)
+    gapped = batch.clone()
+    g = torch.Generator(device=dev).manual_seed(7)
+    for i in range(0, gapped.shape[-1], SR // 2):
+        gapped[:, i:i + SR // 4] = 0.5 * torch.randn(
+            8, min(SR // 4, gapped.shape[-1] - i), device=dev, generator=g)
+    chunk = torch.from_numpy(tones(1, 30.0)).to(dev)
+    for label, x in (("tones (8, 7, 1001)", batch),
+                     ("30 s chunk (1, 7, 3001)", chunk),
+                     ("tones with noise gaps (8, 7, 1001)", gapped)):
+        cand, f0, _ = dio.contour_inputs(x, SR, period)
+        got = K.dio_contour(cand, f0, vrm, 0.1)
+        want = K.dio_contour_plain(cand, f0, vrm, 0.1)
+        if not torch.equal(got, want):
+            raise AssertionError(f"dio_contour {label} differs from plain")
+        _row(rows, "dio_contour", label, got, want,
+             lambda: K.dio_contour(cand, f0, vrm, 0.1), repeats)
+    # the whole of DIO + StoneMask on the serve batch, host clock around
+    # a synchronised call: what the serve frontend waits for
+    walls = []
+    for i in range(3 + 20 * repeats):
+        t0 = time.perf_counter()
+        dio.dio_pitch_track(batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    walls = walls[3:]
+    ms = float(np.median(walls))
+    rows.append(dict(kernel="dio_pitch_track", shape="(8, 160000) wall",
+                     ms=ms, ms_min=min(walls), ms_max=max(walls)))
+    print(f"dio_pitch_track (8, 160000): {ms:.3f} ms of wall time (median "
+          f"of {len(walls)}; min {min(walls):.3f}, max {max(walls):.3f})",
+          flush=True)
+
+
 def bench_floor(dev, repeats, rows):
     import torch
     x = torch.zeros(1, device=dev)
@@ -364,7 +413,7 @@ def main() -> int:
                "sheath": bench_sheath, "attn_full": bench_attn_full,
                "attn_cached": bench_attn_cached, "mlp": bench_mlp,
                "router": bench_router, "tail": bench_tail,
-               "floor": bench_floor}
+               "dio": bench_dio, "floor": bench_floor}
     for name in args.only.split(","):
         benches[name](dev, args.repeats, rows)
     print(json.dumps({"root": root, "card": card_line(), "rows": rows}))

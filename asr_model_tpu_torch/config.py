@@ -1,10 +1,14 @@
-"""Model configuration: the port's own copy of the model half of
-``asr_model_tpu/config.py`` (``Dimensions``, the ``ModelConfig`` options
-the port reads, the rotary/sinusoid base and the special token ids)."""
+"""Configuration: the port's own copy of ``asr_model_tpu/config.py``'s
+``Dimensions``, the ``ModelConfig`` options the port reads, the
+feature settings (``DataConfig``), the rotary/sinusoid base and the
+special token ids, and ``Config.from_json`` for the ``config.json`` the
+JAX training loop writes beside its checkpoints."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import json
+from dataclasses import dataclass, field
 
 THETA = 30000.0
 PAD_ID = 0
@@ -52,3 +56,61 @@ class ModelConfig:
     fused_attention: bool = False    # ops/cuda/xattn.py
     fused_mlp: bool = False          # ops/cuda/mlp.py
     fused_router: bool = False       # ops/cuda/router.py
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """The feature settings the serving frontend reads.  ``pitch_estimator``
+    is the F0 algorithm the model trained on, which the frontend must
+    compute too: "dio" (DIO + StoneMask) or "yin".  The reference's other
+    data fields come with the data path (ROADMAP Queue 1 item 7)."""
+
+    pitch: bool = True
+    waveform: bool = True
+    pitch_estimator: str = "dio"
+
+
+# reference options the port does not implement yet: (section, field,
+# the default the port runs, the ROADMAP Queue 1 item that brings it)
+UNSUPPORTED = (("model", "chained_blocks", False, 9),
+               ("model", "encoder_norm", False, 9),
+               ("model", "encoder_transformer", False, 9),
+               ("model", "msheath_mini_hc", False, 9),
+               ("model", "moe_experts", 0, 9),
+               ("data", "pitch_tokens", False, 9))
+
+
+def _build(cls, raw: dict):
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in raw.items() if k in names})
+
+
+@dataclass(frozen=True)
+class Config:
+    """The model, its dimensions and the feature settings of a trained
+    model (the JAX ``Config``'s ``optim`` and ``run`` sections are for
+    training and are not read)."""
+
+    dims: Dimensions = field(default_factory=Dimensions)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+
+    @staticmethod
+    def from_json(s: str) -> "Config":
+        """Reads the JAX ``Config.to_json()`` layout (``model.dims``
+        nested in ``model``).  A reference option the port does not
+        implement, set to anything but its default, is a ValueError
+        naming the ROADMAP item that brings it."""
+        raw = json.loads(s)
+        model = dict(raw.get("model", {}))
+        data = dict(raw.get("data", {}))
+        for section, name, default, item in UNSUPPORTED:
+            got = (model if section == "model" else data).get(name, default)
+            if got != default:
+                raise ValueError(
+                    f"{section}.{name}={got!r} is not implemented by the "
+                    f"PyTorch port yet (ROADMAP Queue 1 item {item})")
+        return Config(dims=_build(Dimensions, model.pop("dims", {})),
+                      model=_build(ModelConfig, model),
+                      data=_build(DataConfig, data))

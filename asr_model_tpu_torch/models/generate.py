@@ -1,5 +1,5 @@
-"""Greedy decode: the full-prefix buffer decode, and the incremental
-decode of the streaming variant.
+"""Greedy decode: the full-prefix buffer decode (plain, or prompted after
+BOS), and the incremental decode of the streaming variant.
 
 BOS starts each row; each step runs the decoder over the prefix
 buffer (every length-dependent op masked to the live prefix by
@@ -88,27 +88,26 @@ def _next_tokens(logits, done, length: int, T: int, suppress_eos: bool):
     return torch.where(done, torch.full_like(nxt, PAD_ID), nxt)
 
 
-def _start(xa: dict, max_new_tokens: int):
+def _start(xa: dict, max_new_tokens: int, prompt=None):
     fx = next(iter(xa.values()))
     batch, dev = fx.shape[0], fx.device
-    T = 1 + int(max_new_tokens)
+    p = 0 if prompt is None else prompt.shape[-1]
+    T = 1 + p + int(max_new_tokens)
     ids = torch.full((batch, T), PAD_ID, dtype=torch.long, device=dev)
     ids[:, 0] = BOS_ID
+    if p:
+        ids[:, 1:1 + p] = prompt.to(dev)
     return ids, torch.zeros(batch, dtype=torch.bool, device=dev), T
 
 
-@torch.no_grad()
-def greedy_decode(model: Model, spectrogram=None, pitch=None, waveform=None,
-                  max_new_tokens: int = 150, suppress_eos: bool = False):
-    """Returns (B, 1 + max_new_tokens) int64 ids: BOS, the generated
-    tokens, PAD after a row's EOS."""
-    xa = modality_slots(pitch, spectrogram, waveform)
+def _greedy(model: Model, xa: dict, max_new_tokens: int, suppress_eos: bool,
+            prompt=None):
     xa_kv = prepare_cross(model, xa)
-    ids, done, T = _start(xa, max_new_tokens)
-    length = 1
-    for s in _bucket_sizes(T, _decode_stages()):
-        if length >= s:
-            continue
+    ids, done, T = _start(xa, max_new_tokens, prompt)
+    length = 1 if prompt is None else 1 + prompt.shape[-1]
+    # only the buffer widths past the prompt serve a step
+    for s in [s for s in _bucket_sizes(T, _decode_stages()) if s > length] \
+            or [T]:
         if bool(done.all()):
             break
         while length < s:
@@ -118,6 +117,38 @@ def greedy_decode(model: Model, spectrogram=None, pitch=None, waveform=None,
             done = done | (nxt == EOS_ID)
             length += 1
     return ids
+
+
+@torch.no_grad()
+def greedy_decode(model: Model, spectrogram=None, pitch=None, waveform=None,
+                  max_new_tokens: int = 150, suppress_eos: bool = False):
+    """Returns (B, 1 + max_new_tokens) int64 ids: BOS, the generated
+    tokens, PAD after a row's EOS."""
+    return _greedy(model, modality_slots(pitch, spectrogram, waveform),
+                   max_new_tokens, suppress_eos)
+
+
+@torch.no_grad()
+def greedy_decode_prompted(model: Model, prompt, spectrogram=None,
+                           pitch=None, waveform=None,
+                           max_new_tokens: int = 150,
+                           suppress_eos: bool = False):
+    """Greedy decode seeded with a (B, P) token prompt after BOS (the
+    long-form decode's carry from one chunk to the next): (B, 1 + P +
+    max_new_tokens) ids, the prompt echoed.  An empty prompt gives
+    ``greedy_decode``'s tokens."""
+    return _greedy(model, modality_slots(pitch, spectrogram, waveform),
+                   max_new_tokens, suppress_eos, prompt=prompt.long())
+
+
+def generate_predictions(model: Model, tokenizer=None, spectrogram=None,
+                         pitch=None, waveform=None,
+                         max_new_tokens: int = 150):
+    """The reference's ``generate``: greedy with EOS suppressed until the
+    budget's last token."""
+    return greedy_decode(model, spectrogram=spectrogram, pitch=pitch,
+                         waveform=waveform, max_new_tokens=max_new_tokens,
+                         suppress_eos=True)
 
 
 @torch.no_grad()

@@ -12,10 +12,12 @@ Two decode paths use them.  The default one runs ``mel_spectrogram``,
 MLPs and routers go to ``fused_attn_cached`` / ``fused_attn_full``,
 ``fused_mlp_residual`` and ``fused_router_same`` as well.
 ``fused_abby_tail`` has no caller on either path (as in the JAX
-package); it serves direct callers."""
+package); it serves direct callers.  The serving frontend's DIO pitch
+(``ops/dio.py``) adds ``dio_contour``, the one kernel here with no
+Pallas counterpart (the JAX package runs that scan in XLA)."""
 
-from asr_model_tpu_torch.ops.cuda import (abby, attention, mel, mlp, router,
-                                          sheath, xattn)
+from asr_model_tpu_torch.ops.cuda import (abby, attention, dio, mel, mlp,
+                                          router, sheath, xattn)
 
 WRAPPERS = {
     "mel_spectrogram": (mel.mel_spectrogram, mel.mel_spectrogram_plain),
@@ -28,6 +30,7 @@ WRAPPERS = {
     "fused_mlp_residual": (mlp.fused_mlp_residual, mlp.mlp_residual_plain),
     "fused_router_same": (router.fused_router_same, router.router_same_plain),
     "fused_abby_tail": (abby.fused_abby_tail, abby.abby_tail_plain),
+    "dio_contour": (dio.dio_contour, dio.dio_contour_plain),
 }
 
 # the wrappers the default decode path launches; the fused path adds
@@ -36,6 +39,8 @@ DEFAULT_PATH = ("mel_spectrogram", "flash_attention", "fused_abby",
                 "fused_sheath_scan")
 FUSED_ONLY = ("fused_attn_cached", "fused_attn_full", "fused_mlp_residual",
               "fused_router_same")
+# the serving path (``Transcriber`` with DIO pitch) at the default config
+SERVE_PATH = DEFAULT_PATH + ("dio_contour",)
 
 
 def reset_counts() -> None:

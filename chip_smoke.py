@@ -40,7 +40,24 @@
    attention), the same counted run and checks, one stream step at
    position 64 under torch.profiler, and the stream path's RTFx at B 64
    (median of 3), a record.
-4. Checks the output ids, the first decode step's logits on each path's
+4. Serving (``Transcriber``, the same flagship weights): the kernels at
+   the serving shapes no decode path runs (a 30 s long-form chunk: the
+   mel on (1, 480000), flash over 3001 frames and against 3001 keys,
+   ``fused_abby`` (3001, 512), the MSheath scan (1*3001, 512); beam 4's
+   cross against 1001 keys), DIO's contour kernel ``dio_contour``
+   against its plain version (exactly) at 8 x 1001 and 1 x 3001 frames
+   and the card's DIO + StoneMask against the port's CPU route, then the
+   serve path: ``transcribe_batch`` on the 8 x 10 s tones (DIO pitch on
+   the card, 64 tokens, EOS not suppressed; RTFx the median of 3),
+   ``__call__`` with beam 4, ``transcribe_long`` on 62 s (3 chunks, 32
+   tokens each); it must launch exactly mel, flash, fused_abby,
+   fused_sheath_scan and dio_contour and no plain version, and each
+   transcript must be the tokenizer's decode of its ids.  Prints the
+   frontend's ms split and launches, and the first step's logits on the
+   serve features and at the chunk's shapes against the plain route.
+   The streaming flagship's ``transcribe_batch`` must take
+   ``greedy_decode_stream``.
+5. Checks the output ids, the first decode step's logits on each path's
    kernel route against its plain route on the card (bf16 and f32, and
    bf16 at B 128; argmax identical in every row; the stream path's first
    step too), the fused path against the default path (f32), the stream
@@ -49,7 +66,7 @@
    printed), and small f32 models (both paths, and a streaming one
    through its stream steps) on the card against the same models' plain
    route on the CPU.
-5. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
+6. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
    path), the card line, and as its last line ``{"ok": true, "device":
    {...}}``.
 
@@ -1016,6 +1033,140 @@ def check_lifted_shapes() -> dict:
     return out
 
 
+def check_serve_shapes(model) -> dict:
+    """The kernels at the serving path's shapes no decode path runs: a
+    30 s long-form chunk (the mel on (1, 480000), flash over 3001 frames
+    and the chunk decode's cross against 3001 keys, ``fused_abby`` on
+    (3001, 512), the MSheath scan on (1*3001, 512)) and beam 4's cross
+    (4 beams at width 65 against one utterance's 1001 keys), with the
+    flagship block's weights, held as ``check_kernels`` holds them and
+    timed.  Returns {kernel name: [entries]} for the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+    from asr_model_tpu_torch.models.sheath import masked_mean
+    from asr_model_tpu_torch.ops.cuda import abby, attention, mel, sheath
+    from asr_model_tpu_torch.ops.mel import mel_filterbank
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(41)
+    out: dict = {}
+    add = lambda name, entry: out.setdefault(name, []).append(entry)
+
+    audio = torch.from_numpy(tones(1, LONG_SEC)[:, :CHUNK_SAMPLES]).to(dev)
+    got, want = mel.mel_spectrogram(audio), mel.mel_spectrogram_plain(audio)
+    err = (got - want).abs()
+    check(bool((err <= MEL_RTOL * want.abs() + MEL_ATOL).all()),
+          f"mel_spectrogram long-form chunk (1, 480000): max abs err "
+          f"{float(err.max()):.3e} (tolerance {MEL_RTOL:g} |plain| + "
+          f"{MEL_ATOL:g} on every bin, as at (8, 160000))")
+    window = torch.hann_window(1024, device=dev)
+    fb = torch.from_numpy(mel_filterbank(513, 50.0, 8000.0, 128)).to(dev)
+    nnz = int(np.count_nonzero(fb.cpu().numpy()))
+    flops = got.shape[-1] * (2.5 * 1024 * 10 + 3 * 513 + 2.0 * nnz)
+    b_ms, b_by = bound_ms(flops, nbytes(audio, got), F32_PEAK)
+    ms = cuda_ms(lambda: mel.mel_spectrogram(audio))
+
+    def lib_mel():
+        sp = torch.stft(audio, 1024, HOP, window=window, center=True,
+                        pad_mode="constant", return_complex=True)
+        return torch.einsum("bft,fm->bmt", sp.real ** 2 + sp.imag ** 2, fb)
+
+    add("mel_spectrogram", dict(
+        shape="serve: long-form chunk (1, 480000) f32",
+        max_abs_err=float(err.max()), ms=ms,
+        plain_ms=cuda_ms(lambda: mel.mel_spectrogram_plain(audio)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_mel),
+        **rates(flops, ms, b_ms)))
+
+    for label, b, tq, tk in (
+            ("serve: long-form encoder self (1,4,3001,128)", 1, 3001, 3001),
+            ("serve: long-form cached cross (1,4,41,128)x(1,4,3001,128)", 1,
+             41, 3001),
+            ("serve: beam 4 cached cross (4,4,65,128)x(4,4,1001,128)", 4,
+             65, 1001)):
+        q, k, v = (torch.randn(b, 4, t_, 128, device=dev, generator=g)
+                   .bfloat16() for t_ in (tq, tk, tk))
+        got = attention.flash_attention(q, k, v, False, None)
+        want = attention.attention_plain(q.float(), k.float(), v.float(),
+                                         False, None)
+        e, bad, rows = close_rows(got, want, 0.0, FLASH_TOL, 128)
+        check(bad == 0, f"flash_attention {label}: max abs err {e:.3e}, "
+              f"{bad}/{rows} rows out (tolerance {FLASH_TOL:g} max|plain|, "
+              "as at the decode shapes)")
+        flops = 4.0 * 4 * b * tq * tk * 128
+        b_ms, b_by = bound_ms(flops, nbytes(q, k, v, got), BF16_PEAK)
+        ms = cuda_ms(lambda: attention.flash_attention(q, k, v, False, None))
+        add("flash_attention", dict(
+            shape=label, max_abs_err=e, ms=ms,
+            plain_ms=cuda_ms(lambda: attention.attention_plain(
+                q, k, v, False, None)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v)), **rates(flops, ms, b_ms)))
+
+    blk = model.processor.block
+    norm = blk.ln
+    x = (2 * torch.randn(3001, 512, device=dev, generator=g)).bfloat16()
+    w = (norm.router_in.weight, norm.router_in.bias, norm.router_out.weight,
+         norm.router_out.bias)
+    size = abby.window_size(512)
+    got = abby.fused_abby(x, *w, size, 1e-4, 1.0, 0.75)
+    want = abby.abby_plain(x, *w, size, 1e-4, 1.0, 0.75)
+    e, bad, rows = close_rows(got, want, 8e-3, 1e-3, 512)
+    check(bad <= rows // 1000, f"fused_abby serve: long-form (3001, 512): "
+          f"max abs err {e:.3e}, {bad}/{rows} rows out (the tolerance at "
+          "the decode shapes)")
+    flops = _abby_ops(3001, 512, size)
+    b_ms, b_by = bound_ms(flops, nbytes(x, got, *w), BF16_PEAK)
+    ms = cuda_ms(lambda: abby.fused_abby(x, *w, size, 1e-4, 1.0, 0.75))
+    add("fused_abby", dict(
+        shape="serve: long-form (3001, 512)", max_abs_err=e, ms=ms,
+        plain_ms=cuda_ms(lambda: abby.abby_plain(x, *w, size, 1e-4, 1.0,
+                                                 0.75)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **rates(flops, ms, b_ms)))
+
+    jm = blk.jump
+    wts = jm.scan_weights()
+    sw = {kk: wts[kk] for kk in sheath.WEIGHT_NAMES}
+    kw = sheath.kernel_weights(sw, jm.layer)
+    n_prod = 3 if kw["split"] else 2
+    x = torch.randn(1, 3001, 512, device=dev, generator=g).bfloat16()
+    pooled = masked_mean(x, None, dim=1)[:, 0]
+    sampled = torch.argmax(jm.pnet(pooled).mean(0)).to(torch.int32)
+    args = (x.reshape(-1, 512), 1, None, wts["mem0"], sampled, wts["jump_s"],
+            sw, jm.layer, jm.thresh)
+    got, act_k, js_k = sheath.fused_sheath_scan(*args)
+    want, act_p, js_p = sheath.sheath_scan_plain(*args)
+    e, bad, rows = close_rows(got, want, 8e-3, 1e-3, 512)
+    same = act_k.tolist() == act_p.tolist() and js_k.tolist() == js_p.tolist()
+    check(bad <= rows // 1000 and same,
+          f"fused_sheath_scan serve: long-form (1*3001, 512): max abs err "
+          f"{e:.3e}, {bad}/{rows} rows out, actions {act_k.tolist()} vs "
+          f"{act_p.tolist()} (the tolerance at the decode shapes; actions "
+          "and jstat exact)")
+    slots, i = [], 0
+    for a in act_k.tolist():
+        if i >= jm.layer:
+            break
+        slots.append(i)
+        i = min(i + a + 1, jm.layer) if a > 0 else i + 1
+    n, d2, m = 3001, 256, jm.mem
+    flops = sum(2.0 * n * 512 * (m + d2) + (2.0 * n * 512 * 512
+                                           if s_ % 2 == 0 else 0)
+                + 30.0 * n * 512 for s_ in slots)
+    b_ms, b_by = bound_ms(flops, nbytes(x, got, wts["mem0"], wts["jump_s"])
+                          + _sheath_weight_bytes(sw, kw, slots),
+                          TF32_PEAK / n_prod)
+    ms = cuda_ms(lambda: sheath.fused_sheath_scan(*args))
+    add("fused_sheath_scan", dict(
+        shape="serve: long-form (1*3001, 512)", max_abs_err=e,
+        slots=len(slots), ms=ms,
+        plain_ms=cuda_ms(lambda: sheath.sheath_scan_plain(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        tf32_products=n_prod, **rates(flops, ms, b_ms)))
+    return out
+
+
 WIDE_D = 1280                # a block wider than any in the repo's configs
 
 
@@ -1254,11 +1405,12 @@ def _clone(tree):
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
-def step_profile(model, audio, ids, stream: bool = False):
+def step_profile(model, audio, ids, stream: bool = False, feats=None):
     """Every device kernel of one decode step, PyTorch's own included,
     under torch.profiler: the buffer decode's at the last bucket (width
-    65, 64 live positions), or the stream decode's at position 64 (its
-    caches full).  Returns (kernel launches, their device ms, copies and
+    65, 64 live positions; on ``feats`` when given, else the YIN
+    frontend's features of ``audio``), or the stream decode's at position
+    64 (its caches full).  Returns (kernel launches, their device ms, copies and
     fills, top kernels, and for each wrapper of ``PROFILED`` its
     launches as (the profiler's count, the wrapper's count))."""
     import re
@@ -1279,7 +1431,8 @@ def step_profile(model, audio, ids, stream: bool = False):
         step(warm)
         args = (state,)
     else:
-        mel, f0, wav = frontend(audio)
+        mel, f0, wav = frontend(audio) if feats is None else (
+            feats["spectrogram"], feats["pitch"], feats["waveform"])
         xa_kv = prepare_cross(model, modality_slots(f0, mel, wav))
         buf = ids[:, :1 + NEW_TOKENS].contiguous()
 
@@ -1396,6 +1549,296 @@ def drive_path(model, audio, label: str, expect, runs: int = 5,
                 decode_ms_per_step=step_ms, step_launches=launches,
                 step_device_ms=dev_ms, step_copies=copies, step_top=top,
                 counts=counts, ids=ids)
+
+
+# ------------------------------------------------------------- serving
+
+LONG_SEC, LONG_TOKENS, CHUNK_SAMPLES = 62.0, 32, 30 * SR
+TOKENIZER = os.path.join(ROOT, "asr_model_tpu_torch", "assets",
+                         "tokenizer.json")
+
+
+def serve_logits(model, audio, dtype):
+    """The first decode step's logits on the serving frontend's features
+    (log-mel, DIO + StoneMask pitch, frame-rate waveform)."""
+    import torch
+    from asr_model_tpu_torch.config import BOS_ID
+    from asr_model_tpu_torch.models.generate import decode_step, prepare_cross
+    from asr_model_tpu_torch.models.longform import features
+    from asr_model_tpu_torch.models.model import modality_slots
+    mel, f0, wav = features(audio, SR, HOP, model.dims.mels, dtype, "dio")
+    xa_kv = prepare_cross(model, modality_slots(f0, mel, wav))
+    ids = torch.full((audio.shape[0], 9), 0, dtype=torch.long,
+                     device=audio.device)
+    ids[:, 0] = BOS_ID
+    return decode_step(model, ids, xa_kv, 1)
+
+
+def _check_counts(label, counts, expect):
+    for name, c in counts.items():
+        if name in expect:
+            check(c["launches"] > 0, f"{label} launched {name} "
+                  f"{c['launches']} times")
+        else:
+            check(c["launches"] == 0, f"{label} did not launch {name} "
+                  f"({c['launches']})")
+        check(c["plain_calls"] == 0, f"{label} made no plain {name} call "
+              f"({c['plain_calls']})")
+
+
+def host_ms(fn, runs: int = 3) -> float:
+    """Median wall ms of ``fn`` from a synchronised start to a
+    synchronised end."""
+    import torch
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def profile_launches(fn):
+    """(kernel launches, their device ms) of one call of ``fn`` under
+    torch.profiler, PyTorch's own kernels and copies included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n, ms = 0, 0.0
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            n += evt.count
+            ms += us / 1e3
+    return n, ms
+
+
+def check_dio(audio):
+    """The contour kernel against its plain version (exactly) on DIO's
+    own candidates of the tones (B 8 x 1001 frames) and of a 30 s
+    long-form chunk (1 x 3001), timed; the card's whole DIO + StoneMask
+    against the port's CPU route.  Returns the kernel's entry."""
+    import torch
+    from asr_model_tpu_torch.ops import dio
+    from asr_model_tpu_torch.ops.cuda import dio as K
+    vrm = dio.short_run(HOP / SR * 1000.0)
+    chunk = torch.from_numpy(tones(1, LONG_SEC)[:, :CHUNK_SAMPLES]).to(DEV)
+    # the tones with every other 0.25 s a stretch of noise: voiced runs
+    # that end, start and jump, so the contour fix has frames to change
+    gapped = audio.clone()
+    g = torch.Generator(device=DEV).manual_seed(7)
+    for i in range(0, gapped.shape[-1], SR // 2):
+        gapped[:, i:i + SR // 4] = 0.5 * torch.randn(
+            gapped.shape[0], min(SR // 4, gapped.shape[-1] - i), device=DEV,
+            generator=g)
+    entries = []
+    for label, x in (("tones (8, 7, 1001)", audio),
+                     ("long-form chunk (1, 7, 3001)", chunk),
+                     ("tones with noise gaps (8, 7, 1001)", gapped)):
+        cand, f0, _ = dio.contour_inputs(x, SR, HOP / SR * 1000.0)
+        got = K.dio_contour(cand, f0, vrm, 0.1)
+        want = K.dio_contour_plain(cand, f0, vrm, 0.1)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        changed = int((got != f0).sum())
+        check(same, f"dio_contour {label}: {'equal to' if same else 'DIFFERS from'}"
+              f" the plain version (max abs err {err:.3e}; the fix changed "
+              f"{changed} of {f0.numel()} frames; tolerance: exact, the "
+              "kernel only compares and selects)")
+        # the bound: the candidates and f0 read once, the contour written
+        # once; the scans' operations (a division, a compare and a select
+        # per candidate and frame, both ways) at the f32 rate
+        b, nb, nf = cand.shape
+        flops = 2.0 * b * nf * nb * 6 + 10.0 * b * nf
+        b_ms, b_by = bound_ms(flops, nbytes(cand, f0, got), F32_PEAK)
+        ms = cuda_ms(lambda: K.dio_contour(cand, f0, vrm, 0.1))
+        plain = cuda_ms(lambda: K.dio_contour_plain(cand, f0, vrm, 0.1),
+                        iters=2, warmup=1)
+        log(f"dio_contour {label}: {ms:.4f} ms, plain version {plain:.1f} ms, "
+            f"bound {b_ms:.3g} ms ({b_by})")
+        entries.append(dict(
+            shape=label, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    card, _ = dio.dio_pitch_track(audio)
+    cpu, _ = dio.dio_pitch_track(audio.cpu())
+    card, cpu = card.cpu().numpy(), cpu.numpy()
+    vc, vp = card > 0, cpu > 0
+    both = vc & vp
+    d = np.abs(card[both] - cpu[both])
+    share, med, mean = float((vc == vp).mean()), float(np.median(d)), \
+        float(d.mean())
+    check(share >= 0.99 and med < 0.01 and mean < 0.5,
+          f"dio_pitch_track (8, 160000) on the card vs the CPU route: "
+          f"voicing equal on {100 * share:.2f}% of frames; on the "
+          f"{int(both.sum())} voiced in both median |df0| {med:.3e} Hz, "
+          f"mean {mean:.3e}, max {float(d.max()):.3e} (tolerance >= 99%, "
+          "median < 0.01 Hz, mean < 0.5 Hz: FFTs in other orders can move "
+          "a zero crossing and so one frame's candidate)")
+    return dict(name="dio_contour", route="cuda",
+                source="asr_model_tpu_torch/csrc/dio.cu",
+                replaces="asr_model_tpu/ops/dio.py:181 (_fix_contour, "
+                         "an XLA lax.scan: no Pallas kernel)",
+                **{k: entries[0][k] for k in entries[0] if k != "shape"},
+                shape=entries[0]["shape"], shapes=entries,
+                dio_vs_cpu=dict(voicing_share=share, median_hz=med,
+                                mean_hz=mean))
+
+
+def serve_path(model, audio):
+    """``Transcriber`` on the flagship weights (bf16, DIO pitch on the
+    card, the port's tokenizer): ``transcribe_batch`` on the 8 x 10 s
+    tones (64 new tokens, EOS not suppressed), ``__call__`` with beam 4
+    on one of them, ``transcribe_long`` on 62 s (3 chunks of 30 s, 32
+    tokens a chunk).  The counted run covers all three and must launch
+    exactly ``SERVE_PATH``; each transcript must equal the tokenizer's
+    decode of its ids."""
+    import torch
+    from asr_model_tpu_torch.config import EOS_ID, PAD_ID
+    from asr_model_tpu_torch.data.tokenizer import setup_tokenizer
+    from asr_model_tpu_torch.models.beam import beam_search
+    from asr_model_tpu_torch.models.generate import greedy_decode
+    from asr_model_tpu_torch.models.longform import chunk_audio
+    from asr_model_tpu_torch.models.longform import transcribe_long
+    from asr_model_tpu_torch.ops import cuda as kernels
+    from asr_model_tpu_torch.ops.audio import frame_rate_waveform
+    from asr_model_tpu_torch.ops.dio import dio_pitch_track
+    from asr_model_tpu_torch.ops.mel import log_mel_spectrogram
+    from asr_model_tpu_torch.transcribe import Transcriber
+    tok = setup_tokenizer(TOKENIZER)
+    t = Transcriber(model, tok, bf16=True, max_new_tokens=NEW_TOKENS,
+                    device=DEV)
+    wavs = list(audio.cpu().numpy())
+    long_wav = tones(1, LONG_SEC)[0]
+    long_kw = dict(max_new_tokens_per_chunk=LONG_TOKENS)
+    t.transcribe_batch(wavs)                   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    texts = t.transcribe_batch(wavs)
+    beam_text = t(wavs[0], beam_size=4)
+    long_text = t.transcribe_long(long_wav, **long_kw)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    log("serve path kernels " + json.dumps(counts))
+    _check_counts("serve path", counts, kernels.SERVE_PATH)
+
+    feats = t.features(audio)
+    ids = t._decode(feats, NEW_TOKENS)
+    gen = ids[:, 1:]
+    tokens = int((gen > EOS_ID).sum())
+    check(texts == tok.batch_decode(ids.tolist()) and len(texts) == BATCH,
+          f"serve transcribe_batch: {BATCH} transcripts, each the "
+          f"tokenizer's decode of its ids ({tokens} text tokens of "
+          f"{BATCH * NEW_TOKENS} decoded, {int((gen == EOS_ID).sum())} EOS, "
+          f"{int((gen == PAD_ID).sum())} PAD, {int((gen == 1).sum())} BOS; "
+          f"the weights are random); first: {texts[0][:60]!r}")
+    sample = "the quick brown fox, 1234 don't"
+    check(tok.decode(tok.encode(sample)) == " " + sample,
+          f"the port's tokenizer (no regex package): encode + decode of "
+          f"{sample!r} gives it back (with the ByteLevel prefix space)")
+    b_ids, b_score = beam_search(model, **t.features(audio[:1]), beam_size=4,
+                                 max_new_tokens=NEW_TOKENS)
+    check(beam_text == tok.decode(b_ids[0].tolist())
+          and bool(torch.isfinite(b_score).all()),
+          f"serve beam 4: the transcript is the decode of the best beam "
+          f"(score {float(b_score[0]):.4f}): {beam_text[:60]!r}")
+    l_ids, l_text = transcribe_long(model, long_wav, tokenizer=tok,
+                                    **long_kw)
+    n_chunks = len(chunk_audio(long_wav, SR))
+    check(n_chunks == 3 and l_text == long_text
+          and l_text == tok.decode(l_ids),
+          f"serve transcribe_long {LONG_SEC:.0f} s: {n_chunks} chunks, "
+          f"{len(l_ids)} tokens, the transcript the decode of its ids")
+
+    batch_ms = [host_ms(lambda: t.transcribe_batch(wavs), runs=1)
+                for _ in range(3)]
+    rtfx = BATCH * UTT_SEC / (float(np.median(batch_ms)) / 1e3)
+    beam_ms = host_ms(lambda: t(wavs[0], beam_size=4), runs=1)
+    long_ms = host_ms(lambda: t.transcribe_long(long_wav, **long_kw),
+                      runs=1)
+    front = dict(
+        mel=host_ms(lambda: log_mel_spectrogram(audio, SR, 1024, HOP, 128)),
+        dio=host_ms(lambda: dio_pitch_track(audio, SR, HOP / SR * 1000.0)),
+        waveform=host_ms(lambda: frame_rate_waveform(audio, SR, HOP)),
+        whole=host_ms(lambda: t.features(audio)))
+    dio_n, dio_dev = profile_launches(
+        lambda: dio_pitch_track(audio, SR, HOP / SR * 1000.0))
+    front_n, front_dev = profile_launches(lambda: t.features(audio))
+    s_launches, s_dev, s_copies, s_top, _ = step_profile(model, audio, ids,
+                                                         feats=feats)
+    # the decode alone on the serve features (DIO) and on the default
+    # path's (YIN), both without EOS suppression, in turns A B B A
+    yin = dict(zip(("spectrogram", "pitch", "waveform"), frontend(audio)))
+    dec = {"dio": [], "yin": []}
+    for name in ("dio", "yin", "yin", "dio"):
+        f = feats if name == "dio" else yin
+        dec[name].append(host_ms(lambda: greedy_decode(
+            model, **f, max_new_tokens=NEW_TOKENS), runs=1))
+    log(f"serve path: RTFx {rtfx:.3f} (median of 3 transcribe_batch runs of "
+        + ", ".join(f"{m:.1f}" for m in batch_ms) + f" ms, {BATCH} x "
+        f"{UTT_SEC:.0f} s, {NEW_TOKENS} new tokens); beam 4 on one "
+        f"utterance {beam_ms:.1f} ms; transcribe_long {LONG_SEC:.0f} s "
+        f"{long_ms:.1f} ms (RTFx {LONG_SEC / long_ms * 1e3:.3f})")
+    log(f"serve frontend ({BATCH} x {UTT_SEC:.0f} s): {front['whole']:.3f} ms in all, "
+        f"{front_n} kernel launches, {front_dev:.3f} ms of device time; "
+        f"mel {front['mel']:.3f} ms, DIO + StoneMask {front['dio']:.3f} ms "
+        f"({dio_n} launches, {dio_dev:.3f} ms of device time), waveform "
+        f"{front['waveform']:.3f} ms")
+    log("serve path: the decode alone (ms, turns A B B A): on the DIO "
+        f"features {dec['dio']}, on the YIN features {dec['yin']}")
+    log(f"serve path: one decode step at width 65 on the serve features: "
+        f"{s_launches} kernel launches ({s_dev:.3f} ms of device time) and "
+        f"{s_copies} copies/fills under torch.profiler; top: "
+        + json.dumps(s_top[:4]))
+    return dict(rtfx=rtfx, decode_ms_dio=dec["dio"], decode_ms_yin=dec["yin"],
+                step_launches=s_launches, step_device_ms=s_dev,
+                step_top=s_top, ms_per_batch_runs=batch_ms, beam4_ms=beam_ms,
+                long_ms=long_ms, long_rtfx=LONG_SEC / long_ms * 1e3,
+                tokens_decoded=tokens, frontend_ms=front,
+                frontend_launches=front_n, frontend_device_ms=front_dev,
+                dio_launches=dio_n, dio_device_ms=dio_dev, counts=counts)
+
+
+def serve_stream(model, audio):
+    """``transcribe_batch`` on the streaming flagship: it must take
+    ``greedy_decode_stream`` (once) and give that decode's ids."""
+    import torch
+    import asr_model_tpu_torch.transcribe as T
+    from asr_model_tpu_torch.data.tokenizer import setup_tokenizer
+    from asr_model_tpu_torch.ops import cuda as kernels
+    t = T.Transcriber(model, setup_tokenizer(TOKENIZER), bf16=True,
+                      max_new_tokens=NEW_TOKENS, device=DEV)
+    wavs = list(audio.cpu().numpy())
+    calls = []
+    orig = T.greedy_decode_stream
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    T.greedy_decode_stream = spy
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        texts = t.transcribe_batch(wavs)
+        torch.cuda.synchronize()
+    finally:
+        T.greedy_decode_stream = orig
+    counts = kernels.counts()
+    _check_counts("serve stream path", counts, kernels.SERVE_PATH)
+    ids = orig(model, **t.features(audio), max_new_tokens=NEW_TOKENS)
+    check(len(calls) == 1 and texts == t.tokenizer.batch_decode(ids.tolist()),
+          f"serve on the streaming flagship: transcribe_batch took "
+          f"greedy_decode_stream {len(calls)} time(s) and gave its ids' "
+          "transcripts")
+    return dict(counts=counts)
 
 
 def small_reference(fused: bool, streaming: bool = False):
@@ -1583,7 +2026,28 @@ def main() -> int:
     rel["default_bf16_b128"] = route_check(
         model, audio128, torch.bfloat16, 7e-2,
         "bf16 rounds at other places on the two routes", "B 128")[0]
-    del model, fused, audio128
+    del fused, audio128
+
+    # serving: the kernels at the long-form and beam shapes, DIO's
+    # contour kernel and the card's DIO, then Transcriber end to end
+    served = check_serve_shapes(model)
+    for k in kern:
+        k["shapes"] += served.get(k["name"], [])
+    kern.append(check_dio(audio))
+    paths["serve"] = serve_path(model, audio)
+    log(f"serve path RTFx {paths['serve']['rtfx']:.3f} against the default "
+        f"path's {paths['default']['rtfx']:.3f} in this call (the serve "
+        "path: DIO pitch, EOS not suppressed)")
+    rel["serve_bf16"] = route_check(
+        model, audio, torch.bfloat16, 7e-2,
+        "bf16 rounds at other places on the two routes", "serve path "
+        "(DIO features)", serve_logits)[0]
+    chunk = torch.from_numpy(tones(1, LONG_SEC)[:, :CHUNK_SAMPLES]).to(DEV)
+    rel["serve_long_chunk_bf16"] = route_check(
+        model, chunk, torch.bfloat16, 7e-2,
+        "bf16 rounds at other places on the two routes", "serve long-form "
+        "chunk (1, 480000)", serve_logits)[0]
+    del model, chunk
 
     # the streaming variant (same weights): the incremental decode, then
     # the same with the fused fields (the stream step's MLPs and routers
@@ -1609,6 +2073,7 @@ def main() -> int:
         "bf16 rounds at other places on the two routes", "stream path",
         first_stream_logits)[0]
     paths["stream"]["rtfx_b64"] = stream_rtfx_at(stream, 64)
+    paths["serve_stream"] = serve_stream(stream, audio)
     del stream, stream_fused
     m32, fus32 = flagship(False, torch.float32), flagship(True, torch.float32)
     rel["default_f32"], l_def = route_check(
@@ -1635,7 +2100,10 @@ def main() -> int:
     for k in kern:
         by_path = {p: r["counts"][k["name"]]["launches"]
                    for p, r in paths.items()}
-        k["launches"] = by_path["fused"]
+        # the serving frontend's kernel counts on the serve path, the
+        # others on the fused path
+        k["launches"] = by_path["serve" if k["name"] == "dio_contour"
+                                else "fused"]
         k["launches_by_path"] = by_path
 
     if FAILURES:

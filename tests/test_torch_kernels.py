@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from asr_model_tpu_torch.ops.cuda import (abby, attention, mel, mlp, router,
-                                          sheath, xattn)
+from asr_model_tpu_torch.ops.cuda import (abby, attention, dio, mel, mlp,
+                                          router, sheath, xattn)
 
 pytestmark = pytest.mark.cuda
 
@@ -864,3 +864,36 @@ def test_attn_cached_kernel_hd256(dev, dtype, width, tk):
     got = xattn.fused_attn_cached(*args, **kw)
     want = xattn.attn_cached_plain(*args, **kw)
     assert _rel(got, want) < _tol(dtype)
+
+
+def _contour_inputs(dev, b, nb, nf, seed):
+    """DIO-like band candidates (a slow contour, 40% holes) and the best
+    candidate a frame with gaps, short runs and 1.5x jumps."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = 120 + 60 * torch.sin(torch.arange(nf, device=dev) / 17.0)
+    cand = base * (1 + 0.08 * torch.randn(b, nb, nf, device=dev,
+                                          generator=g))
+    cand = torch.where(torch.rand(b, nb, nf, device=dev, generator=g) < 0.4,
+                       torch.zeros_like(cand), cand)
+    f0 = cand[:, 0].clone()
+    f0 = torch.where(torch.rand(b, nf, device=dev, generator=g) < 0.3,
+                     torch.zeros_like(f0), f0)
+    jump = torch.rand(b, nf, device=dev, generator=g) < 0.05
+    return cand.contiguous(), torch.where(jump, 1.5 * f0, f0).contiguous()
+
+
+# the serve path's 8 x 10 s batch, a 30 s long-form chunk, 90 s
+# utterances and a tiny band count
+@pytest.mark.parametrize("b,nb,nf", [(8, 7, 1001), (1, 7, 3001),
+                                     (3, 7, 9000), (2, 3, 17)])
+def test_dio_contour_kernel(dev, b, nb, nf):
+    """The contour fix only compares and selects: exactly the plain
+    version's output."""
+    cand, f0 = _contour_inputs(dev, b, nb, nf, seed=nf)
+    dio.dio_contour.launches = 0
+    got = dio.dio_contour(cand, f0, 3, 0.1)
+    want = dio.dio_contour_plain(cand, f0, 3, 0.1)
+    torch.cuda.synchronize()
+    assert dio.dio_contour.launches == 1
+    assert torch.equal(got, want)
+

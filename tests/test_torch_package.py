@@ -14,11 +14,12 @@ import torch
 from asr_model_tpu_torch.config import Dimensions
 from asr_model_tpu_torch.models.model import Model
 from asr_model_tpu_torch.ops import cuda as kernels
-from asr_model_tpu_torch.ops.cuda import (abby, attention, build, mel, mlp,
-                                          router, sheath, xattn)
+from asr_model_tpu_torch.ops.cuda import (abby, attention, build, dio, mel,
+                                          mlp, router, sheath, xattn)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "asr_model_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "asr_model_tpu", "regex",
+             "tokenizers", "msgpack")
 
 
 def _imports(path: Path):
@@ -47,7 +48,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_every_kernel_source_is_built():
     names = {p.name for p in build.sources()}
     assert names == {"abby.cu", "flash_attention.cu", "mel.cu", "sheath.cu",
-                     "xattn.cu", "mlp.cu", "router.cu"}
+                     "xattn.cu", "mlp.cu", "router.cu", "dio.cu"}
     headers = {p.name for p in build.CSRC.glob("*.cuh")}
     assert headers == {"common.cuh", "abby_tail.cuh", "abby_cluster.cuh",
                        "mma.cuh"}
@@ -113,6 +114,8 @@ def _cpu_calls():
             t(4, d), t(3, 3 * d), t(3), t(3, 3 * d), t(3), t(1), 3),
         "fused_abby_tail": lambda: abby.fused_abby_tail(
             t(4, d), t(4, 3), 3, 1e-4, 1.0, 0.75),
+        "dio_contour": lambda: dio.dio_contour(
+            100 + 10 * t(2, 7, 30).abs(), 100 + t(2, 30).abs(), 3, 0.1),
     }
 
 
