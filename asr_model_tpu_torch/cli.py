@@ -1,0 +1,178 @@
+"""Training entry point, the counterpart of ``asr_model_tpu/cli.py``:
+
+    python -m asr_model_tpu_torch.cli --synthetic 16 --max-steps 4 \\
+        --batch-size 8 --train-dtype bfloat16
+
+tokenizer -> dataset -> 80/20 split -> Model -> MaxFactor (two bias
+groups) + FAMScheduler2 -> ``train_and_evaluate``.  It runs on the card
+unless ``--device cpu`` is given.  The JAX CLI's flags that this port
+does not implement yet are accepted and refused with the ROADMAP item
+that brings them: ``--metadata`` / ``--data-dir`` (a dataset of files),
+``--import-reference``, ``--remat``, ``--mesh-*``, ``--microbatches``,
+``--moe-experts``, ``--chained-blocks``, ``--pitch-tokens``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+from datetime import datetime
+
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("asr_model_tpu_torch")
+    p.add_argument("--metadata", type=str, default=None)
+    p.add_argument("--data-dir", type=str, default=None)
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train on N synthetic utterances")
+    p.add_argument("--tokenizer", type=str, default=None)
+    p.add_argument("--max-steps", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--lr", type=float, default=2.5e-3)
+    p.add_argument("--warmup-steps", type=int, default=10)
+    p.add_argument("--eval-interval", type=int, default=10)
+    p.add_argument("--save-interval", type=int, default=0)
+    p.add_argument("--log-dir", type=str, default=None)
+    p.add_argument("--checkpoint-dir", type=str, default=None)
+    p.add_argument("--resume", type=str, default=None)
+    p.add_argument("--import-reference", type=str, default=None)
+    p.add_argument("--generate", action="store_true",
+                   help="free-running greedy eval WER instead of "
+                        "teacher-forced")
+    p.add_argument("--dims", type=int, default=512)
+    p.add_argument("--head", type=int, default=4)
+    p.add_argument("--layer", type=int, default=4)
+    p.add_argument("--tokens", type=int, default=40000)
+    p.add_argument("--mels", type=int, default=128)
+    p.add_argument("--act", type=str, default="gelu")
+    p.add_argument("--n-type", type=str, default="AbbyNormal")
+    p.add_argument("--chained-blocks", action="store_true")
+    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--causal-all", action="store_true")
+    p.add_argument("--moe-experts", type=int, default=0)
+    p.add_argument("--moe-top-k", type=int, default=2)
+    p.add_argument("--pitch-tokens", action="store_true")
+    p.add_argument("--pitch-estimator", type=str, default="dio",
+                   choices=["dio", "yin"],
+                   help="the pitch features' F0: DIO + StoneMask (native, "
+                        "on the host) or YIN (on the device)")
+    p.add_argument("--no-pitch", action="store_true")
+    p.add_argument("--no-waveform", action="store_true")
+    p.add_argument("--pad-multiple", type=int, default=128,
+                   help="length-bucket padding (0 = exact padding)")
+    for axis in ("data", "model", "seq", "expert", "pipe"):
+        p.add_argument(f"--mesh-{axis}", type=int, default=1)
+    p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat-policy", type=str, default="dots",
+                   choices=["dots", "full"])
+    p.add_argument("--train-dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--prefetch", type=int, default=2)
+    p.add_argument("--device", type=str, default=None,
+                   help="the device to train on (default: the card; "
+                        "'cpu' runs the plain PyTorch route)")
+    return p
+
+
+def _refuse(args) -> None:
+    """The JAX CLI's options this port does not implement yet."""
+    later = [(args.metadata or args.data_dir, "--metadata/--data-dir "
+              "(a dataset of audio files)", 7),
+             (args.import_reference, "--import-reference", 7),
+             (args.remat, "--remat", 7),
+             (any(getattr(args, f"mesh_{a}") != 1 for a in
+                  ("data", "model", "seq", "expert", "pipe")),
+              "--mesh-*", 10),
+             (args.microbatches != 1, "--microbatches", 10),
+             (args.moe_experts, "--moe-experts", 9),
+             (args.chained_blocks, "--chained-blocks", 9),
+             (args.pitch_tokens, "--pitch-tokens", 9)]
+    for on, flag, item in later:
+        if on:
+            raise SystemExit(f"{flag} is not implemented by the PyTorch "
+                             f"port yet (ROADMAP Queue 1 item {item})")
+    if not args.synthetic:
+        raise SystemExit("need --synthetic N (datasets of files come with "
+                         "ROADMAP Queue 1 item 7)")
+
+
+def main(argv=None) -> dict:
+    args = build_argparser().parse_args(argv)
+    _refuse(args)
+    from asr_model_tpu_torch.config import (Config, DataConfig, Dimensions,
+                                            ModelConfig, OptimConfig,
+                                            RunConfig)
+    from asr_model_tpu_torch.data.dataset import (Repeated,
+                                                  SyntheticDataset,
+                                                  random_split)
+    from asr_model_tpu_torch.data.tokenizer import setup_tokenizer
+    from asr_model_tpu_torch.models.model import Model
+    from asr_model_tpu_torch.train.loop import train_and_evaluate
+    from asr_model_tpu_torch.utils import resolve_device
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s - %(levelname)s - %(message)s")
+    dev = resolve_device(args.device)
+    log_dir = args.log_dir or os.path.join(
+        "./logs", datetime.now().strftime("%m-%d_%H_%M_%S"))
+    os.makedirs(log_dir, exist_ok=True)
+    tokenizer = setup_tokenizer(args.tokenizer
+                                or os.path.join(ASSETS, "tokenizer.json"))
+    if args.tokens < tokenizer.get_vocab_size():
+        raise SystemExit(
+            f"--tokens {args.tokens} is smaller than the tokenizer vocab "
+            f"({tokenizer.get_vocab_size()}): label ids would index out of "
+            "bounds. Use --tokens >= vocab size.")
+
+    data = DataConfig(spectrogram=True, pitch=not args.no_pitch,
+                      waveform=not args.no_waveform,
+                      pitch_estimator=args.pitch_estimator, mels=args.mels)
+    extract_args = {"spectrogram": True, "pitch": data.pitch,
+                    "waveform": data.waveform,
+                    "pitch_estimator": data.pitch_estimator,
+                    "hop_length": data.hop_length,
+                    "sample_rate": data.sample_rate, "mels": data.mels}
+    dims = Dimensions(tokens=args.tokens, mels=args.mels, dims=args.dims,
+                      head=args.head, layer=args.layer, act=args.act,
+                      n_type=args.n_type)
+    cfg = Config(
+        dims=dims,
+        model=ModelConfig(streaming=args.streaming,
+                          causal_all=args.causal_all),
+        data=data,
+        optim=OptimConfig(lr=args.lr, warmup_steps=args.warmup_steps,
+                          total_steps=args.max_steps),
+        run=RunConfig(max_steps=args.max_steps, batch_size=args.batch_size,
+                      eval_interval=args.eval_interval,
+                      save_interval=args.save_interval,
+                      checkpoint_dir=args.checkpoint_dir or log_dir,
+                      log_dir=log_dir, generate=args.generate,
+                      train_dtype=args.train_dtype,
+                      prefetch_depth=args.prefetch))
+
+    dataset = SyntheticDataset(n=args.synthetic, tokenizer=tokenizer,
+                               extract_args=extract_args, device=dev)
+    train_ds, eval_ds = random_split(dataset, 0.8, seed=cfg.run.seed)
+    pad = args.pad_multiple or None
+    text_pad = 16 if pad else None
+    train_loader = Repeated(train_ds, batch_size=cfg.run.batch_size,
+                            pad_to_multiple=pad, text_pad_to_multiple=text_pad)
+    eval_loader = Repeated(eval_ds, batch_size=cfg.run.batch_size,
+                           pad_to_multiple=pad, text_pad_to_multiple=text_pad)
+    model = Model(dims, cfg.model, device=dev, seed=cfg.run.seed)
+    summary = train_and_evaluate(model, tokenizer, train_loader, eval_loader,
+                                 cfg, resume_from=args.resume)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"Train dataset size: {len(train_ds)}")
+    print(f"Test dataset size: {len(eval_ds)}")
+    print(f"Trainable parameters: {n_params:,}")
+    summary["model"] = model
+    return summary
+
+
+if __name__ == "__main__":
+    main()

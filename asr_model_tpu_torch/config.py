@@ -1,14 +1,18 @@
 """Configuration: the port's own copy of ``asr_model_tpu/config.py``'s
 ``Dimensions``, the ``ModelConfig`` options the port reads, the
-feature settings (``DataConfig``), the rotary/sinusoid base and the
-special token ids, and ``Config.from_json`` for the ``config.json`` the
-JAX training loop writes beside its checkpoints."""
+feature settings (``DataConfig``), the optimizer and schedule
+(``OptimConfig``) and training-loop settings (``RunConfig``), the
+rotary/sinusoid base and the special token ids, and
+``Config.from_json`` / ``to_json`` for the ``config.json`` the training
+loops (the JAX package's and the port's) write beside their
+checkpoints, in the JAX package's layout."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
 from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 THETA = 30000.0
 PAD_ID = 0
@@ -38,6 +42,7 @@ class ModelConfig:
 
     ctx: int = 2048              # decoder context cap (learned positions)
     theta: float = THETA         # sinusoid / rotary base
+    dropout: float = 0.1         # the audio encoder's, in train mode
     # the reference masks only the first self-attention call of a block
     # causally; causal_all masks every decoder self-attention
     causal_all: bool = False
@@ -60,14 +65,67 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The feature settings the serving frontend reads.  ``pitch_estimator``
-    is the F0 algorithm the model trained on, which the frontend must
-    compute too: "dio" (DIO + StoneMask) or "yin".  The reference's other
-    data fields come with the data path (ROADMAP Queue 1 item 7)."""
+    """The feature settings the training features and the serving
+    frontend read.  ``pitch_estimator`` is the F0 algorithm the model
+    trained on, which the frontend must compute too: "dio" (DIO +
+    StoneMask: the native host code for training features, the device
+    code when serving), "dio_host" (the native host code everywhere) or
+    "yin"."""
 
+    spectrogram: bool = True
     pitch: bool = True
     waveform: bool = True
     pitch_estimator: str = "dio"
+    hop_length: int = 160
+    sample_rate: int = 16000
+    mels: int = 128
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """MaxFactor + FAMScheduler2 settings (the reference's main())."""
+
+    lr: float = 2.5e-3
+    b_decay: float = -0.8
+    eps: Tuple[float, float] = (1e-8, 1e-8)
+    d: float = 1.0
+    decay: float = 1e-2
+    gamma: float = 0.99
+    maximize: bool = False
+    bias: int = 1
+    jump_bias: int = 2           # the 'jump' / 'pnet' group
+    min_lr: float = 1e-9
+    clip: bool = False
+    cap: float = 0.0
+    warmup_steps: int = 10
+    total_steps: int = 100
+    decay_start: Optional[int] = None
+    warmup_start: float = 1e-6
+    eta_min: float = 1e-6
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Training-loop settings, single device.  ``train_dtype``
+    "bfloat16" runs the forward and backward in bf16 over f32 master
+    weights and optimizer state; ``prefetch_depth`` collated batches are
+    prepared ahead on a worker thread."""
+
+    max_steps: int = 100
+    batch_size: int = 1
+    acc_steps: int = 1
+    log_interval: int = 10
+    eval_interval: int = 10
+    save_interval: int = 0
+    warmup_interval: int = 10
+    checkpoint_dir: str = "./checkpoints"
+    log_dir: str = "./logs"
+    generate: bool = False       # free-running vs teacher-forced eval WER
+    clip_grad_norm: float = 0.0
+    train_dtype: str = "float32"
+    max_new_tokens: int = 150
+    seed: int = 0
+    prefetch_depth: int = 2
 
 
 # reference options the port does not implement yet: (section, field,
@@ -77,7 +135,17 @@ UNSUPPORTED = (("model", "chained_blocks", False, 9),
                ("model", "encoder_transformer", False, 9),
                ("model", "msheath_mini_hc", False, 9),
                ("model", "moe_experts", 0, 9),
-               ("data", "pitch_tokens", False, 9))
+               ("data", "pitch_tokens", False, 9),
+               ("data", "harmonics", False, 9),
+               ("data", "aperiodics", False, 9),
+               ("data", "phase", False, 9),
+               ("run", "remat", False, 7),
+               ("run", "mesh_data", 1, 10),
+               ("run", "mesh_model", 1, 10),
+               ("run", "mesh_seq", 1, 10),
+               ("run", "mesh_expert", 1, 10),
+               ("run", "mesh_pipe", 1, 10),
+               ("run", "microbatches", 1, 10))
 
 
 def _build(cls, raw: dict):
@@ -88,13 +156,25 @@ def _build(cls, raw: dict):
 
 @dataclass(frozen=True)
 class Config:
-    """The model, its dimensions and the feature settings of a trained
-    model (the JAX ``Config``'s ``optim`` and ``run`` sections are for
-    training and are not read)."""
+    """A model, its dimensions, its feature settings and its training
+    settings."""
 
     dims: Dimensions = field(default_factory=Dimensions)
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    run: RunConfig = field(default_factory=RunConfig)
+
+    def to_json(self) -> str:
+        """The JAX ``Config.to_json()`` layout (``dims`` nested in
+        ``model``); the JAX package's ``Config.from_json`` reads it (and
+        ignores the port-only fields, the fused-kernel switches)."""
+        model = dataclasses.asdict(self.model) | {
+            "dims": dataclasses.asdict(self.dims)}
+        return json.dumps({"model": model,
+                           "data": dataclasses.asdict(self.data),
+                           "optim": dataclasses.asdict(self.optim),
+                           "run": dataclasses.asdict(self.run)}, indent=2)
 
     @staticmethod
     def from_json(s: str) -> "Config":
@@ -103,14 +183,16 @@ class Config:
         implement, set to anything but its default, is a ValueError
         naming the ROADMAP item that brings it."""
         raw = json.loads(s)
-        model = dict(raw.get("model", {}))
-        data = dict(raw.get("data", {}))
+        sec = {k: dict(raw.get(k, {}))
+               for k in ("model", "data", "optim", "run")}
         for section, name, default, item in UNSUPPORTED:
-            got = (model if section == "model" else data).get(name, default)
+            got = sec[section].get(name, default)
             if got != default:
                 raise ValueError(
                     f"{section}.{name}={got!r} is not implemented by the "
                     f"PyTorch port yet (ROADMAP Queue 1 item {item})")
-        return Config(dims=_build(Dimensions, model.pop("dims", {})),
-                      model=_build(ModelConfig, model),
-                      data=_build(DataConfig, data))
+        return Config(dims=_build(Dimensions, sec["model"].pop("dims", {})),
+                      model=_build(ModelConfig, sec["model"]),
+                      data=_build(DataConfig, sec["data"]),
+                      optim=_build(OptimConfig, sec["optim"]),
+                      run=_build(RunConfig, sec["run"]))

@@ -17,10 +17,11 @@ rotary.
   and ``attend_cached`` (``sdpa`` against the caches, then out_proj).
 
 Every ``sdpa`` call runs the flash kernel on a CUDA tensor
-(``ops/cuda/attention.py``) and the plain masked softmax on a CPU one.
+(``ops/cuda/attention.py``; under autograd its forward, with the plain
+masked softmax's backward) and the plain masked softmax on a CPU one.
 With ``fused``, a whole call goes to ``ops/cuda/xattn.py`` instead
 wherever the JAX package's PALLAS_XATTN gate would route it
-(``Attention._fused_ok``).
+(``Attention._fused_ok``: eval route only, no train mode or generator).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import math
 import torch
 import torch.nn as nn
 
+from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.norms import AbbyNormal
 from asr_model_tpu_torch.models.registry import get_norm
 from asr_model_tpu_torch.models.rotary import Rotary
@@ -125,7 +127,8 @@ class Attention(nn.Module):
         """The JAX package's PALLAS_XATTN gate (``Attention.
         _fused_call_eligible``): AbbyNormal norms, lane-aligned width and
         head width, decode-prefix sizes, bounded K/V per batch row."""
-        return (self.fused and isinstance(self.q_norm, AbbyNormal)
+        return (self.fused and stochastic.eval_route()
+                and isinstance(self.q_norm, AbbyNormal)
                 and self.dims % 128 == 0
                 and (self.dims // self.head) % 128 == 0
                 and x.dtype in (torch.bfloat16, torch.float32)

@@ -1,11 +1,16 @@
-"""Convolutional audio feature encoder, eval.
+"""Convolutional audio feature encoder.
 
 ConvLite: pointwise -> GLU -> depthwise (k=15) -> BatchNorm -> SiLU ->
-pointwise, residual.  AudioEncoder: a per-modality stem (``conv1`` for
-multi-channel spectrograms, ``conv2`` for mono tracks) then ``layer`` x
-[act, weight-norm conv k3, LayerNorm, ConvLite, act, depthwise conv k3,
-act], then + sinusoids.  Activations are channel-last (B, T, C); the
-convolutions are plain PyTorch (the JAX package leaves them to XLA).
+pointwise -> dropout, residual.  AudioEncoder: a per-modality stem
+(``conv1`` for multi-channel spectrograms, ``conv2`` for mono tracks)
+then ``layer`` x [act, weight-norm conv k3, LayerNorm, ConvLite, act,
+depthwise conv k3, act, dropout], then + sinusoids.  Activations are
+channel-last (B, T, C); the convolutions are plain PyTorch (the JAX
+package leaves them to XLA).  In train mode (``stochastic.mode``) each
+slot is its own pass (BatchNorm's batch statistics and running updates
+per modality, as the reference calls it) and dropout draws from the
+train generator; in eval identical slots encode once and slots of one
+length share one pass.
 """
 
 from __future__ import annotations
@@ -15,9 +20,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from asr_model_tpu_torch.config import THETA
+from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.norms import BatchNorm1d, LayerNorm
 from asr_model_tpu_torch.models.registry import get_activation
-from asr_model_tpu_torch.models.tlayers import Conv1d, param, uniform_
+from asr_model_tpu_torch.models.tlayers import (Conv1d, dropout, param,
+                                               uniform_)
 from asr_model_tpu_torch.ops.audio import sinusoids
 
 
@@ -55,9 +62,10 @@ def glu(x):
 
 
 class ConvLite(nn.Module):
-    def __init__(self, dims: int, kernel_size: int = 15, device=None,
-                 dtype=None):
+    def __init__(self, dims: int, kernel_size: int = 15,
+                 dropout: float = 0.1, device=None, dtype=None):
         super().__init__()
+        self.rate = dropout
         kw = dict(device=device, dtype=dtype)
         self.point1 = Conv1d(dims, 2 * dims, 1, **kw)
         self.depth = Conv1d(dims, dims, kernel_size, groups=dims, **kw)
@@ -67,7 +75,7 @@ class ConvLite(nn.Module):
     def forward(self, x):
         y = glu(self.point1(x))
         y = F.silu(self.bn(self.depth(y)))
-        return x + self.point2(y)
+        return x + dropout(self.point2(y), self.rate)
 
 
 class AudioEncoder(nn.Module):
@@ -75,11 +83,12 @@ class AudioEncoder(nn.Module):
     spectrogram, 1 for pitch / waveform), (B, T, dims) out."""
 
     def __init__(self, mels: int, dims: int, head: int, layer: int,
-                 act: str, theta: float = THETA, device=None, dtype=None):
+                 act: str, theta: float = THETA, dropout: float = 0.1,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.act = get_activation(act)
-        self.theta = theta
+        self.theta, self.rate = theta, dropout
         self.layer = layer
         self.conv1 = Conv1d(mels, dims, 3, **kw)
         self.conv2 = Conv1d(1, dims, 3, **kw)
@@ -87,7 +96,8 @@ class AudioEncoder(nn.Module):
             self.add_module(f"enc{i}_wn", WeightNormConv1d(dims, dims, 3,
                                                            **kw))
             self.add_module(f"enc{i}_ln", LayerNorm(dims, **kw))
-            self.add_module(f"enc{i}_convlite", ConvLite(dims, 15, **kw))
+            self.add_module(f"enc{i}_convlite",
+                            ConvLite(dims, 15, dropout, **kw))
             self.add_module(f"enc{i}_dw", Conv1d(dims, dims, 3, groups=dims,
                                                  **kw))
 
@@ -105,7 +115,7 @@ class AudioEncoder(nn.Module):
             x = getattr(self, f"enc{i}_convlite")(x)
             x = act(x)
             x = getattr(self, f"enc{i}_dw")(x)
-            x = act(x)
+            x = dropout(act(x), self.rate)
         pe = sinusoids(x.shape[1], x.shape[-1], self.theta, device=x.device)
         return x + pe.to(x.dtype)
 
@@ -115,6 +125,10 @@ class AudioEncoder(nn.Module):
         (every op of the stack is row-local in eval)."""
         keys = [k for k in ("a", "b", "c") if xa.get(k) is not None]
         out = {k: v for k, v in xa.items() if k not in keys}
+        if stochastic.train_mode():
+            for k in keys:
+                out[k] = self.stack(self.stem(xa[k]))
+            return out
         groups: dict = {}
         for k in keys:
             groups.setdefault(id(xa[k]), []).append(k)

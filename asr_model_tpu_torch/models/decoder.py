@@ -1,4 +1,4 @@
-"""Decoder: the residual block and the multi-modal ``Processor``, eval.
+"""Decoder: the residual block and the multi-modal ``Processor``.
 
 Residual (per call):
   x, _ = MSheath(ln(x));  x = router(x x (layer-1)) + attn(ln(x), causal)
@@ -30,7 +30,11 @@ block reaches the output, so it is the only block built.  Per call:
 The per-slot re-encode blk(xa[k]) and the cross K/V precompute run once
 per utterance (``encode_xa``, ``precompute_cross``); every
 length-dependent op reads ``text_valid``, so a fixed buffer computes
-what the live prefix would.
+what the live prefix would.  Off the eval route (train mode or a
+generator) the flow is the JAX package's training one
+(``run_block_xa``): every slot is its own re-encode call, identical
+slots included, and each cross call runs its own xa-side MSheath and
+K/V (each call its own gumbel draws and jump counter).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 import torch.nn as nn
 
 from asr_model_tpu_torch.config import THETA
+from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.attention import Attention
 from asr_model_tpu_torch.models.gates import Router, TGate
 from asr_model_tpu_torch.models.norms import AbbyNormal
@@ -86,7 +91,8 @@ class Residual(nn.Module):
         """The JAX package's PALLAS_MLP gate (``Residual.
         _mlp_fused_eligible``): AbbyNormal ``ln``, exact-erf GELU,
         lane-aligned width, decode-prefix sizes."""
-        return (self.fused_mlp and self.act_name == "gelu"
+        return (self.fused_mlp and stochastic.eval_route()
+                and self.act_name == "gelu"
                 and isinstance(self.ln, AbbyNormal)
                 and x.dtype in (torch.bfloat16, torch.float32)
                 and self.dims % 128 == 0 and x.numel() <= 400_000)
@@ -170,6 +176,25 @@ def run_block(blk: Residual, x, xa_kv: Dict, text_valid=None,
     b = blk(a, cached_kv=xa_kv["a"], **kw) if "a" in xa_kv else a
     c = blk(b, cached_kv=xa_kv["b"], **kw) if "b" in xa_kv else b
     d = blk(c, cached_kv=xa_kv["c"], **kw) if "c" in xa_kv else c
+    e = a + b + c
+    f = torch.cat([d, e], dim=1)
+    g = blk(f[:, :T], xa=f[:, T:], xa_valid=text_valid, cross_causal=st,
+            xa_streaming=st, **kw)
+    return d, g
+
+
+def run_block_xa(blk: Residual, x, xa_enc: Dict, text_valid=None,
+                 streaming: bool = False, causal_all: bool = False):
+    """``run_block`` with the cross calls over the re-encoded slots
+    ``xa_enc`` (the xa side inside each call), as the JAX package
+    trains."""
+    T = x.shape[1]
+    st, ca = streaming, causal_all or streaming
+    kw = dict(causal=ca, x_valid=text_valid, streaming=st)
+    a = blk(x, causal=True, x_valid=text_valid, streaming=st)
+    b = blk(a, xa=xa_enc["a"], **kw) if "a" in xa_enc else a
+    c = blk(b, xa=xa_enc["b"], **kw) if "b" in xa_enc else b
+    d = blk(c, xa=xa_enc["c"], **kw) if "c" in xa_enc else c
     e = a + b + c
     f = torch.cat([d, e], dim=1)
     g = blk(f[:, :T], xa=f[:, T:], xa_valid=text_valid, cross_causal=st,
@@ -287,13 +312,22 @@ class Processor(nn.Module):
         if logits_position is not None:
             out = out[:, logits_position:logits_position + 1]
         logits = self.ln(out) @ self.token.weight.t()
-        return logits.float()
+        # f32 logits (from bf16 too); a float64 model keeps float64
+        return logits.to(torch.promote_types(logits.dtype, torch.float32))
 
     def forward(self, ids, xa=None, seq: bool = False, text_valid=None,
                 logits_position: Optional[int] = None, xa_kv=None):
         """``xa``: the encoded modality slots (re-encoded and cross K/V
         precomputed here), or ``xa_kv`` from ``precompute_cross``."""
         x = self.embed(ids)
+        if xa_kv is None and not stochastic.eval_route():
+            xa_enc = {k: self.block(xa[k]) for k in ("a", "b", "c")
+                      if xa.get(k) is not None}
+            d, g = run_block_xa(self.block, x, xa_enc, text_valid,
+                                streaming=self.streaming,
+                                causal_all=self.causal_all)
+            return self.logits_head(d, g, seq=seq,
+                                    logits_position=logits_position)
         if xa_kv is None:
             xa_kv = self.precompute_cross(self.encode_xa(xa))
         d, g = run_block(self.block, x, xa_kv, text_valid=text_valid,

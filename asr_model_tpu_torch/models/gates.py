@@ -1,9 +1,9 @@
 """Gating and routing: the modality ``Router``, the ``TGate`` mixture of
 sigmoid gates inside the residual MLP, and the MSheath jump-policy
-network ``MPNet``.  Eval forms, through the plain stacked path; with
-``fused``, a Router call over one tensor repeated goes to
-``ops/cuda/router.py`` wherever the JAX package's PALLAS_ROUTER gate
-would route it."""
+network ``MPNet``, through the plain stacked path; with ``fused``, a
+Router call over one tensor repeated goes to ``ops/cuda/router.py``
+wherever the JAX package's PALLAS_ROUTER gate would route it (on the
+eval route only: no train mode or generator)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.tlayers import Dense, param
 from asr_model_tpu_torch.ops.cuda import router as K
 
@@ -59,7 +60,8 @@ class Router(nn.Module):
         _fused_eligible``): every modality the same tensor, lane-aligned
         width equal to ``dims``, decode-prefix sizes."""
         x = modalities[0]
-        return (self.fused and all(m is x for m in modalities[1:])
+        return (self.fused and stochastic.eval_route()
+                and all(m is x for m in modalities[1:])
                 and x.dtype in (torch.bfloat16, torch.float32)
                 and x.shape[-1] % 128 == 0 and x.numel() <= 400_000
                 and x.shape[-1] == self.dims)

@@ -13,8 +13,10 @@ The counterpart of ``asr_model_tpu/models/longform.py``:
 
 ``features`` is the frontend ``Transcriber`` and the long-form decode
 share: log-mel, the pitch track ("dio": DIO + StoneMask on the device,
-``ops/dio.py``; "yin": ``ops/pitch.py``) and the frame-rate waveform of
-a (B, L) batch, each cast to the model's dtype.
+``ops/dio.py``; "dio_host": the native host DIO + StoneMask of the
+training features, ``asr_model_tpu_torch/native``; "yin":
+``ops/pitch.py``) and the frame-rate waveform of a (B, L) batch, each
+cast to the model's dtype.
 """
 
 from __future__ import annotations
@@ -30,15 +32,10 @@ from asr_model_tpu_torch.models.model import Model
 from asr_model_tpu_torch.ops.audio import frame_rate_waveform
 from asr_model_tpu_torch.ops.mel import log_mel_spectrogram
 
-PITCH_MODES = ("dio", "yin")
+PITCH_MODES = ("dio", "dio_host", "yin")
 
 
 def check_pitch_estimator(name: str) -> None:
-    if name == "dio_host":
-        raise NotImplementedError(
-            "pitch_estimator='dio_host' (the native host DIO) comes with the "
-            "PyTorch port's data slice (ROADMAP Queue 1 item 7); 'dio' "
-            "computes the same algorithm on the device")
     if name not in PITCH_MODES:
         raise ValueError(f"unknown pitch estimator {name!r}")
 
@@ -58,6 +55,14 @@ def features(audio: torch.Tensor, sample_rate: int, hop: int, mels: int,
         if pitch_mode == "dio":
             from asr_model_tpu_torch.ops.dio import dio_pitch_track
             f0 = dio_pitch_track(audio, sample_rate, frame_period=period)[0]
+        elif pitch_mode == "dio_host":
+            # the native host DIO + StoneMask of the training features,
+            # one row at a time
+            from asr_model_tpu_torch.native import pitch_track_host
+            rows = audio.detach().cpu().numpy()
+            f0 = torch.from_numpy(np.concatenate(
+                [pitch_track_host(r, sample_rate, hop) for r in rows])
+            ).to(audio.device)
         else:
             from asr_model_tpu_torch.ops.pitch import yin_f0
             f0 = yin_f0(audio, fs=sample_rate, frame_period=period)[0]

@@ -1,10 +1,21 @@
 """Top-level model: the AudioEncoder over priority-ordered modality
-slots a/b/c and the multi-modal Processor, eval.
+slots a/b/c and the multi-modal Processor.
 
 Features arrive as (B, mels, T) spectrograms and (B, 1, T) pitch /
 waveform tracks.  ``Model(dims, cfg, device=None)`` builds on the CUDA
 device (an error when there is none) unless ``device="cpu"`` is asked
-for, with weights drawn from a seeded ``torch.Generator``.
+for, with weights drawn from a seeded ``torch.Generator``.  Its
+parameters do not require gradients until a trainer asks
+(``train/loop.py``).
+
+``forward(..., train=True, gen=)`` is the training forward: BatchNorm
+batch statistics, dropout and gumbel draws from ``gen`` (a
+``torch.Generator`` on the model's device; None is the noise-free
+limit, which needs ``dropout=0``), the differentiable routes of every
+module.  It returns the logits, ``cross_entropy_ignore_pad`` when
+``labels`` are given, the summed MSheath jump counter ``jstat`` (3,)
+and ``batch_stats``, the new running statistics of each BatchNorm
+(``apply_batch_stats`` writes them to the buffers).
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from asr_model_tpu_torch.config import Dimensions, ModelConfig
+from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.conv import AudioEncoder
 from asr_model_tpu_torch.models.decoder import Processor
 from asr_model_tpu_torch.models.tlayers import reset_all
@@ -57,7 +69,8 @@ class Model(nn.Module):
             fused_attention=cfg.fused_attention, fused_mlp=cfg.fused_mlp,
             fused_router=cfg.fused_router, **kw)
         self.enc = AudioEncoder(dims.mels, dims.dims, dims.head, dims.layer,
-                                dims.act, theta=cfg.theta, **kw)
+                                dims.act, theta=cfg.theta,
+                                dropout=cfg.dropout, **kw)
         gen = torch.Generator(device=dev).manual_seed(seed)
         reset_all(self, gen)
         self.eval()
@@ -70,9 +83,25 @@ class Model(nn.Module):
         """Run the AudioEncoder over the a/b/c slots."""
         return self.enc(xa)
 
-    @torch.no_grad()
     def forward(self, text_ids, labels=None, spectrogram=None, pitch=None,
-                waveform=None, text_valid=None):
+                waveform=None, text_valid=None, train: bool = False,
+                gen=None):
+        if not train and gen is None:
+            with torch.no_grad():
+                return self._forward(text_ids, labels, spectrogram, pitch,
+                                     waveform, text_valid)
+        with stochastic.mode(train, gen) as rec:
+            out = self._forward(text_ids, labels, spectrogram, pitch,
+                                waveform, text_valid)
+            jstat = rec.jstat
+            out["batch_stats"] = rec.batch_stats
+        out["jstat"] = (torch.zeros(3, dtype=torch.int32,
+                                    device=text_ids.device)
+                        if jstat is None else jstat)
+        return out
+
+    def _forward(self, text_ids, labels, spectrogram, pitch, waveform,
+                 text_valid):
         xa = self.encode(modality_slots(pitch, spectrogram, waveform))
         logits = self.processor(text_ids, xa, seq=False,
                                 text_valid=text_valid)
@@ -80,6 +109,14 @@ class Model(nn.Module):
         if labels is not None:
             loss = cross_entropy_ignore_pad(logits, labels)
         return {"logits": logits, "loss": loss}
+
+    @torch.no_grad()
+    def apply_batch_stats(self, stats: dict) -> None:
+        """Write a train forward's new BatchNorm running statistics to
+        the buffers, in the buffers' dtype."""
+        for bn, (mean, var) in stats.items():
+            bn.running_mean.copy_(mean.to(bn.running_mean.dtype))
+            bn.running_var.copy_(var.to(bn.running_var.dtype))
 
 
 def cast_variables(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:

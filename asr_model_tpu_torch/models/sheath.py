@@ -1,4 +1,4 @@
-"""MSheath: the adaptive-depth layer-slot stack, eval.
+"""MSheath: the adaptive-depth layer-slot stack.
 
 The layer-slot recurrence (v_gate, LayerNorm, even-slot adapter, skip
 gate, working-memory EMA and the scalar jump policy over ``layer``
@@ -22,14 +22,26 @@ control on the device (no host read).  ``init_stream_state`` and
 ``stream_step`` run it one position at a time with running sums: the
 incremental decode's form, equal by induction to the buffer form's
 newest position.
+
+Off the eval route (train mode or a generator, ``stochastic.mode``) the
+scan is the JAX package's keyed XLA scan (``_train_scan``) in PyTorch
+ops on every device, differentiable: each slot draws its own gumbel
+noise for the jump policy (straight-through: the kept or jumped state is
+scaled by the policy's forward value 1.0, whose gradient reaches the
+policy network), ``ste_threshold``'s identity backward carries v_gate's
+mask, the slot index and the jump control stay on the device, and the
+jump counter is added to the call's record.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.gates import MPNet
 from asr_model_tpu_torch.models.tlayers import Dense, normal_, param, uniform_
 from asr_model_tpu_torch.ops.cuda import sheath as K
@@ -44,6 +56,21 @@ def masked_mean(x, valid, dim):
         m = m[..., None]
     s = torch.sum(x * m, dim=dim, keepdim=True)
     return s / torch.clamp(torch.sum(m, dim=dim, keepdim=True), min=1.0)
+
+
+def causal_mean(x, valid):
+    """Per-position running mean over positions <= t (axis 1), summed in
+    f32 and cast back to x's dtype."""
+    f32 = x.to(torch.float32)
+    if valid is None:
+        s = torch.cumsum(f32, dim=1)
+        n = torch.arange(1, x.shape[1] + 1, dtype=torch.float32,
+                         device=x.device)[None, :, None]
+    else:
+        m = valid.to(torch.float32)[..., None]
+        s = torch.cumsum(f32 * m, dim=1)
+        n = torch.clamp(torch.cumsum(m, dim=1), min=1.0)
+    return (s / n).to(x.dtype)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -220,7 +247,85 @@ class MSheath(nn.Module):
     def _sampled(self, pooled):
         return torch.argmax(self.pnet(pooled).mean(dim=0)).to(torch.int32)
 
+    def _v_gate(self, x, i):
+        """v_gate of slot ``i`` (a 0-d int64 device tensor) on x (B, T,
+        D): the straight-through mask (B, T, 1)."""
+        pick = lambda t: t.index_select(0, i.reshape(1))[0]
+        d = self.dims
+        key = torch.softmax(l2norm(x) @ l2norm(pick(self.mkey)).t()
+                            / math.sqrt(d), dim=-1)
+        mem_score = key @ pick(self.mval)
+        h = F.silu(x @ pick(self.vmlp1_w) + pick(self.vmlp1_b))
+        mlp_score = h @ pick(self.vmlp2_w) + pick(self.vmlp2_b)
+        x_val = (torch.cat([mem_score, mlp_score], dim=-1)
+                 @ pick(self.vcat_w) + pick(self.vcat_b))
+        return stochastic.ste_threshold(x_val, self.thresh)
+
+    def _train_scan(self, x, valid, streaming: bool):
+        """The keyed layer-slot scan (``asr_model_tpu/models/sheath.py:
+        _xla_scan``): returns (x, actions (L,), jstat (3,) int32)."""
+        L, b = self.layer, x.shape[0]
+        dev = x.device
+        pooled = x[:, 0] if streaming else masked_mean(x, valid, dim=1)[:, 0]
+        policy_mean = self.pnet(pooled).mean(dim=0)
+        gen = stochastic.generator()
+        orig_x = x
+        mem_w = self.mem_w.to(x.dtype).expand(b, x.shape[1] if streaming
+                                              else 1, self.dims)
+        i = torch.zeros((), dtype=torch.int64, device=dev)
+        jstat = torch.zeros(3, dtype=torch.int32, device=dev)
+        kinds = torch.arange(3, device=dev)
+        one = torch.ones((), dtype=x.dtype, device=dev)
+        actions = []
+        for _step in range(L):
+            active = i < L
+            idx = torch.clamp(i, max=L - 1)
+            pick = lambda t, j=idx: t.index_select(0, j.reshape(1))[0]
+            ion = self._v_gate(x, idx)
+            px = layer_norm(x, pick(self.ln_scale), pick(self.ln_bias))
+            a_idx = idx // 2
+            adapted = (px @ self.adapt_w.index_select(0, a_idx.reshape(1))[0]
+                       + self.adapt_b.index_select(0, a_idx.reshape(1))[0])
+            apx = torch.where(idx % 2 == 0, adapted, px)
+            g_val = torch.sigmoid(px @ pick(self.gate_w) + pick(self.gate_b))
+            x_new = x + g_val * (apx * ion)
+            if streaming:
+                mem = causal_mean(x_new, valid)
+                potential = ion[:, 0].mean()
+            else:
+                mem = masked_mean(x_new, valid, dim=1)
+                potential = (ion.mean() if valid is None else
+                             masked_mean(ion, valid, dim=(0, 1, 2))[0, 0, 0])
+            mem_v = torch.sigmoid(mem @ self.memgate_w + self.memgate_b)
+            mem_w_new = mem_v * mem_w + (1 - mem_v) * mem
+            last = i >= L - 1
+            forced = (potential < 0.1) & ~last
+            noise = (None if gen is None else stochastic.sample_gumbel(
+                policy_mean.shape, gen, policy_mean.dtype))
+            jump = stochastic.gumbel_softmax(policy_mean, noise, 1.0, True)
+            sampled = torch.argmax(jump, dim=-1)
+            action = torch.where(last, 0, torch.where(forced, 1, sampled))
+            jump_g = torch.where(forced | last, one,
+                                 jump.index_select(0, sampled.reshape(1))[0])
+            jump_w = self.jump_s.index_select(
+                0, torch.clamp(action - 1, 0, 2).reshape(1))[0]
+            jump_i = jump_w * orig_x + (1 - jump_w) * mem_w_new
+            x_out = torch.where(action > 0, x_new + jump_i * jump_g,
+                                x_new * jump_g)
+            i_next = torch.where(action > 0,
+                                 torch.clamp(i + action + 1, max=L), i + 1)
+            jstat = jstat + (active & (kinds == action)).to(torch.int32) * b
+            x = torch.where(active, x_out, x).to(x.dtype)
+            mem_w = torch.where(active, mem_w_new, mem_w).to(mem_w.dtype)
+            i = torch.where(active, i_next, i)
+            actions.append(action)
+        return x, torch.stack(actions).to(torch.int32), jstat
+
     def forward(self, x, valid=None, streaming: bool = False):
+        if not stochastic.eval_route():
+            xs, actions, jstat = self._train_scan(x, valid, streaming)
+            stochastic.add_jstat(jstat)
+            return self._mlp_tail(xs), {"jstat": jstat, "actions": actions}
         if streaming:
             return self._forward_streaming(x, valid)
         b, ctx, d = x.shape

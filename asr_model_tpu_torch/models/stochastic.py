@@ -1,14 +1,117 @@
-"""The stochastic routing primitives in their eval forms.
+"""Stochastic routing primitives and the train-mode context.
 
-With no random draw, the reference's hard gumbel-softmax is a one-hot
-of the argmax (first maximum on ties) and the straight-through
-threshold is ``x > t``; the port is eval-only, so these are the whole
-forward."""
+The reference draws its gumbel noise from torch's global RNG; the JAX
+package draws it from the flax rng collection ``"gumbel"`` and routes
+deterministically (a hard argmax) without one.  Here a caller's
+``torch.Generator`` draws the noise (``sample_gumbel``), and
+``gumbel_softmax(logits, noise)`` is the straight-through form: the
+forward value is the one-hot of the argmax, the gradient the soft
+one's.  ``noise=None`` is the noise-free limit (ties go to the first
+maximum, like ``jax.lax.top_k``).
+
+``mode(train, gen)`` is the counterpart of flax's ``train=`` flag and
+``rngs=`` collection for one forward call: modules read
+``train_mode()`` (BatchNorm batch statistics, dropout) and
+``generator()`` (gumbel and dropout draws, in call order), collect their
+side results there (BatchNorm's new running statistics, MSheath's jump
+counter), and take the eval-only kernels only when ``eval_route()``:
+not training and no generator, the JAX package's ``rng is None`` gate.
+Outside a ``mode`` block every module is in eval with no generator.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
+
+
+class _State(threading.local):
+    def __init__(self):
+        self.train = False
+        self.gen = None
+        self.batch_stats = None     # {module: (mean, var)} of this call
+        self.jstat = None           # summed MSheath jump counter (3,)
+
+
+_STATE = _State()
+
+
+@contextlib.contextmanager
+def mode(train: bool = False, gen=None):
+    """Run a forward in train mode and/or with a noise generator; yields
+    the call's record (``batch_stats``, ``jstat``)."""
+    prev = (_STATE.train, _STATE.gen, _STATE.batch_stats, _STATE.jstat)
+    _STATE.train, _STATE.gen = bool(train), gen
+    _STATE.batch_stats, _STATE.jstat = {}, None
+    try:
+        yield _STATE
+    finally:
+        (_STATE.train, _STATE.gen, _STATE.batch_stats,
+         _STATE.jstat) = prev
+
+
+def train_mode() -> bool:
+    return _STATE.train
+
+
+def generator():
+    return _STATE.gen
+
+
+def eval_route() -> bool:
+    """True where the eval-only kernels may run: no train mode and no
+    generator."""
+    return not _STATE.train and _STATE.gen is None
+
+
+def record_batch_stats(module, mean, var) -> None:
+    if _STATE.batch_stats is not None:
+        _STATE.batch_stats[module] = (mean, var)
+
+
+def batch_stats_of(module):
+    """This call's running statistics of ``module`` so far, or None."""
+    if _STATE.batch_stats is None:
+        return None
+    return _STATE.batch_stats.get(module)
+
+
+def add_jstat(jstat) -> None:
+    if _STATE.batch_stats is not None:
+        _STATE.jstat = jstat if _STATE.jstat is None else _STATE.jstat + jstat
+
+
+def sample_gumbel(shape, gen, dtype=torch.float32) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)), u uniform on [tiny, 1), drawn
+    from ``gen`` on its device (in f32, then cast to ``dtype``)."""
+    u = torch.rand(shape, generator=gen, device=gen.device,
+                   dtype=torch.float32)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return (-torch.log(-torch.log(u))).to(dtype)
+
+
+def _straight_through(hard, soft):
+    """``hard + soft - soft.detach()``: the forward value ``hard``, the
+    gradient ``soft``'s.  Summed in at least f32 and rounded once, as
+    XLA's fusion computes the JAX package's form: in bf16 a rounding
+    after each op would leave ``hard`` off by up to an ulp of |soft|."""
+    ct = torch.promote_types(soft.dtype, torch.float32)
+    return (hard.to(ct) + soft.to(ct) - soft.detach().to(ct)).to(soft.dtype)
+
+
+def gumbel_softmax(logits: torch.Tensor, noise=None, tau: float = 1.0,
+                   hard: bool = True) -> torch.Tensor:
+    """softmax((logits + noise) / tau); with ``hard`` the straight-through
+    one-hot of its argmax (``y_hard + y_soft - y_soft.detach()``, the
+    JAX package's form)."""
+    y = logits if noise is None else logits + noise.to(logits.dtype)
+    y_soft = torch.softmax(y / tau, dim=-1)
+    if not hard:
+        return y_soft
+    return _straight_through(hard_argmax(y_soft), y_soft)
 
 
 def hard_argmax(logits: torch.Tensor) -> torch.Tensor:
@@ -18,4 +121,9 @@ def hard_argmax(logits: torch.Tensor) -> torch.Tensor:
 
 
 def ste_threshold(x: torch.Tensor, threshold: float) -> torch.Tensor:
-    return (x > threshold).to(x.dtype)
+    """``(x > threshold)`` in x's dtype; where autograd tracks x, the
+    straight-through form ``hard + x - x.detach()`` (identity backward)."""
+    hard = (x > threshold).to(x.dtype)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _straight_through(hard, x)
+    return hard

@@ -7,7 +7,9 @@ axis but the output one, biases U(+-1/sqrt(fan_in)) of the declared
 input width, embeddings N(0, 1).  Every module draws from an explicit
 ``torch.Generator`` in ``reset_parameters(gen)``; parameter names are
 the flax tree's with torch layouts (``weights.from_jax_params`` maps
-them).  Forward only: the port is eval-only.
+them).  ``dwconv_same`` is the depthwise convolution with the JAX
+package's kernel gradient (per-tap sums); ``dropout`` draws its mask
+from the train-mode generator (``models/stochastic.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from asr_model_tpu_torch.models import stochastic
 
 
 def uniform_(t: torch.Tensor, fan_in: int, gen) -> torch.Tensor:
@@ -59,6 +63,55 @@ class Dense(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
+class DWConvSame(torch.autograd.Function):
+    """Stride-1 'SAME' depthwise convolution over (B, C, T) with an odd
+    kernel (C, 1, K).  The backward is the JAX package's custom VJP
+    (``tlayers.dwconv_same``): the input gradient is the same
+    convolution with the kernel reversed, the kernel gradient a sum over
+    batch and time per tap of the padded input times the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return F.conv1d(x, weight, padding=weight.shape[-1] // 2,
+                        groups=x.shape[1])
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, weight = ctx.saved_tensors
+        k = weight.shape[-1]
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = F.conv1d(ct, weight.flip(-1), padding=k // 2,
+                          groups=x.shape[1])
+        if ctx.needs_input_grad[1]:
+            t, lo = x.shape[-1], (k - 1) // 2
+            xp = F.pad(x, (lo, k - 1 - lo))
+            dk = torch.stack([(xp[..., r:r + t] * ct).sum(dim=(0, 2))
+                              for r in range(k)], dim=-1)[:, None, :]
+            dk = dk.to(weight.dtype)
+        return dx, dk
+
+
+def dwconv_same(x, weight):
+    return DWConvSame.apply(x, weight)
+
+
+def dropout(x, rate: float):
+    """flax ``nn.Dropout``: in train mode, keep each element with
+    probability 1 - rate (a uniform draw from the train generator below
+    1 - rate) and scale it by 1 / (1 - rate); identity otherwise."""
+    if not stochastic.train_mode() or rate == 0.0:
+        return x
+    gen = stochastic.generator()
+    if gen is None:
+        raise ValueError("dropout in train mode needs a generator "
+                         "(Model.forward(..., gen=))")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Conv1d(nn.Module):
     """Stride-1 'SAME' 1-D convolution over channel-last (..., T, C)
     input; ``weight`` (out, in / groups, k), k odd.  groups == C is the
@@ -80,8 +133,13 @@ class Conv1d(nn.Module):
         uniform_(self.bias, fan_in, gen)
 
     def forward(self, x):
-        y = F.conv1d(x.transpose(-1, -2), self.weight, self.bias,
-                     padding=self.kernel_size // 2, groups=self.groups)
+        xt = x.transpose(-1, -2)
+        if (self.groups > 1 and self.groups == self.in_features
+                and torch.is_grad_enabled() and self.weight.requires_grad):
+            y = dwconv_same(xt, self.weight) + self.bias[:, None]
+        else:
+            y = F.conv1d(xt, self.weight, self.bias,
+                         padding=self.kernel_size // 2, groups=self.groups)
         return y.transpose(-1, -2)
 
 

@@ -26,11 +26,16 @@ def sinusoids(ctx: int, dims: int, theta: float = THETA,
 
 def adaptive_avg_pool1d(x: torch.Tensor, target: int) -> torch.Tensor:
     """out[i] = mean(x[floor(i L / T) : ceil((i + 1) L / T)]) over the
-    last axis, through a cumulative sum."""
+    last axis (``F.adaptive_avg_pool1d``), through a cumulative sum.  The
+    bin bounds are integer arithmetic: a float quotient rounds past an
+    integer where i L is beyond float32's exact range, and a CUDA division
+    by a scalar multiplies by its rounded reciprocal, which put the last
+    bound one past the array (the JAX package's ``jnp.take`` then fills
+    NaN)."""
     L = x.shape[-1]
     i = torch.arange(target, device=x.device)
-    start = torch.floor(i * L / target).long()
-    end = torch.ceil((i + 1) * L / target).long()
+    start = (i * L) // target
+    end = ((i + 1) * L + target - 1) // target
     csum = torch.cumsum(x, dim=-1)
     csum = torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)
     total = csum[..., end] - csum[..., start]

@@ -14,7 +14,10 @@ MLPs and routers go to ``fused_attn_cached`` / ``fused_attn_full``,
 ``fused_abby_tail`` has no caller on either path (as in the JAX
 package); it serves direct callers.  The serving frontend's DIO pitch
 (``ops/dio.py``) adds ``dio_contour``, the one kernel here with no
-Pallas counterpart (the JAX package runs that scan in XLA)."""
+Pallas counterpart (the JAX package runs that scan in XLA).  Training
+(``TRAIN_PATH``) runs the mel kernel in the data pipeline and flash's
+forward under autograd; the other wrappers refuse a call autograd needs
+a gradient of (``build.eval_only``)."""
 
 from asr_model_tpu_torch.ops.cuda import (abby, attention, dio, mel, mlp,
                                           router, sheath, xattn)
@@ -41,6 +44,10 @@ FUSED_ONLY = ("fused_attn_cached", "fused_attn_full", "fused_mlp_residual",
               "fused_router_same")
 # the serving path (``Transcriber`` with DIO pitch) at the default config
 SERVE_PATH = DEFAULT_PATH + ("dio_contour",)
+# the training path: the data pipeline's mel, one utterance a call, and
+# the train step's attention (flash's forward under autograd); every
+# other kernel is eval-only and gated off in train mode
+TRAIN_PATH = ("mel_spectrogram", "flash_attention")
 
 
 def reset_counts() -> None:

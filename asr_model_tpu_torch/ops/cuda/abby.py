@@ -131,6 +131,8 @@ def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
         return abby_plain(x2, w1, b1, w2, b2, size, alpha, k, beta)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_abby: unsupported device {x2.device}")
+    B.eval_only("fused_abby", "models/norms.py AbbyNormal: "
+                "stochastic.eval_route()", lambda: (x2, w1, b1, w2, b2))
     n, d = x2.shape
     ok = (x2.dim() == 2 and d >= 2 and n <= 65535 * ROWS and size >= 1
           and launch_plan(n, d, x2.dtype)["smem"] <= SMEM_MAX
@@ -203,6 +205,8 @@ def fused_abby_tail(x2, logits, size: int, alpha: float, k: float,
         return abby_tail_plain(x2, logits, size, alpha, k, beta)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_abby_tail: unsupported device {x2.device}")
+    B.eval_only("fused_abby_tail", "no caller on the model's paths",
+                lambda: (x2, logits))
     n, d = x2.shape
     if not (x2.dim() == 2 and d >= 2 and size >= 1 and x2.is_contiguous()
             and logits.shape == (n, 3) and logits.device == x2.device):

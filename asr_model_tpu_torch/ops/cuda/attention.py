@@ -15,6 +15,13 @@ card, the keys are split over ``splits`` blocks whose partials the last
 one merges in the same launch (a workspace per call, tile counters per
 device and stream).  f32 stays on the CUDA cores in full f32 (TF32 would
 not hold the f32 route's 1e-4).
+
+Training: where autograd needs a gradient of a CUDA call, the call goes
+through ``FlashTrain``, whose forward is this kernel and whose backward
+recomputes the plain masked softmax and differentiates it, as the JAX
+package's ``custom_vjp`` does around its Pallas forward
+(``asr_model_tpu/models/attention.py:_sdpa_flash``; there is no
+backward kernel there either).
 """
 
 from __future__ import annotations
@@ -33,6 +40,12 @@ def attention_plain(q, k, v, causal: bool = False, kv_valid=None,
                     scale: float | None = None):
     """softmax(q k^T * scale, masked to -1e30) v over (B, H, T, hd)."""
     attention_plain.calls += 1
+    return attention_math(q, k, v, causal, kv_valid, scale)
+
+
+def attention_math(q, k, v, causal: bool = False, kv_valid=None,
+                   scale: float | None = None):
+    """The plain version's math, uncounted (``FlashTrain``'s backward)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
@@ -130,6 +143,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+class FlashTrain(torch.autograd.Function):
+    """Flash forward (one counted launch), plain-recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kv_valid, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, kv_valid, scale)
+        return _flash(q, k, v, causal, kv_valid, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(n) for t, n in
+                   zip((q, k, v), ctx.needs_input_grad[:3])]
+            out = attention_math(*qkv, *ctx.args)
+            wrt = [t for t in qkv if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wrt, g))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in qkv) + (None, None, None)
+
+
 def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
                     scale: float | None = None):
     """(B, H, Tq, hd) x (B, H, Tk, hd) -> (B, H, Tq, hd); ``kv_valid``
@@ -145,6 +180,13 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
         return attention_plain(q, k, v, causal, kv_valid, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashTrain.apply(q, k, v, causal, kv_valid, scale)
+    return _flash(q, k, v, causal, kv_valid, scale)
+
+
+def _flash(q, k, v, causal, kv_valid, scale):
+    """One launch of the kernel (counted)."""
     b, h, tq, hd = q.shape
     tk = k.shape[2]
     ok = (q.dim() == 4 and k.shape == (b, h, tk, hd) and v.shape == k.shape

@@ -121,6 +121,23 @@ def function(name: str, argtypes):
     return fn
 
 
+def eval_only(name: str, gate: str, tensors) -> None:
+    """Refuse a call autograd would need a gradient of: the eval-only
+    kernels (every one but flash) have no backward, and the model routes
+    around them off the eval route (``gate``).  ``tensors`` is a
+    callable returning the call's tensors, read only where grad mode is
+    on (the decode runs under no_grad and pays no more than the test)."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors()):
+        raise RuntimeError(
+            f"{name} is an eval-only kernel (no backward) and autograd "
+            f"needs a gradient of its inputs; the model calls it only on "
+            f"the eval route ({gate}): run it under torch.no_grad, or "
+            "train through Model.forward(train=True)")
+
+
 def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = library().asr_cuda_error_string(rc).decode()

@@ -122,6 +122,8 @@ def fused_mlp_residual(x2, ln_w, cs_w, cs_b, gates, in_w, in_b, out_w,
     nt, hid = len(gates), in_w.shape[0]
     weights = [*ln_w, cs_w, cs_b, *[t for g in gates for t in g], in_w,
                in_b, out_w, out_b]
+    B.eval_only("fused_mlp_residual", "models/decoder.py "
+                "Residual._mlp_fused_ok", lambda: (x2, *weights))
     ok = (x2.dim() == 2 and supports(d, nt) and hid >= 1
           and size_d >= 1
           and n <= 65535 * ROWS and ln_w[0].shape == (d, d)

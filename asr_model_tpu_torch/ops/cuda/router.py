@@ -90,6 +90,8 @@ def fused_router_same(x2, top_w, top_b, soft_w, soft_b, alpha, n_mod: int):
                                  n_mod)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_router_same: unsupported device {x2.device}")
+    B.eval_only("fused_router_same", "models/gates.py Router._fused_ok",
+                lambda: (x2, top_w, top_b, soft_w, soft_b, alpha))
     n, d = x2.shape
     nt = top_w.shape[0]
     ok = (x2.dim() == 2 and nt >= 2 and n_mod >= 1

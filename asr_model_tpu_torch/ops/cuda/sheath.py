@@ -251,6 +251,9 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
                                  weights, L, thresh)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_sheath_scan: unsupported device {x2.device}")
+    B.eval_only("fused_sheath_scan", "models/sheath.py MSheath: "
+                "stochastic.eval_route()",
+                lambda: (x2, mem0, jump_s, *weights.values()))
     n, d = x2.shape
     w = weights
     m_keys = w["mkey"].shape[1]

@@ -361,6 +361,9 @@ def fused_attn_cached(x, kn, v, kv_valid, freqs, wq, wh, wo, head: int,
     if x.device.type == "cpu":
         return attn_cached_plain(x, kn, v, kv_valid, freqs, wq, wh, wo, head,
                                  size_d, size_h, alpha, k, beta)
+    B.eval_only("fused_attn_cached", "models/attention.py "
+                "Attention._fused_ok", lambda: (x, kn, v, *wq.values(),
+                                                *wh.values(), *wo.values()))
     fr = _cuda_freqs(x, freqs)
     b_, t_, d = x.shape
     tk = kn.shape[2]
@@ -476,6 +479,9 @@ def fused_attn_full(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head: int,
     if x.device.type == "cpu":
         return attn_full_plain(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head,
                                size_d, size_h, alpha, k, beta, causal)
+    B.eval_only("fused_attn_full", "models/attention.py Attention._fused_ok",
+                lambda: (x, xa, *wq.values(), *wkv.values(), *wh.values(),
+                         *wo.values()))
     fr = _cuda_freqs(x, freqs)
     b_, t_, d = x.shape
     ta = xa.shape[1]

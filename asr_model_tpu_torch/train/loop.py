@@ -1,0 +1,373 @@
+"""Training and evaluation, single device: the counterpart of
+``asr_model_tpu/train/loop.py``.
+
+* ``make_optimizer(cfg, model)``: MaxFactor over the two bias groups
+  with the FAMScheduler2 rate, in the JAX layout of every parameter;
+  ``acc_steps`` > 1 wraps it in ``MultiSteps`` (optax's accumulation).
+* ``make_train_step(model, opt, clip_grad_norm, compute_dtype)``: one
+  step of forward (train mode, the step's generator), backward, global
+  grad norm (accumulated in f32), clipping by ``clip_grad_norm`` and the
+  optimizer; returns (loss, gnorm, jstat) as device tensors (no host
+  read).  ``compute_dtype=torch.bfloat16`` is the JAX package's mixed
+  precision: f32 master parameters and optimizer state, the loss
+  evaluated through ``torch.func.functional_call`` on bf16 copies of the
+  parameters and buffers and on bf16 float inputs (the gradients reach
+  the masters through the casts), the cross entropy on f32 logits, and
+  BatchNorm's new running statistics written back in f32.
+* ``grad_norm_controller``, ``make_eval_step`` (teacher-forced argmax),
+  ``evaluate_model`` (free-running greedy WER).
+* ``train_and_evaluate``: resume, ``config.json`` beside the
+  checkpoints, the Prefetcher depth, the step loop with periodic eval
+  and checkpoints, and the TensorBoard scalars under the JAX loop's
+  names (``torch.utils.tensorboard`` when it imports, else none).
+
+The model's parameters are switched to ``requires_grad`` by
+``make_train_step``; evaluation runs under ``torch.no_grad`` on the
+eval route (the kernels).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from asr_model_tpu_torch.config import Config
+from asr_model_tpu_torch.models.model import Model, cross_entropy_ignore_pad
+from asr_model_tpu_torch.optim.maxfactor import (MaxFactor, MultiSteps,
+                                                 bias_groups)
+from asr_model_tpu_torch.optim.schedules import fam_scheduler2
+from asr_model_tpu_torch.train import checkpoint as ckpt
+from asr_model_tpu_torch.train.metrics import compute_metrics
+from asr_model_tpu_torch.weights import jax_layout
+
+logger = logging.getLogger(__name__)
+
+FEATURE_KEYS = ("spectrogram", "waveform", "pitch")
+
+
+def make_optimizer(cfg: Config, model: Model):
+    """(optimizer, schedule) for ``model``'s parameters."""
+    o = cfg.optim
+    sched = fam_scheduler2(o.lr, warmup_steps=o.warmup_steps,
+                           total_steps=o.total_steps,
+                           decay_start=o.decay_start,
+                           warmup_start=o.warmup_start, eta_min=o.eta_min)
+    layout = jax_layout(model)
+    named = list(model.named_parameters())
+    opt = MaxFactor(bias_groups(named, o.bias, o.jump_bias), lr=sched,
+                    b_decay=o.b_decay, eps=tuple(o.eps), d=o.d,
+                    decay=o.decay, gamma=o.gamma, maximize=o.maximize,
+                    min_lr=o.min_lr, clip=o.clip, cap=o.cap,
+                    layouts={p: layout[n][2] for n, p in named})
+    if cfg.run.acc_steps > 1:
+        opt = MultiSteps(opt, cfg.run.acc_steps)
+    return opt, sched
+
+
+def train_compute_dtype(run) -> Optional[torch.dtype]:
+    """RunConfig.train_dtype -> the step's compute dtype (None: f32)."""
+    name = run.train_dtype
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if name in ("float32", "f32", None):
+        return None
+    raise ValueError(f"unsupported train_dtype {name!r} "
+                     "(use 'float32' or 'bfloat16')")
+
+
+def device_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A collated numpy batch as tensors on ``device`` (ids int64)."""
+    out = {}
+    for k, v in batch.items():
+        if v is None:
+            continue
+        t = torch.as_tensor(np.asarray(v))
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def _features(batch, dtype=None):
+    out = {}
+    for k in FEATURE_KEYS:
+        v = batch.get(k)
+        if v is not None:
+            out[k] = v.to(dtype) if dtype is not None else v
+    return out
+
+
+def make_train_step(model: Model, opt, clip_grad_norm: float = 0.0,
+                    compute_dtype: Optional[torch.dtype] = None):
+    """``step(batch, gen) -> (loss, gnorm, jstat)``; ``batch`` holds
+    device tensors (``device_batch``), ``gen`` is the run's
+    ``torch.Generator`` on the model's device.  ``step.loss_fn(batch,
+    gen) -> (loss, jstat, batch_stats)`` is the step's forward alone
+    (the casts of the compute dtype included), for callers that time or
+    differentiate it on its own."""
+    model.requires_grad_(True)
+    params = list(model.parameters())
+
+    def loss_fn(batch, gen):
+        if compute_dtype is None:
+            out = model(batch["text_ids"], **_features(batch), train=True,
+                        gen=gen)
+        else:
+            cast = {n: t.to(compute_dtype) if t.dtype == torch.float32
+                    else t for n, t in list(model.named_parameters())
+                    + list(model.named_buffers())}
+            out = torch.func.functional_call(
+                model, cast, (batch["text_ids"],),
+                dict(_features(batch, compute_dtype), train=True, gen=gen))
+        loss = cross_entropy_ignore_pad(out["logits"], batch["labels"])
+        return loss, out["jstat"], out["batch_stats"]
+
+    def step(batch, gen):
+        loss, jstat, stats = loss_fn(batch, gen)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with torch.no_grad():
+            gsq = sum(g.float().pow(2).sum() for g in grads if g is not None)
+            gnorm = torch.sqrt(torch.as_tensor(gsq, device=loss.device,
+                                               dtype=torch.float32))
+            if clip_grad_norm > 0:
+                factor = torch.clamp(clip_grad_norm / (gnorm + 1e-6),
+                                     max=1.0)
+                grads = [None if g is None else g * factor.to(g.dtype)
+                         for g in grads]
+            for p, g in zip(params, grads):
+                p.grad = g
+            opt.step()
+            for p in params:
+                p.grad = None
+            model.apply_batch_stats(stats)
+        return loss.detach(), gnorm, jstat
+
+    step.loss_fn = loss_fn
+    return step
+
+
+def grad_norm_controller(grad_history, scales: Dict[str, float],
+                         lo: float = 0.8, hi: float = 1.2,
+                         shrink: float = 0.9, grow: float = 1.1,
+                         clamp=(0.05, 2.0)) -> Dict[str, float]:
+    """The OneShot grad-norm feedback controller: the 5-step mean of the
+    global grad norm against the 5 before; shrink or grow every scale,
+    clamp."""
+    if len(grad_history) > 10:
+        recent = sum(grad_history[-5:]) / 5
+        prev = sum(grad_history[-10:-5]) / 5
+        for k in scales:
+            if recent > prev * hi:
+                scales[k] *= shrink
+            elif recent < prev * lo:
+                scales[k] *= grow
+            scales[k] = float(max(clamp[0], min(clamp[1], scales[k])))
+    return scales
+
+
+def make_eval_step(model: Model):
+    """``eval_fn(batch) -> (loss, argmax predictions)``, teacher-forced,
+    on the eval route."""
+
+    def eval_fn(batch):
+        out = model(batch["text_ids"], labels=batch["labels"],
+                    **_features(batch))
+        return out["loss"], torch.argmax(out["logits"], dim=-1)
+
+    return eval_fn
+
+
+def _greedy(model, batch, max_new_tokens: int, suppress_eos: bool):
+    from asr_model_tpu_torch.models.generate import (greedy_decode,
+                                                     greedy_decode_stream)
+    fn = greedy_decode_stream if model.cfg.streaming else greedy_decode
+    return fn(model, max_new_tokens=max_new_tokens,
+              suppress_eos=suppress_eos, **_features(batch))
+
+
+def evaluate_model(model: Model, tokenizer, eval_loader,
+                   eval_steps: int = 0, max_new_tokens: int = 150,
+                   suppress_eos: bool = True,
+                   metric_fn: Callable = compute_metrics) -> Dict[str, Any]:
+    """Free-running evaluation: greedy decode (the stream decode for a
+    streaming model) with EOS suppressed until the budget; returns
+    loss, WER, transcripts and the time taken."""
+    eval_step = make_eval_step(model)
+    start = time.time()
+    eval_loss, batches = 0.0, 0
+    all_p, all_l = [], []
+    for i, batch in enumerate(eval_loader):
+        if eval_steps and i >= eval_steps:
+            break
+        db = device_batch(batch, model.device)
+        loss, _ = eval_step(db)
+        eval_loss += float(loss)
+        batches += 1
+        ids = _greedy(model, db, max_new_tokens, suppress_eos)
+        all_p.extend(ids.cpu().tolist())
+        all_l.extend(np.asarray(batch["labels"]).tolist())
+    metrics = metric_fn({"predictions": all_p, "label_ids": all_l},
+                        tokenizer=tokenizer)
+    return {"loss": eval_loss / max(batches, 1), "wer": metrics["wer"],
+            "preds": tokenizer.batch_decode(all_p),
+            "labels": tokenizer.batch_decode(all_l),
+            "eval_time": time.time() - start}
+
+
+class NullWriter:
+    def add_scalar(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
+def default_writer(log_dir: str):
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return NullWriter()
+    return SummaryWriter(log_dir=log_dir)
+
+
+def restore_training(model: Model, opt, path: str, gen=None) -> int:
+    """Load a checkpoint (the port's or the JAX loop's) into the model,
+    the optimizer and (when it holds one) the generator; returns its
+    step."""
+    state, step = ckpt.restore_model(model, path, mono_stem=False)
+    ckpt.load_opt_state(opt, model, state["opt_state"])
+    if gen is not None and "rng" in state:
+        gen.set_state(torch.from_numpy(np.asarray(state["rng"],
+                                                  np.uint8)))
+    return step
+
+
+def train_and_evaluate(model: Model, tokenizer, train_loader: Iterable,
+                       eval_loader: Iterable, cfg: Config, writer=None,
+                       metric_fn: Callable = compute_metrics,
+                       resume_from: Optional[str] = None):
+    """Train ``model`` in place for ``cfg.run.max_steps`` steps (from a
+    checkpoint's step with ``resume_from``); returns a summary dict (the
+    first and the final step, the last loss and grad norm, the last
+    eval's WER and loss)."""
+    run = cfg.run
+    os.makedirs(run.checkpoint_dir, exist_ok=True)
+    with open(os.path.join(run.checkpoint_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    writer = writer if writer is not None else default_writer(run.log_dir)
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(run.seed)
+    opt, sched = make_optimizer(cfg, model)
+    global_step = 0
+    if resume_from:
+        global_step = restore_training(model, opt, resume_from, gen)
+        logger.info("restored checkpoint at step %d from %s", global_step,
+                    resume_from)
+    train_step = make_train_step(model, opt, run.clip_grad_norm,
+                                 train_compute_dtype(run))
+    eval_step = make_eval_step(model)
+
+    n_params_m = sum(p.numel() for p in model.parameters()) / 1e6
+    grad_history: list = []
+    oneshot = {"oneshot": 0.3}
+    total_loss, steps_this_run, samples_per_sec = 0.0, 0, 0.0
+    summary: Dict[str, Any] = {"start_step": global_step}
+    if run.prefetch_depth > 0:
+        from asr_model_tpu_torch.data.dataset import Prefetcher
+        loader = Prefetcher(train_loader, depth=run.prefetch_depth)
+    else:
+        loader = train_loader
+    it = iter(loader)
+
+    def pull():
+        nonlocal it
+        try:
+            return next(it)
+        except StopIteration:
+            it = iter(loader)
+            return next(it)
+
+    batch = pull() if global_step < run.max_steps else None
+    while global_step < run.max_steps:
+        start = time.time()
+        rows = len(batch["text_ids"])
+        loss, gnorm, jstat = train_step(device_batch(batch, dev), gen)
+        # the step is queued on the device; prepare the next host batch
+        # while it runs, then read the two scalars
+        if global_step + 1 < run.max_steps:
+            batch = pull()
+        loss_f, gnorm_f = float(loss), float(gnorm)
+        total_loss += loss_f
+        steps_this_run += 1
+        grad_history = grad_history[-99:] + [gnorm_f]
+        oneshot = grad_norm_controller(grad_history, oneshot)
+        samples_per_sec = rows / max(time.time() - start, 1e-9)
+        summary.update(step=global_step, loss=loss_f, gnorm=gnorm_f)
+
+        if global_step % run.log_interval == 0:
+            js = jstat.cpu().tolist()
+            for name, val in (
+                    ("Loss/train", total_loss / steps_this_run),
+                    ("LearningRate", sched(global_step)),
+                    ("SamplesPerSec", samples_per_sec),
+                    ("GradNorm", gnorm_f),
+                    ("OneShot/scale", oneshot["oneshot"]),
+                    ("Jumps/Layer_Maintained_0", int(js[0])),
+                    ("Jumps/Skipped_1_Layer", int(js[1])),
+                    ("Jumps/Skipped_2_Layers", int(js[2]))):
+                writer.add_scalar(name, val, global_step)
+
+        do_eval = (run.eval_interval > 0
+                   and global_step > run.warmup_interval
+                   and global_step % run.eval_interval == 0) \
+            or global_step == run.max_steps - 1
+        if do_eval:
+            eval_start = time.time()
+            eval_loss, n_eval, batches = 0.0, 0, 0
+            all_p, all_l = [], []
+            for ebatch in eval_loader:
+                db = device_batch(ebatch, dev)
+                l, preds = eval_step(db)
+                eval_loss += float(l)
+                batches += 1
+                n_eval += len(ebatch["text_ids"])
+                if run.generate:
+                    preds = _greedy(model, db, int(db["labels"].shape[1]),
+                                    False)
+                all_p.extend(preds.cpu().tolist())
+                all_l.extend(np.asarray(ebatch["labels"]).tolist())
+            loss_avg = eval_loss / max(batches, 1)
+            metrics = metric_fn({"predictions": all_p, "label_ids": all_l},
+                                tokenizer=tokenizer, num_params_m=n_params_m)
+            for name, val in (("Loss/eval", loss_avg),
+                              ("WER", metrics["wer"]),
+                              ("EvalSamples", n_eval),
+                              ("EvalTimeSeconds", time.time() - eval_start)):
+                writer.add_scalar(name, val, global_step)
+            summary.update(eval_wer=metrics["wer"], eval_loss=loss_avg)
+            print(f"EVALUATION STEP:{global_step} • "
+                  f"samp:{samples_per_sec:.1f} • "
+                  f"WER:{metrics['wer']:.2f}% • Loss:{loss_avg:.4f} • "
+                  f"LR:{sched(global_step):.8f}", flush=True)
+
+        if run.save_interval > 0 and global_step > 0 \
+                and global_step % run.save_interval == 0:
+            ckpt.save_model_checkpoint(
+                run.checkpoint_dir, global_step,
+                ckpt.training_state(model, opt, global_step, gen))
+        global_step += 1
+    # stop the prefetch worker (a closed pass joins it) before the
+    # caller reads what it counts, such as the mel launches
+    getattr(it, "close", lambda: None)()
+
+    if run.save_interval > 0:
+        ckpt.save_checkpoint(
+            os.path.join(run.checkpoint_dir, "final_model.msgpack"),
+            ckpt.training_state(model, opt, global_step, gen))
+    summary["step"] = global_step
+    logger.info("Training completed after %d steps.", global_step)
+    writer.close()
+    return summary

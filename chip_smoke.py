@@ -66,7 +66,24 @@
    printed), and small f32 models (both paths, and a streaming one
    through its stream steps) on the card against the same models' plain
    route on the CPU.
-6. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
+6. Training: ``flash_attention`` under autograd at (8, 4, 1001, 128),
+   f32 and bf16, causal and not, with ``kv_valid`` (the kernel forward
+   against the plain version, dq / dk / dv against the plain route's
+   autograd, forward + backward timed beside the plain route and SDPA);
+   the train step on the flagship (dropout and gumbel draws from a
+   seeded generator) on the 8 x 10 s tones featurised by the training
+   data pipeline (the mel kernel one utterance a call, the native host
+   DIO) with 64-token labels from a seed, in f32 and in bf16 compute
+   over f32 masters: step 0's loss and grad norm on the kernel route
+   against the plain route (f32 1e-4, bf16 7e-2 relative), then step ms
+   (median of 5), utterances and audio seconds per wall second, peak
+   memory, one step's launches and device ms (torch.profiler), and 20
+   steps on the batch (finite, the loss falling); then the training CLI
+   (16 synthetic utterances, 4 steps of 8, bf16, DIO on the host, eval,
+   a checkpoint read back and a resumed run).  The path must launch
+   mel and flash (and the eval's kernels on the CLI) and no plain
+   version.
+7. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
    path), the card line, and as its last line ``{"ok": true, "device":
    {...}}``.
 
@@ -1603,6 +1620,13 @@ def host_ms(fn, runs: int = 3) -> float:
 def profile_launches(fn):
     """(kernel launches, their device ms) of one call of ``fn`` under
     torch.profiler, PyTorch's own kernels and copies included."""
+    n, ms, _ = profile_kernels(fn)
+    return n, ms
+
+
+def profile_kernels(fn):
+    """``profile_launches``, and per kernel (device ms, launches, name),
+    of one call of ``fn`` after one unprofiled call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1611,13 +1635,23 @@ def profile_launches(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n, ms = 0, 0.0
+    n, ms, per = 0, 0.0, []
     for evt in prof.key_averages():
         us = _device_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not _annotation(evt):
             n += evt.count
             ms += us / 1e3
-    return n, ms
+            per.append((us / 1e3, evt.count, evt.key))
+    return n, ms, per
+
+
+def _annotation(evt) -> bool:
+    """A range the profiler records on the device timeline for an
+    annotated region (``Optimizer.step#MaxFactor.step``), not a kernel:
+    its device time spans the kernels it holds."""
+    return bool(getattr(evt, "is_user_annotation", False)) or \
+        evt.key.startswith("Optimizer.")
 
 
 def check_dio(audio):
@@ -1967,6 +2001,340 @@ def stream_rtfx_at(model, batch: int, runs: int = 3) -> float:
     return rtfx
 
 
+# ------------------------------------------------------------ training
+
+TRAIN_TOKENS, TRAIN_MELS = 64, 128
+# step 0 on the kernel route against the plain route: the loss's
+# relative tolerance (f32 sums in other orders; bf16 rounds at other
+# places).  The grad norm's limit is measured in the run (``train_path``):
+# at the flagship's random init the norm is ~1e6 and a one-ulp change
+# of every attention output moves it 0.26% (f32) and 50% (bf16) (this
+# script on an H100 80GB HBM3, 700.00 W), so the limit is the geometric
+# middle of two readings of the plain route: the witness, the larger of
+# the route against itself run again and with every attention output
+# moved WITNESS_ULPS ulp in a seeded random direction; and a planted fault,
+# every output moved FAULT_REL of its magnitude (ten times the kernel's
+# own forward tolerance, 1e-4 f32 and FLASH_TOL bf16).  The fault must
+# read at least SEPARATION times the witness, so the limit lies at least
+# sqrt(SEPARATION) from each
+TRAIN_TOL = {"f32": 1e-4, "bf16": 7e-2}
+WITNESS_ULPS, SEPARATION = 1, 4.0
+FAULT_REL = {"f32": 1e-3, "bf16": 5e-2}
+# flash under autograd: the kernel's forward against the plain route's
+# (f32 1e-4 of max|plain|; bf16 FLASH_TOL against the f32 plain version,
+# as the forward check above), and dq / dk / dv, which both routes take
+# from the same plain backward on the same inputs and cotangent
+FLASH_GRAD_TOL = {"f32": 1e-6, "bf16": 1e-3}
+
+
+def check_flash_autograd():
+    """``flash_attention`` where autograd needs its gradient (the train
+    step's encoder-length calls): the kernel forward inside
+    ``FlashTrain`` (one launch a call), the plain masked softmax's
+    backward.  At (8, 4, 1001, 128) with ragged ``kv_valid``, causal and
+    not, f32 and bf16: the forward against the plain route, dq / dk / dv
+    against the plain route's autograd, and the times of forward +
+    backward on each route and of SDPA (with a boolean mask) beside
+    them."""
+    import torch
+    import torch.nn.functional as F
+    from asr_model_tpu_torch.ops.cuda import attention
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, h, t, hd = BATCH, 4, 1001, 128
+    lens = torch.tensor([1001, 990, 950, 900, 800, 700, 600, 1],
+                        device=dev)
+    valid = torch.arange(t, device=dev)[None] < lens[:, None]
+    entries = []
+    for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for causal in (False, True):
+            q, k, v = (torch.randn(b, h, t, hd, device=dev, generator=g)
+                       .to(dt) for _ in range(3))
+            w = torch.randn(b, h, t, hd, device=dev, generator=g)
+
+            def route(fn):
+                leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                out = fn(*leaves, causal=causal, kv_valid=valid)
+                (out.float() * w).sum().backward()
+                return out.detach(), [x.grad for x in leaves]
+
+            attention.flash_attention.launches = 0
+            attention.attention_plain.calls = 0
+            got, g_k = route(attention.flash_attention)
+            torch.cuda.synchronize()
+            launched = attention.flash_attention.launches
+            plain_calls = attention.attention_plain.calls
+            want, g_p = route(attention.attention_plain)
+            want32 = attention.attention_plain(
+                q.float(), k.float(), v.float(), causal, valid)
+            label = (f"(8,4,1001,128) {dt_name}"
+                     f"{' causal' if causal else ''} + kv_valid")
+            if dt == torch.float32:
+                e = float((got - want32).abs().max())
+                ok = e <= 1e-4 * float(want32.abs().max())
+                tol = "1e-4 max|plain|"
+            else:
+                e, bad, _rows = close_rows(got, want32, 0.0, FLASH_TOL, hd)
+                ok = bad == 0
+                tol = f"{FLASH_TOL:g} max|plain| a row, the bf16 check's"
+            check(ok and launched == 1 and plain_calls == 0,
+                  f"flash_attention under autograd {label}: forward max "
+                  f"abs err {e:.3e} against the f32 plain version "
+                  f"(tolerance {tol}), {launched} launch(es) counted, "
+                  f"{plain_calls} plain call(s)")
+            for name, a, bb in zip("qkv", g_k, g_p):
+                ge = float((a.float() - bb.float()).abs().max())
+                gs = float(bb.float().abs().max())
+                check(ge <= FLASH_GRAD_TOL[dt_name] * gs,
+                      f"flash_attention under autograd {label}: d{name} "
+                      f"max abs err {ge:.3e} = {ge / gs:.2e} max|plain "
+                      f"d{name}| against the plain route's autograd "
+                      f"(tolerance {FLASH_GRAD_TOL[dt_name]:g}: the same "
+                      "plain backward on the same inputs)")
+            mask = valid[:, None, None, :]
+            if causal:
+                mask = mask & torch.ones(t, t, dtype=torch.bool,
+                                         device=dev).tril()[None, None]
+
+            def sdpa_route(q_, k_, v_, causal, kv_valid):
+                return F.scaled_dot_product_attention(q_, k_, v_,
+                                                      attn_mask=mask)
+
+            pairs = _pairs(t, t, causal, valid)
+            # forward 4 h pairs hd, backward 8 h pairs hd (dV, dP, dQ,
+            # dK products); q, k, v, the cotangent read, out and the
+            # three gradients written
+            flops = 12.0 * h * pairs * hd
+            peak = F32_PEAK if dt == torch.float32 else BF16_PEAK
+            b_ms, b_by = bound_ms(flops, 8 * nbytes(q), peak)
+            ms = cuda_ms(lambda: route(attention.flash_attention), iters=5)
+            entries.append(dict(
+                shape=f"train forward + backward {label}",
+                max_abs_err=e, ms=ms,
+                plain_ms=cuda_ms(lambda: route(attention.attention_plain),
+                                 iters=5),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=cuda_ms(lambda: route(sdpa_route), iters=5),
+                **rates(flops, ms, b_ms)))
+    return entries
+
+
+class SeededLabels:
+    """A tokenizer stand-in for the train batch: ``TRAIN_TOKENS - 1``
+    label ids an utterance from a seed (the collator adds BOS / EOS)."""
+
+    def __init__(self, seed: int = 0):
+        self.rs = np.random.RandomState(seed)
+
+    def encode(self, text):
+        return self.rs.randint(3, 40000, TRAIN_TOKENS - 1).tolist()
+
+
+def train_batch(audio):
+    """The 8 x 10 s tones through the training data pipeline on the card
+    (``data/features.py``: the mel kernel one utterance a call, the
+    native host DIO, the frame-rate waveform), collated."""
+    from asr_model_tpu_torch.data.collator import collate
+    from asr_model_tpu_torch.data.features import extract_features
+    labels = SeededLabels()
+    feats = [extract_features(
+        {"audio": {"array": a, "sampling_rate": SR}, "transcription": ""},
+        tokenizer=labels, spectrogram=True, pitch=True, waveform=True,
+        mels=TRAIN_MELS, hop_length=HOP, sample_rate=SR,
+        pitch_estimator="dio", device=DEV)
+        for a in audio.cpu().numpy()]
+    return collate(feats)
+
+
+def perturb_attention(rel: float):
+    """Move every output of ``ops/cuda/attention.flash_attention`` (as it
+    stands: under ``plain_route``, the plain version) by ``rel`` of its
+    magnitude, up or down by a seeded draw; returns the undo."""
+    import torch
+    from asr_model_tpu_torch.ops.cuda import attention
+    inner = attention.flash_attention
+    g = torch.Generator(device=DEV).manual_seed(7)
+
+    def moved(q, k, v, causal=False, kv_valid=None, scale=None):
+        out = inner(q, k, v, causal=causal, kv_valid=kv_valid, scale=scale)
+        r = torch.randint(0, 2, out.shape, generator=g, device=out.device)
+        return out * (1 + rel * (2 * r - 1)).to(out.dtype)
+
+    attention.flash_attention = moved
+    return lambda: setattr(attention, "flash_attention", inner)
+
+
+def train_path(batch_np, dt_name: str, label: str):
+    """The train step on the flagship (dropout and gumbel draws from a
+    seeded generator): the step-0 loss and grad norm on the kernel route
+    against the plain route from the same weights and generator seed
+    (the grad norm's limit from the witness of ``TRAIN_TOL``'s note),
+    then 1 warm-up and 5 timed steps (median ms, utterances and audio
+    seconds per wall second, peak memory), one step under the profiler
+    (launches, device ms), and 20 more steps on the same batch (every
+    loss and grad norm finite, the last loss below the first)."""
+    import torch
+    from asr_model_tpu_torch.config import Config, Dimensions, ModelConfig
+    from asr_model_tpu_torch.models.model import Model
+    from asr_model_tpu_torch.ops import cuda as kernels
+    from asr_model_tpu_torch.train.loop import (device_batch, make_optimizer,
+                                                make_train_step)
+    compute = torch.bfloat16 if dt_name == "bf16" else None
+    batch = device_batch(batch_np, DEV)
+
+    def fresh():
+        m = Model(Dimensions(), ModelConfig(), device=DEV, seed=0)
+        opt, _ = make_optimizer(Config(), m)
+        return m, make_train_step(m, opt, 0.0, compute)
+
+    def gen():
+        return torch.Generator(device=DEV).manual_seed(0)
+
+    def plain_step(rel=0.0):
+        """Step 0 on the plain route, every attention output moved by
+        ``rel`` of its magnitude in a seeded random direction."""
+        undo = plain_route()
+        restore = perturb_attention(rel) if rel else (lambda: None)
+        try:
+            _m, st = fresh()
+            loss, gn, js = st(batch, gen())
+            torch.cuda.synchronize()
+            return float(loss), float(gn), js.tolist()
+        finally:
+            restore()
+            undo()
+
+    model, step = fresh()
+    g = gen()
+    lk, gk, jk = step(batch, g)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    lp, gp, jp = plain_step()
+    ulp = WITNESS_ULPS * float(torch.finfo(compute or torch.float32).eps)
+    reads = {"plain_again": plain_step(), "plain_1ulp": plain_step(ulp),
+             "planted_fault": plain_step(FAULT_REL[dt_name])}
+    rel_g_of = {k: abs(r[1] - gp) / abs(gp) for k, r in reads.items()}
+    witness = max(rel_g_of["plain_again"], rel_g_of["plain_1ulp"])
+    limit = float(np.sqrt(witness * rel_g_of["planted_fault"]))
+    rel_l = abs(float(lk) - lp) / abs(lp)
+    rel_g = abs(float(gk) - gp) / abs(gp)
+    tol = TRAIN_TOL[dt_name]
+    why = ("f32 sums in other orders" if dt_name == "f32" else
+           "bf16 rounds at other places on the two routes")
+    log(f"{label} step 0 grad norm witness (relative to the plain route's "
+        f"{gp:.4f}): plain route again {rel_g_of['plain_again']:.2e}, "
+        f"attention outputs moved {WITNESS_ULPS} ulp "
+        f"{rel_g_of['plain_1ulp']:.2e}, planted fault "
+        f"({FAULT_REL[dt_name]:g} of each output) "
+        f"{rel_g_of['planted_fault']:.2e}; limit {limit:.2e}")
+    check(rel_g_of["planted_fault"] >= SEPARATION * witness,
+          f"{label} step 0: the planted fault reads "
+          f"{rel_g_of['planted_fault']:.2e}, at least {SEPARATION:g} x the "
+          f"witness {witness:.2e}, so the grad norm's limit {limit:.2e} "
+          "(their geometric middle) separates them")
+    check(rel_l <= tol and rel_g <= limit,
+          f"{label} step 0, kernel route against plain route: loss "
+          f"{float(lk):.6f} / {lp:.6f} (rel {rel_l:.2e}, tolerance "
+          f"{tol:g}: {why}), grad norm {float(gk):.4f} / {gp:.4f} (rel "
+          f"{rel_g:.2e}, limit {limit:.2e} from the witness), jstat "
+          f"{jk.tolist()} / {jp}")
+    step(batch, g)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _gn, _js = step(batch, g)
+        float(loss)
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    kernels.reset_counts()
+    step(batch, g)
+    per_step = {n: c["launches"] for n, c in kernels.counts().items()
+                if c["launches"]}
+    launches, dev_ms = profile_launches(lambda: step(batch, g))
+    losses, gnorms = [], []
+    for _ in range(20):
+        loss, gn, _js = step(batch, g)
+        losses.append(float(loss))
+        gnorms.append(float(gn))
+    check(all(np.isfinite(losses + gnorms)) and losses[-1] < losses[0],
+          f"{label}: 20 steps on one batch, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, every loss and grad norm finite")
+    ms = float(np.median(times))
+    b = batch_np["text_ids"].shape[0]
+    secs = b * batch_np["waveform"].shape[-1] * HOP / SR
+    log(f"{label}: step {ms:.2f} ms (median of 5; {times}), "
+        f"{1e3 * b / ms:.2f} utterances/s, {1e3 * secs / ms:.2f} audio s "
+        f"per wall s; one step {launches} launches, {dev_ms:.2f} ms of "
+        f"device time ({100 * dev_ms / ms:.1f}% of the step); peak "
+        f"memory {peak / 2**30:.2f} GiB; hand kernels a step {per_step}")
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_ms=ms, step_ms_runs=times,
+                utt_per_s=1e3 * b / ms, audio_s_per_s=1e3 * secs / ms,
+                launches_per_step=launches, device_ms_per_step=dev_ms,
+                peak_gib=peak / 2**30, kernel_launches_per_step=per_step,
+                loss0=float(lk), loss0_plain=lp, gnorm0=float(gk),
+                gnorm0_plain=gp, rel_loss0=rel_l, rel_gnorm0=rel_g,
+                gnorm0_witness=rel_g_of, gnorm0_limit=limit,
+                loss_first=losses[0], loss_last=losses[-1])
+
+
+def cli_path():
+    """``python -m asr_model_tpu_torch.cli`` (in this process, so its
+    kernel counts are read): 16 synthetic utterances, 4 steps of 8 at
+    the flagship defaults, bf16 compute, DIO pitch on the host, eval and
+    a checkpoint at the end; the mel kernel must have run once an
+    utterance featurised; the checkpoint must read back into a model
+    equal to the trained one, and a resumed run continue at its step."""
+    import tempfile
+    import torch
+    from asr_model_tpu_torch import cli
+    from asr_model_tpu_torch.config import Dimensions, ModelConfig
+    from asr_model_tpu_torch.data.features import extract_features
+    from asr_model_tpu_torch.models.model import Model
+    from asr_model_tpu_torch.ops import cuda as kernels
+    from asr_model_tpu_torch.train import checkpoint as ckpt
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--synthetic", "16", "--max-steps", "4", "--batch-size", "8",
+                "--eval-interval", "4", "--save-interval", "4",
+                "--train-dtype", "bfloat16", "--pitch-estimator", "dio",
+                "--log-dir", tmp]
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        extract_features.calls = 0
+        t0 = time.perf_counter()
+        out = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.counts()
+        featurised = extract_features.calls
+        mel_n = counts["mel_spectrogram"]["launches"]
+        check(mel_n == featurised > 0,
+              f"training CLI: {mel_n} mel launches for {featurised} "
+              "utterances featurised (one a call)")
+        check("eval_wer" in out and np.isfinite(out["loss"]),
+              f"training CLI: 4 steps in {wall:.1f} s, last loss "
+              f"{out['loss']:.4f}, eval WER {out.get('eval_wer', 'none')}")
+        final = os.path.join(tmp, "final_model.msgpack")
+        back = Model(Dimensions(), ModelConfig(), device=DEV, seed=1)
+        _state, step = ckpt.restore_model(back, final)
+        same = all(torch.equal(a, b_) for a, b_ in zip(
+            out["model"].state_dict().values(), back.state_dict().values()))
+        check(step == 4 and same, f"training CLI checkpoint: step {step}, "
+              "read back by the port's restore equal to the trained model")
+        del out, back
+        res = cli.main(args[:3] + ["6"] + args[4:] + ["--resume", final])
+        check(res["start_step"] == 4 and res["step"] == 6,
+              f"training CLI resumed from {os.path.basename(final)}: steps "
+              f"{res['start_step']}..{res['step'] - 1}")
+        del res
+    torch.cuda.empty_cache()
+    return dict(counts=counts, wall_s=wall, featurised=featurised)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2096,6 +2464,26 @@ def main() -> int:
     rel["small_default"] = small_reference(False)
     rel["small_fused"] = small_reference(True)
     rel["small_stream"] = small_reference(False, streaming=True)
+
+    # training: flash under autograd, the train step on the data
+    # pipeline's features (f32, then bf16 compute over f32 masters), and
+    # the training CLI
+    flash_train = check_flash_autograd()
+    for k in kern:
+        if k["name"] == "flash_attention":
+            k["shapes"] += flash_train
+    kernels.reset_counts()
+    batch_np = train_batch(audio)
+    paths["train"] = train_path(batch_np, "f32", "train step f32")
+    _check_counts("train path (the batch's features and one step)",
+                  paths["train"]["counts"], kernels.TRAIN_PATH)
+    kernels.reset_counts()
+    paths["train_bf16"] = train_path(batch_np, "bf16", "train step bf16")
+    _check_counts("train path bf16 (one step)",
+                  paths["train_bf16"]["counts"], ("flash_attention",))
+    paths["train_cli"] = cli_path()
+    _check_counts("training CLI (features, steps, eval)",
+                  paths["train_cli"]["counts"], kernels.DEFAULT_PATH)
 
     for k in kern:
         by_path = {p: r["counts"][k["name"]]["launches"]

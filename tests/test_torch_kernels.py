@@ -897,3 +897,84 @@ def test_dio_contour_kernel(dev, b, nb, nf):
     assert dio.dio_contour.launches == 1
     assert torch.equal(got, want)
 
+
+
+# ---- training: flash under autograd, the eval-only kernels refuse it
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_autograd_matches_plain_route(dev, dtype, causal):
+    """The train step's encoder-length call: the kernel forward (one
+    launch) inside ``FlashTrain`` against the plain version (f32 1e-4,
+    bf16 2e-2 of the output's scale), and dq / dk / dv against the plain
+    route's autograd, which run the same plain backward on the same
+    inputs and cotangent (1e-6 f32, 1e-3 bf16 of each gradient's
+    scale)."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    b, h, t, hd = 8, 4, 1001, 128
+    q, k, v = (torch.randn(b, h, t, hd, device=dev, generator=g).to(dtype)
+               for _ in range(3))
+    w = torch.randn(b, h, t, hd, device=dev, generator=g)
+    lens = torch.tensor([1001, 990, 950, 900, 800, 700, 600, 1], device=dev)
+    valid = torch.arange(t, device=dev)[None] < lens[:, None]
+
+    def route(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves, causal=causal, kv_valid=valid)
+        (out.float() * w).sum().backward()
+        return out.detach(), [x.grad for x in leaves]
+
+    attention.flash_attention.launches = 0
+    got, gk = route(attention.flash_attention)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches == 1
+    want, gp = route(attention.attention_plain)
+    want32 = attention.attention_plain(q.float(), k.float(), v.float(),
+                                       causal=causal, kv_valid=valid)
+    assert _rel(got, want32) < (1e-4 if dtype == torch.float32 else 2e-2)
+    for a, c in zip(gk, gp):
+        assert _rel(a, c) <= (1e-6 if dtype == torch.float32 else 1e-3)
+
+
+def _eval_only_calls():
+    t = lambda: torch.zeros(1, device="cuda")
+    return {
+        "fused_abby": lambda x: abby.fused_abby(x, t(), t(), t(), t(), 3,
+                                                1e-4, 1.0, 0.75),
+        "fused_abby_tail": lambda x: abby.fused_abby_tail(x, t(), 3, 1e-4,
+                                                          1.0, 0.75),
+        "fused_sheath_scan": lambda x: sheath.fused_sheath_scan(
+            x, 1, None, t(), t(), t(), {}, 2, 0.3),
+        "fused_attn_cached": lambda x: xattn.fused_attn_cached(
+            x, t(), t(), None, t(), {}, {}, {}, 2, 3, 3, 1e-4, 1.0, 0.75),
+        "fused_attn_full": lambda x: xattn.fused_attn_full(
+            x, t(), None, t(), {}, {}, {}, {}, 2, 3, 3, 1e-4, 1.0, 0.75,
+            False),
+        "fused_mlp_residual": lambda x: mlp.fused_mlp_residual(
+            x, (), t(), t(), [], t(), t(), t(), t(), 3, 1e-4, 1.0, 0.75),
+        "fused_router_same": lambda x: router.fused_router_same(
+            x, t(), t(), t(), t(), t(), 2)}
+
+
+@pytest.mark.parametrize("name", sorted(_eval_only_calls()))
+def test_eval_only_kernels_refuse_autograd(dev, name):
+    """The eval-only kernels (no backward) raise, naming their gate,
+    when autograd would need a gradient of their inputs; the model
+    routes around them off the eval route."""
+    x = torch.randn(4, 128, device=dev, requires_grad=True)
+    with torch.enable_grad(), pytest.raises(RuntimeError, match="eval-only"):
+        _eval_only_calls()[name](x)
+
+
+@pytest.mark.parametrize("n", [4800, 8000, 21347, 31999, 480000])
+def test_frame_rate_waveform_on_the_card(dev, n):
+    """The data pipeline's frame-rate waveform at utterance lengths the
+    synthetic dataset draws: its pooling bins (integer bounds) equal
+    ``F.adaptive_avg_pool1d``'s on the card too."""
+    from asr_model_tpu_torch.ops.audio import adaptive_avg_pool1d
+    target = max(int((n / 16000) * (16000 // 160)), 1)
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(1, 1, n, device=dev, generator=g, dtype=torch.float64)
+    got = adaptive_avg_pool1d(x, target)
+    want = torch.nn.functional.adaptive_avg_pool1d(x, target)
+    assert float((got - want).abs().max()) < 1e-12

@@ -40,9 +40,35 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "asr_model_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    # the training slice's modules are among them
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {f"asr_model_tpu_torch/{m}" for m in (
+        "cli.py", "native/__init__.py", "optim/maxfactor.py",
+        "optim/schedules.py", "train/loop.py", "train/metrics.py",
+        "train/checkpoint.py", "data/features.py", "data/collator.py",
+        "data/dataset.py")} <= names
     bad = [(str(f.relative_to(ROOT)), n) for f in files
            for n in _imports(f) if _forbidden(n)]
     assert not bad, bad
+
+
+def test_training_modules_load_no_jax():
+    """Importing the training CLI, the loop and the data pipeline (and
+    building the native DIO) leaves every JAX module out of the
+    process."""
+    import subprocess
+    import sys
+    script = (
+        "import sys\n"
+        "import asr_model_tpu_torch.cli, asr_model_tpu_torch.train.loop\n"
+        "import asr_model_tpu_torch.data.dataset\n"
+        "from asr_model_tpu_torch.native import library\n"
+        "library()\n"
+        "print(sorted(m for m in ('jax', 'flax', 'optax', 'msgpack', "
+        "'asr_model_tpu') if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=str(ROOT),
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_every_kernel_source_is_built():

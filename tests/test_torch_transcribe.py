@@ -250,6 +250,21 @@ def test_streaming_model_routes_to_stream_decode(pair, batch_pair,
     assert called["stream"] == 1
 
 
+def test_dio_host_matches_jax(pair):
+    """"dio_host" serves the training features' pitch (the native host
+    DIO + StoneMask, the port's own copy of world.cpp): the text equal to
+    the JAX Transcriber's with the same estimator, single and batched,
+    and the device DIO's contour kernel not run."""
+    jt, pt = _variant(pair, pitch_estimator="dio_host", use_waveform=False)
+    wav = _tone(0.5)
+    kernels.reset_counts()
+    assert pt(wav) == jt(wav)
+    wavs = [_tone(0.5), _tone(0.4, f0=180.0, seed=1)]
+    assert pt.transcribe_batch(wavs) == jt.transcribe_batch(wavs)
+    assert kernels.counts()["dio_contour"] == {"launches": 0,
+                                               "plain_calls": 0}
+
+
 def test_config_from_json_reads_the_jax_config():
     cfg = JConfig(model=JModelConfig(dims=JDims(**KW), streaming=True),
                   data=JData(pitch=False, pitch_estimator="yin"))
@@ -273,9 +288,13 @@ def test_transcriber_needs_cuda_unless_cpu_is_asked(pair):
         pytest.skip("a card is present: the default device is taken")
     with pytest.raises(RuntimeError, match="CUDA"):
         Transcriber(pt.model, pt.tokenizer, bf16=False)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # "dio_host" (the native host DIO) is served since the training
+    # slice; an unknown estimator is refused
+    Transcriber(pt.model, pt.tokenizer, device="cpu", bf16=False,
+                pitch_estimator="dio_host")
+    with pytest.raises(ValueError, match="unknown pitch estimator"):
         Transcriber(pt.model, pt.tokenizer, device="cpu", bf16=False,
-                    pitch_estimator="dio_host")
+                    pitch_estimator="crepe")
 
 
 @pytest.mark.parametrize("modalities", [False, True])
