@@ -1,15 +1,20 @@
 """Training entry point, the counterpart of ``asr_model_tpu/cli.py``:
 
+    python -m asr_model_tpu_torch.cli --metadata M --data-dir D \\
+        --max-steps 100 --batch-size 8 [--remat] [--import-reference X.pt]
     python -m asr_model_tpu_torch.cli --synthetic 16 --max-steps 4 \\
         --batch-size 8 --train-dtype bfloat16
 
-tokenizer -> dataset -> 80/20 split -> Model -> MaxFactor (two bias
-groups) + FAMScheduler2 -> ``train_and_evaluate``.  It runs on the card
-unless ``--device cpu`` is given.  The JAX CLI's flags that this port
-does not implement yet are accepted and refused with the ROADMAP item
-that brings them: ``--metadata`` / ``--data-dir`` (a dataset of files),
-``--import-reference``, ``--remat``, ``--mesh-*``, ``--microbatches``,
-``--moe-experts``, ``--chained-blocks``, ``--pitch-tokens``.
+tokenizer -> dataset (``PreparedDataset`` over a ``metadata.csv`` of
+audio files under ``--data-dir``, or ``--synthetic N`` tones) -> 80/20
+split -> Model (with ``--import-reference``, the reference's torch
+``state_dict`` loaded into it) -> MaxFactor (two bias groups) +
+FAMScheduler2 -> ``train_and_evaluate`` (``--remat``: the backward
+recomputes the forward).  It runs on the card unless ``--device cpu`` is
+given.  The JAX CLI's flags that this port does not implement yet are
+accepted and refused with the ROADMAP item that brings them:
+``--mesh-*``, ``--microbatches``, ``--moe-experts``,
+``--chained-blocks``, ``--pitch-tokens``.
 """
 
 from __future__ import annotations
@@ -80,11 +85,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _refuse(args) -> None:
     """The JAX CLI's options this port does not implement yet."""
-    later = [(args.metadata or args.data_dir, "--metadata/--data-dir "
-              "(a dataset of audio files)", 7),
-             (args.import_reference, "--import-reference", 7),
-             (args.remat, "--remat", 7),
-             (any(getattr(args, f"mesh_{a}") != 1 for a in
+    later = [(any(getattr(args, f"mesh_{a}") != 1 for a in
                   ("data", "model", "seq", "expert", "pipe")),
               "--mesh-*", 10),
              (args.microbatches != 1, "--microbatches", 10),
@@ -95,9 +96,8 @@ def _refuse(args) -> None:
         if on:
             raise SystemExit(f"{flag} is not implemented by the PyTorch "
                              f"port yet (ROADMAP Queue 1 item {item})")
-    if not args.synthetic:
-        raise SystemExit("need --synthetic N (datasets of files come with "
-                         "ROADMAP Queue 1 item 7)")
+    if not args.synthetic and not (args.metadata and args.data_dir):
+        raise SystemExit("need --metadata/--data-dir or --synthetic N")
 
 
 def main(argv=None) -> dict:
@@ -106,7 +106,8 @@ def main(argv=None) -> dict:
     from asr_model_tpu_torch.config import (Config, DataConfig, Dimensions,
                                             ModelConfig, OptimConfig,
                                             RunConfig)
-    from asr_model_tpu_torch.data.dataset import (Repeated,
+    from asr_model_tpu_torch.data.dataset import (PreparedDataset,
+                                                  Repeated,
                                                   SyntheticDataset,
                                                   random_split)
     from asr_model_tpu_torch.data.tokenizer import setup_tokenizer
@@ -152,10 +153,16 @@ def main(argv=None) -> dict:
                       checkpoint_dir=args.checkpoint_dir or log_dir,
                       log_dir=log_dir, generate=args.generate,
                       train_dtype=args.train_dtype,
-                      prefetch_depth=args.prefetch))
+                      prefetch_depth=args.prefetch, remat=args.remat,
+                      remat_policy=args.remat_policy))
 
-    dataset = SyntheticDataset(n=args.synthetic, tokenizer=tokenizer,
-                               extract_args=extract_args, device=dev)
+    if args.synthetic:
+        dataset = SyntheticDataset(n=args.synthetic, tokenizer=tokenizer,
+                                   extract_args=extract_args, device=dev)
+    else:
+        dataset = PreparedDataset(args.metadata, args.data_dir, tokenizer,
+                                  extract_args=extract_args, cache=True,
+                                  device=dev)
     train_ds, eval_ds = random_split(dataset, 0.8, seed=cfg.run.seed)
     pad = args.pad_multiple or None
     text_pad = 16 if pad else None
@@ -164,6 +171,10 @@ def main(argv=None) -> dict:
     eval_loader = Repeated(eval_ds, batch_size=cfg.run.batch_size,
                            pad_to_multiple=pad, text_pad_to_multiple=text_pad)
     model = Model(dims, cfg.model, device=dev, seed=cfg.run.seed)
+    if args.import_reference:
+        from asr_model_tpu_torch.compat import import_reference_checkpoint
+        import_reference_checkpoint(args.import_reference, model)
+        print(f"imported reference state_dict {args.import_reference}")
     summary = train_and_evaluate(model, tokenizer, train_loader, eval_loader,
                                  cfg, resume_from=args.resume)
     n_params = sum(p.numel() for p in model.parameters())

@@ -109,7 +109,10 @@ class RunConfig:
     """Training-loop settings, single device.  ``train_dtype``
     "bfloat16" runs the forward and backward in bf16 over f32 master
     weights and optimizer state; ``prefetch_depth`` collated batches are
-    prepared ahead on a worker thread."""
+    prepared ahead on a worker thread; ``remat`` recomputes the forward
+    in the backward (``remat_policy`` "dots" keeps the matrix products
+    without a batch dimension, "full" nothing) and checkpoints each
+    MSheath slot step."""
 
     max_steps: int = 100
     batch_size: int = 1
@@ -126,6 +129,8 @@ class RunConfig:
     max_new_tokens: int = 150
     seed: int = 0
     prefetch_depth: int = 2
+    remat: bool = False
+    remat_policy: str = "dots"
 
 
 # reference options the port does not implement yet: (section, field,
@@ -139,7 +144,6 @@ UNSUPPORTED = (("model", "chained_blocks", False, 9),
                ("data", "harmonics", False, 9),
                ("data", "aperiodics", False, 9),
                ("data", "phase", False, 9),
-               ("run", "remat", False, 7),
                ("run", "mesh_data", 1, 10),
                ("run", "mesh_model", 1, 10),
                ("run", "mesh_seq", 1, 10),

@@ -1,9 +1,9 @@
 """Host audio decode: the port's own copy of
 ``asr_model_tpu/data/audio_io.py``'s WAV reader and ``load_wave``.
 
-WAV (PCM 8/16/24/32-bit) is decoded here, then peak-normalised.  FLAC
-(the LibriSpeech encoding) needs the native decoder that comes with the
-port's data slice; other codecs go through ``soundfile`` where it is
+WAV (PCM 8/16/24/32-bit) is decoded here and FLAC (the LibriSpeech
+encoding) by the port's native decoder (``native.read_flac``), then
+peak-normalised; other codecs go through ``soundfile`` where it is
 installed.  ``strict_multichannel=True`` divides each channel by its
 plain maximum, as the reference does; the default divides by the
 absolute maximum.
@@ -53,9 +53,8 @@ def _read_any(path: str) -> Tuple[np.ndarray, int]:
         except (wave.Error, ValueError):
             pass
     if path.lower().endswith(".flac"):
-        raise NotImplementedError(
-            f"cannot decode {path}: the PyTorch port's FLAC decoder comes "
-            "with its data slice (ROADMAP Queue 1 item 7)")
+        from asr_model_tpu_torch.native import read_flac
+        return read_flac(path)
     try:
         import soundfile as sf
     except ImportError as e:

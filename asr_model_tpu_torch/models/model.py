@@ -12,10 +12,13 @@ parameters do not require gradients until a trainer asks
 batch statistics, dropout and gumbel draws from ``gen`` (a
 ``torch.Generator`` on the model's device; None is the noise-free
 limit, which needs ``dropout=0``), the differentiable routes of every
-module.  It returns the logits, ``cross_entropy_ignore_pad`` when
-``labels`` are given, the summed MSheath jump counter ``jstat`` (3,)
-and ``batch_stats``, the new running statistics of each BatchNorm
-(``apply_batch_stats`` writes them to the buffers).
+module.  ``forward(..., differentiable=True)`` is the eval forward
+(running BatchNorm statistics, no dropout, no noise) on those routes,
+for a gradient of the eval loss.  It returns the logits,
+``cross_entropy_ignore_pad`` when ``labels`` are given, the summed
+MSheath jump counter ``jstat`` (3,) and ``batch_stats``, the new running
+statistics of each BatchNorm (``apply_batch_stats`` writes them to the
+buffers).
 """
 
 from __future__ import annotations
@@ -85,12 +88,12 @@ class Model(nn.Module):
 
     def forward(self, text_ids, labels=None, spectrogram=None, pitch=None,
                 waveform=None, text_valid=None, train: bool = False,
-                gen=None):
-        if not train and gen is None:
+                gen=None, differentiable: bool = False):
+        if not (train or gen is not None or differentiable):
             with torch.no_grad():
                 return self._forward(text_ids, labels, spectrogram, pitch,
                                      waveform, text_valid)
-        with stochastic.mode(train, gen) as rec:
+        with stochastic.mode(train, gen, differentiable) as rec:
             out = self._forward(text_ids, labels, spectrogram, pitch,
                                 waveform, text_valid)
             jstat = rec.jstat

@@ -48,6 +48,13 @@ from asr_model_tpu_torch.ops.cuda import sheath as K
 from asr_model_tpu_torch.utils import l2norm
 
 
+# the per-slot stacks the keyed scan's step reads (``MSheath._slot``)
+SLOT_PARAMS = ("ln_scale", "ln_bias", "gate_w", "gate_b", "mkey", "mval",
+               "vmlp1_w", "vmlp1_b", "vmlp2_w", "vmlp2_b", "vcat_w",
+               "vcat_b", "adapt_w", "adapt_b", "memgate_w", "memgate_b",
+               "jump_s")
+
+
 def masked_mean(x, valid, dim):
     if valid is None:
         return x.mean(dim=dim, keepdim=True)
@@ -247,79 +254,99 @@ class MSheath(nn.Module):
     def _sampled(self, pooled):
         return torch.argmax(self.pnet(pooled).mean(dim=0)).to(torch.int32)
 
-    def _v_gate(self, x, i):
+    @staticmethod
+    def _v_gate(w, x, i, thresh: float):
         """v_gate of slot ``i`` (a 0-d int64 device tensor) on x (B, T,
-        D): the straight-through mask (B, T, 1)."""
+        D) with the slot stacks ``w``: the straight-through mask (B, T,
+        1)."""
         pick = lambda t: t.index_select(0, i.reshape(1))[0]
-        d = self.dims
-        key = torch.softmax(l2norm(x) @ l2norm(pick(self.mkey)).t()
-                            / math.sqrt(d), dim=-1)
-        mem_score = key @ pick(self.mval)
-        h = F.silu(x @ pick(self.vmlp1_w) + pick(self.vmlp1_b))
-        mlp_score = h @ pick(self.vmlp2_w) + pick(self.vmlp2_b)
+        key = torch.softmax(l2norm(x) @ l2norm(pick(w["mkey"])).t()
+                            / math.sqrt(x.shape[-1]), dim=-1)
+        mem_score = key @ pick(w["mval"])
+        h = F.silu(x @ pick(w["vmlp1_w"]) + pick(w["vmlp1_b"]))
+        mlp_score = h @ pick(w["vmlp2_w"]) + pick(w["vmlp2_b"])
         x_val = (torch.cat([mem_score, mlp_score], dim=-1)
-                 @ pick(self.vcat_w) + pick(self.vcat_b))
-        return stochastic.ste_threshold(x_val, self.thresh)
+                 @ pick(w["vcat_w"]) + pick(w["vcat_b"]))
+        return stochastic.ste_threshold(x_val, thresh)
+
+    def _slot(self, x, mem_w, i, jstat, orig_x, policy_mean, noise, valid,
+              streaming: bool, *stacks):
+        """One step of the keyed scan: slot ``i``'s update of the carry
+        (x, mem_w, i, jstat) and its action.  Every tensor it reads is an
+        argument (``stacks``: the ``SLOT_PARAMS`` as the forward sees
+        them, the bf16 casts under the train step's ``functional_call``),
+        so a checkpoint's recompute, which runs after the forward has
+        returned, recomputes the same values."""
+        w = dict(zip(SLOT_PARAMS, stacks))
+        L, b, dev = self.layer, x.shape[0], x.device
+        active = i < L
+        idx = torch.clamp(i, max=L - 1)
+        pick = lambda t, j=idx: t.index_select(0, j.reshape(1))[0]
+        ion = self._v_gate(w, x, idx, self.thresh)
+        px = layer_norm(x, pick(w["ln_scale"]), pick(w["ln_bias"]))
+        a_idx = (idx // 2).reshape(1)
+        adapted = (px @ w["adapt_w"].index_select(0, a_idx)[0]
+                   + w["adapt_b"].index_select(0, a_idx)[0])
+        apx = torch.where(idx % 2 == 0, adapted, px)
+        g_val = torch.sigmoid(px @ pick(w["gate_w"]) + pick(w["gate_b"]))
+        x_new = x + g_val * (apx * ion)
+        if streaming:
+            mem = causal_mean(x_new, valid)
+            potential = ion[:, 0].mean()
+        else:
+            mem = masked_mean(x_new, valid, dim=1)
+            potential = (ion.mean() if valid is None else
+                         masked_mean(ion, valid, dim=(0, 1, 2))[0, 0, 0])
+        mem_v = torch.sigmoid(mem @ w["memgate_w"] + w["memgate_b"])
+        mem_w_new = mem_v * mem_w + (1 - mem_v) * mem
+        last = i >= L - 1
+        forced = (potential < 0.1) & ~last
+        jump = stochastic.gumbel_softmax(policy_mean, noise, 1.0, True)
+        sampled = torch.argmax(jump, dim=-1)
+        action = torch.where(last, 0, torch.where(forced, 1, sampled))
+        one = torch.ones((), dtype=x.dtype, device=dev)
+        jump_g = torch.where(forced | last, one,
+                             jump.index_select(0, sampled.reshape(1))[0])
+        jump_w = w["jump_s"].index_select(
+            0, torch.clamp(action - 1, 0, 2).reshape(1))[0]
+        jump_i = jump_w * orig_x + (1 - jump_w) * mem_w_new
+        x_out = torch.where(action > 0, x_new + jump_i * jump_g,
+                            x_new * jump_g)
+        i_next = torch.where(action > 0,
+                             torch.clamp(i + action + 1, max=L), i + 1)
+        kinds = torch.arange(3, device=dev)
+        jstat = jstat + (active & (kinds == action)).to(torch.int32) * b
+        x = torch.where(active, x_out, x).to(x.dtype)
+        mem_w = torch.where(active, mem_w_new, mem_w).to(mem_w.dtype)
+        return x, mem_w, torch.where(active, i_next, i), jstat, action
 
     def _train_scan(self, x, valid, streaming: bool):
         """The keyed layer-slot scan (``asr_model_tpu/models/sheath.py:
-        _xla_scan``): returns (x, actions (L,), jstat (3,) int32)."""
-        L, b = self.layer, x.shape[0]
-        dev = x.device
+        _xla_scan``): returns (x, actions (L,), jstat (3,) int32).  Each
+        slot's gumbel noise is drawn before its step, and under
+        ``stochastic.remat`` the step is checkpointed
+        (``stochastic.checkpoint``: the backward recomputes it and keeps
+        only its inputs), the counterpart of the JAX package's
+        ``scan_remat``; both routes draw in the same order."""
+        b, dev = x.shape[0], x.device
         pooled = x[:, 0] if streaming else masked_mean(x, valid, dim=1)[:, 0]
         policy_mean = self.pnet(pooled).mean(dim=0)
         gen = stochastic.generator()
-        orig_x = x
         mem_w = self.mem_w.to(x.dtype).expand(b, x.shape[1] if streaming
                                               else 1, self.dims)
-        i = torch.zeros((), dtype=torch.int64, device=dev)
-        jstat = torch.zeros(3, dtype=torch.int32, device=dev)
-        kinds = torch.arange(3, device=dev)
-        one = torch.ones((), dtype=x.dtype, device=dev)
+        carry = (x, mem_w, torch.zeros((), dtype=torch.int64, device=dev),
+                 torch.zeros(3, dtype=torch.int32, device=dev))
+        stacks = tuple(getattr(self, n) for n in SLOT_PARAMS)
         actions = []
-        for _step in range(L):
-            active = i < L
-            idx = torch.clamp(i, max=L - 1)
-            pick = lambda t, j=idx: t.index_select(0, j.reshape(1))[0]
-            ion = self._v_gate(x, idx)
-            px = layer_norm(x, pick(self.ln_scale), pick(self.ln_bias))
-            a_idx = idx // 2
-            adapted = (px @ self.adapt_w.index_select(0, a_idx.reshape(1))[0]
-                       + self.adapt_b.index_select(0, a_idx.reshape(1))[0])
-            apx = torch.where(idx % 2 == 0, adapted, px)
-            g_val = torch.sigmoid(px @ pick(self.gate_w) + pick(self.gate_b))
-            x_new = x + g_val * (apx * ion)
-            if streaming:
-                mem = causal_mean(x_new, valid)
-                potential = ion[:, 0].mean()
-            else:
-                mem = masked_mean(x_new, valid, dim=1)
-                potential = (ion.mean() if valid is None else
-                             masked_mean(ion, valid, dim=(0, 1, 2))[0, 0, 0])
-            mem_v = torch.sigmoid(mem @ self.memgate_w + self.memgate_b)
-            mem_w_new = mem_v * mem_w + (1 - mem_v) * mem
-            last = i >= L - 1
-            forced = (potential < 0.1) & ~last
+        for _step in range(self.layer):
             noise = (None if gen is None else stochastic.sample_gumbel(
                 policy_mean.shape, gen, policy_mean.dtype))
-            jump = stochastic.gumbel_softmax(policy_mean, noise, 1.0, True)
-            sampled = torch.argmax(jump, dim=-1)
-            action = torch.where(last, 0, torch.where(forced, 1, sampled))
-            jump_g = torch.where(forced | last, one,
-                                 jump.index_select(0, sampled.reshape(1))[0])
-            jump_w = self.jump_s.index_select(
-                0, torch.clamp(action - 1, 0, 2).reshape(1))[0]
-            jump_i = jump_w * orig_x + (1 - jump_w) * mem_w_new
-            x_out = torch.where(action > 0, x_new + jump_i * jump_g,
-                                x_new * jump_g)
-            i_next = torch.where(action > 0,
-                                 torch.clamp(i + action + 1, max=L), i + 1)
-            jstat = jstat + (active & (kinds == action)).to(torch.int32) * b
-            x = torch.where(active, x_out, x).to(x.dtype)
-            mem_w = torch.where(active, mem_w_new, mem_w).to(mem_w.dtype)
-            i = torch.where(active, i_next, i)
+            args = (*carry, x, policy_mean, noise, valid, streaming, *stacks)
+            out = (stochastic.checkpoint(self._slot, *args)
+                   if stochastic.remat_active() else self._slot(*args))
+            carry, action = out[:4], out[4]
             actions.append(action)
-        return x, torch.stack(actions).to(torch.int32), jstat
+        return carry[0], torch.stack(actions).to(torch.int32), carry[3]
 
     def forward(self, x, valid=None, streaming: bool = False):
         if not stochastic.eval_route():

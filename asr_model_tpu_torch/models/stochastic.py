@@ -17,6 +17,20 @@ side results there (BatchNorm's new running statistics, MSheath's jump
 counter), and take the eval-only kernels only when ``eval_route()``:
 not training and no generator, the JAX package's ``rng is None`` gate.
 Outside a ``mode`` block every module is in eval with no generator.
+``mode(differentiable=True)`` keeps eval semantics (running BatchNorm
+statistics, no dropout, the noise-free routing) on the differentiable
+routes: the gradient diagnostics take their gradients so, as the JAX
+package takes them with ``train=False``.
+
+``remat()`` turns on the checkpoint of the MSheath scan's slot step
+(the counterpart of the JAX package's ``scan_remat``), and
+``checkpoint(fn, *args)`` is ``torch.utils.checkpoint`` for a piece of
+the train forward: its recompute runs inside the backward, on autograd's
+thread and after ``mode`` has exited, so it replays the forward's state
+(train mode, generator, differentiable flag, remat) with the generator
+rewound to where the forward found it (``preserve_rng_state`` restores
+only the default generators), and records into a throwaway record, so
+no BatchNorm statistic or jump count is taken twice.
 """
 
 from __future__ import annotations
@@ -32,25 +46,96 @@ class _State(threading.local):
     def __init__(self):
         self.train = False
         self.gen = None
+        self.differentiable = False  # eval semantics, differentiable routes
+        self.remat = False          # checkpoint the MSheath slot steps
+        self.depth = 0              # nesting of ``checkpoint`` bodies
         self.batch_stats = None     # {module: (mean, var)} of this call
         self.jstat = None           # summed MSheath jump counter (3,)
 
 
 _STATE = _State()
+_FIELDS = ("train", "gen", "differentiable", "remat", "depth",
+           "batch_stats", "jstat")
+
+
+def _get():
+    return tuple(getattr(_STATE, k) for k in _FIELDS)
+
+
+def _set(values) -> None:
+    for k, v in zip(_FIELDS, values):
+        setattr(_STATE, k, v)
 
 
 @contextlib.contextmanager
-def mode(train: bool = False, gen=None):
-    """Run a forward in train mode and/or with a noise generator; yields
-    the call's record (``batch_stats``, ``jstat``)."""
-    prev = (_STATE.train, _STATE.gen, _STATE.batch_stats, _STATE.jstat)
+def mode(train: bool = False, gen=None, differentiable: bool = False):
+    """Run a forward in train mode and/or with a noise generator (or, with
+    ``differentiable``, in eval on the differentiable routes); yields the
+    call's record (``batch_stats``, ``jstat``)."""
+    prev = _get()
     _STATE.train, _STATE.gen = bool(train), gen
+    _STATE.differentiable = bool(differentiable)
     _STATE.batch_stats, _STATE.jstat = {}, None
     try:
         yield _STATE
     finally:
-        (_STATE.train, _STATE.gen, _STATE.batch_stats,
-         _STATE.jstat) = prev
+        _set(prev)
+
+
+@contextlib.contextmanager
+def remat(on: bool = True):
+    """While active, the MSheath scan checkpoints each slot step."""
+    prev = _STATE.remat
+    _STATE.remat = bool(on)
+    try:
+        yield
+    finally:
+        _STATE.remat = prev
+
+
+def remat_active() -> bool:
+    return _STATE.remat
+
+
+def checkpoint_depth() -> int:
+    """How many ``checkpoint`` bodies enclose the running code."""
+    return _STATE.depth
+
+
+def checkpoint(fn, *args, gen=None, context_fn=None):
+    """``torch.utils.checkpoint.checkpoint(fn, *args)`` (non-reentrant)
+    whose recompute replays this forward's state and the draws of
+    ``gen`` (by default the forward's generator; module doc);
+    ``context_fn`` as there (a selective policy)."""
+    from torch.utils.checkpoint import checkpoint as torch_checkpoint
+    state = _get()
+    gen = _STATE.gen if gen is None else gen
+    start = None if gen is None else gen.get_state()
+    runs = [0]
+
+    def body(*a):
+        runs[0] += 1
+        prev = _get()
+        replay = runs[0] > 1 and gen is not None
+        if runs[0] == 1:
+            _STATE.depth += 1
+        else:
+            # the recompute, inside the backward: the forward's train,
+            # gen, differentiable and remat, one body deeper, and a
+            # throwaway record
+            _set(state[:4] + (state[4] + 1, {}, None))
+        if replay:
+            after = gen.get_state()
+            gen.set_state(start)
+        try:
+            return fn(*a)
+        finally:
+            if replay:
+                gen.set_state(after)
+            _set(prev)
+
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return torch_checkpoint(body, *args, use_reentrant=False, **kw)
 
 
 def train_mode() -> bool:
@@ -62,9 +147,10 @@ def generator():
 
 
 def eval_route() -> bool:
-    """True where the eval-only kernels may run: no train mode and no
-    generator."""
-    return not _STATE.train and _STATE.gen is None
+    """True where the eval-only kernels may run: no train mode, no
+    generator, no gradient asked of the eval forward."""
+    return (not _STATE.train and _STATE.gen is None
+            and not _STATE.differentiable)
 
 
 def record_batch_stats(module, mean, var) -> None:

@@ -1,9 +1,12 @@
-"""The port's host-side native code: its own copy of the JAX package's
+"""The port's host-side native code: its own copies of the JAX package's
 ``native/world.cpp`` (DIO + StoneMask, the reference's pyworld pair),
+``native/flac.cpp`` (the FLAC decoder LibriSpeech needs) and
+``native/wer.cpp`` (the word-level edit distance of the eval WER), each
 compiled by ``g++`` at first use into ``asr_model_tpu_torch/_build/
-native/<hash of the source>/libworld.so`` (git-ignored) and loaded with
-``ctypes``.  ``world_dio`` and ``world_stonemask`` keep the JAX
-package's signatures (``asr_model_tpu/native/__init__.py``)."""
+native/<hash of the source>/lib<name>.so`` (git-ignored) and loaded with
+``ctypes``.  A failed build raises.  ``world_dio``, ``world_stonemask``,
+``read_flac`` and ``wer_levenshtein`` keep the JAX package's signatures
+(``asr_model_tpu/native/__init__.py``)."""
 
 from __future__ import annotations
 
@@ -16,34 +19,20 @@ from pathlib import Path
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent / "world.cpp"
+HERE = Path(__file__).resolve().parent
 BUILD = Path(__file__).resolve().parents[1] / "_build" / "native"
 FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+SOURCES = ("world", "flac", "wer")
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 _dbl = ctypes.POINTER(ctypes.c_double)
+_i32 = ctypes.POINTER(ctypes.c_int32)
+_int = ctypes.POINTER(ctypes.c_int)
 
 
-def library() -> ctypes.CDLL:
-    """Build (once per source version) and load the WORLD library."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        h = hashlib.sha256((" ".join(FLAGS)).encode() + SRC.read_bytes())
-        out = BUILD / h.hexdigest()[:16] / "libworld.so"
-        if not out.exists():
-            out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            try:
-                subprocess.run(["g++", *FLAGS, str(SRC), "-o", str(tmp)],
-                               check=True, capture_output=True, text=True)
-            except (OSError, subprocess.CalledProcessError) as e:
-                raise RuntimeError(f"building {SRC.name} with g++ failed: "
-                                   f"{getattr(e, 'stderr', e)}") from e
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    if name == "world":
         lib.world_dio.argtypes = [
             _dbl, ctypes.c_longlong, ctypes.c_int, ctypes.c_double,
             ctypes.c_double, ctypes.c_double, ctypes.c_double,
@@ -53,7 +42,44 @@ def library() -> ctypes.CDLL:
             _dbl, ctypes.c_longlong, ctypes.c_int, _dbl, _dbl,
             ctypes.c_longlong, _dbl]
         lib.world_stonemask.restype = ctypes.c_int
-        _lib = lib
+    elif name == "flac":
+        lib.flac_info.argtypes = [
+            ctypes.c_char_p, ctypes.c_longlong, _int, _int, _int,
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.flac_info.restype = ctypes.c_int
+        lib.flac_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
+                                    _i32, ctypes.c_longlong]
+        lib.flac_decode.restype = ctypes.c_longlong
+    elif name == "wer":
+        lib.wer_levenshtein.argtypes = [_i32, ctypes.c_int, _i32,
+                                        ctypes.c_int]
+        lib.wer_levenshtein.restype = ctypes.c_int
+
+
+def library(name: str = "world") -> ctypes.CDLL:
+    """Build (once per source version) and load the library of
+    ``<name>.cpp`` (one of ``SOURCES``)."""
+    if name not in SOURCES:
+        raise ValueError(f"no native source {name!r} (one of {SOURCES})")
+    with _lock:
+        if name in _libs:
+            return _libs[name]
+        src = HERE / f"{name}.cpp"
+        h = hashlib.sha256((" ".join(FLAGS)).encode() + src.read_bytes())
+        out = BUILD / h.hexdigest()[:16] / f"lib{name}.so"
+        if not out.exists():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            try:
+                subprocess.run(["g++", *FLAGS, str(src), "-o", str(tmp)],
+                               check=True, capture_output=True, text=True)
+            except (OSError, subprocess.CalledProcessError) as e:
+                raise RuntimeError(f"building {src.name} with g++ failed: "
+                                   f"{getattr(e, 'stderr', e)}") from e
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _declare(name, lib)
+        _libs[name] = lib
         return lib
 
 
@@ -70,9 +96,9 @@ def world_dio(x, fs: int, frame_period: float = 10.0,
     nf = int(1000.0 * x.shape[0] / fs / frame_period) + 1
     f0 = np.empty(nf, dtype=np.float64)
     t = np.empty(nf, dtype=np.float64)
-    got = library().world_dio(_ptr(x), x.shape[0], fs, frame_period,
-                              f0_floor, f0_ceil, channels_in_octave,
-                              allowed_range, _ptr(f0), _ptr(t))
+    got = library("world").world_dio(
+        _ptr(x), x.shape[0], fs, frame_period, f0_floor, f0_ceil,
+        channels_in_octave, allowed_range, _ptr(f0), _ptr(t))
     if got < 0:
         raise RuntimeError("world_dio failed")
     return f0[:got], t[:got]
@@ -84,8 +110,8 @@ def world_stonemask(x, f0, t, fs: int):
     f0 = np.ascontiguousarray(np.asarray(f0, dtype=np.float64))
     t = np.ascontiguousarray(np.asarray(t, dtype=np.float64))
     out = np.empty_like(f0)
-    rc = library().world_stonemask(_ptr(x), x.shape[0], fs, _ptr(f0),
-                                   _ptr(t), f0.shape[0], _ptr(out))
+    rc = library("world").world_stonemask(
+        _ptr(x), x.shape[0], fs, _ptr(f0), _ptr(t), f0.shape[0], _ptr(out))
     if rc != 0:
         raise RuntimeError("world_stonemask failed")
     return out
@@ -99,3 +125,39 @@ def pitch_track_host(audio, sample_rate: int = 16000,
     f0, t = world_dio(audio, sample_rate, frame_period=period)
     f0 = world_stonemask(audio, f0, t, sample_rate)
     return np.asarray(f0, dtype=np.float32)[None, :]
+
+
+def read_flac(path: str):
+    """Decode a FLAC file: (data, sample_rate), data float32 in [-1, 1),
+    (samples,) mono or (channels, samples).  A malformed stream raises
+    RuntimeError."""
+    lib = library("flac")
+    with open(path, "rb") as f:
+        raw = f.read()
+    sr, ch, bps = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    total = ctypes.c_longlong()
+    rc = lib.flac_info(raw, len(raw), ctypes.byref(sr), ctypes.byref(ch),
+                       ctypes.byref(bps), ctypes.byref(total))
+    if rc != 0:
+        raise RuntimeError(f"not a FLAC stream: {path}")
+    # total_samples may be 0 (unknown): over-allocate from the byte size
+    n = int(total.value) or (len(raw) * 8 // max(bps.value, 1) + 65536)
+    cap = n * ch.value
+    out = np.empty(cap, dtype=np.int32)
+    got = lib.flac_decode(raw, len(raw), out.ctypes.data_as(_i32), cap)
+    if got < 0:
+        raise RuntimeError(f"FLAC decode failed ({got}) for {path}")
+    data = (out[: got * ch.value].astype(np.float32)
+            / float(1 << (bps.value - 1)))
+    if ch.value > 1:
+        data = data.reshape(-1, ch.value).T
+    return data, int(sr.value)
+
+
+def wer_levenshtein(ref, hyp) -> int:
+    """Edit distance between two sequences of int32 word ids."""
+    r = np.ascontiguousarray(np.asarray(ref, dtype=np.int32).reshape(-1))
+    h = np.ascontiguousarray(np.asarray(hyp, dtype=np.int32).reshape(-1))
+    return int(library("wer").wer_levenshtein(
+        r.ctypes.data_as(_i32), r.shape[0], h.ctypes.data_as(_i32),
+        h.shape[0]))

@@ -4,22 +4,33 @@
 * ``make_optimizer(cfg, model)``: MaxFactor over the two bias groups
   with the FAMScheduler2 rate, in the JAX layout of every parameter;
   ``acc_steps`` > 1 wraps it in ``MultiSteps`` (optax's accumulation).
-* ``make_train_step(model, opt, clip_grad_norm, compute_dtype)``: one
-  step of forward (train mode, the step's generator), backward, global
-  grad norm (accumulated in f32), clipping by ``clip_grad_norm`` and the
-  optimizer; returns (loss, gnorm, jstat) as device tensors (no host
-  read).  ``compute_dtype=torch.bfloat16`` is the JAX package's mixed
-  precision: f32 master parameters and optimizer state, the loss
+* ``make_train_step(model, opt, clip_grad_norm, compute_dtype, remat,
+  remat_policy)``: one step of forward (train mode, the step's
+  generator), backward, global grad norm (accumulated in f32), clipping
+  by ``clip_grad_norm`` and the optimizer; returns (loss, gnorm, jstat)
+  as device tensors (no host read).  ``compute_dtype=torch.bfloat16``
+  is the JAX package's mixed precision: f32 master parameters and
+  optimizer state, the loss
   evaluated through ``torch.func.functional_call`` on bf16 copies of the
   parameters and buffers and on bf16 float inputs (the gradients reach
   the masters through the casts), the cross entropy on f32 logits, and
   BatchNorm's new running statistics written back in f32.
+  ``remat=True`` is the JAX package's remat: the loss under a
+  checkpoint (``remat_policy`` "full" saves nothing of it, "dots" the
+  outputs of the matrix products with no batch dimension) and each
+  MSheath slot step under one of its own, which is what lowers the
+  peak (``models/sheath.py``).
+* ``make_grad_diagnostics(model)``: the per-parameter gradients of the
+  eval loss (eval semantics on the differentiable routes), in the JAX
+  layout under the flax names.
 * ``grad_norm_controller``, ``make_eval_step`` (teacher-forced argmax),
   ``evaluate_model`` (free-running greedy WER).
 * ``train_and_evaluate``: resume, ``config.json`` beside the
   checkpoints, the Prefetcher depth, the step loop with periodic eval
   and checkpoints, and the TensorBoard scalars under the JAX loop's
-  names (``torch.utils.tensorboard`` when it imports, else none).
+  names (``torch.utils.tensorboard`` when it imports, else none); with
+  ``log_detail`` also the per-parameter grad norms and spectral
+  entropies.
 
 The model's parameters are switched to ``requires_grad`` by
 ``make_train_step``; evaluation runs under ``torch.no_grad`` on the
@@ -28,6 +39,7 @@ eval route (the kernels).
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -37,12 +49,15 @@ import numpy as np
 import torch
 
 from asr_model_tpu_torch.config import Config
+from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.model import Model, cross_entropy_ignore_pad
 from asr_model_tpu_torch.optim.maxfactor import (MaxFactor, MultiSteps,
                                                  bias_groups)
 from asr_model_tpu_torch.optim.schedules import fam_scheduler2
 from asr_model_tpu_torch.train import checkpoint as ckpt
-from asr_model_tpu_torch.train.metrics import compute_metrics
+from asr_model_tpu_torch.train.metrics import (compute_metrics,
+                                               spectral_entropy,
+                                               track_grad_norms)
 from asr_model_tpu_torch.weights import jax_layout
 
 logger = logging.getLogger(__name__)
@@ -100,14 +115,42 @@ def _features(batch, dtype=None):
     return out
 
 
+# ``x @ W`` with x of 3 or more dimensions reaches aten.mm (on x's rows
+# flattened, between two views) and ``F.linear`` aten.addmm: the matrix
+# products with no batch dimension, which "dots" saves, as the JAX
+# package's ``dots_with_no_batch_dims_saveable`` saves its dot_generals
+# without batch dimensions; attention's batched products reach aten.bmm
+# and are recomputed, as is everything else
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+REMAT_POLICIES = ("dots", "full")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    # inside a checkpointed MSheath slot step (depth 2) nothing is saved,
+    # as JAX's inner jax.checkpoint saves nothing of its body
+    if op in DOTS_SAVED and stochastic.checkpoint_depth() <= 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def make_train_step(model: Model, opt, clip_grad_norm: float = 0.0,
-                    compute_dtype: Optional[torch.dtype] = None):
+                    compute_dtype: Optional[torch.dtype] = None,
+                    remat: bool = False, remat_policy: str = "dots"):
     """``step(batch, gen) -> (loss, gnorm, jstat)``; ``batch`` holds
     device tensors (``device_batch``), ``gen`` is the run's
     ``torch.Generator`` on the model's device.  ``step.loss_fn(batch,
     gen) -> (loss, jstat, batch_stats)`` is the step's forward alone
     (the casts of the compute dtype included), for callers that time or
-    differentiate it on its own."""
+    differentiate it on its own.  ``remat`` (module doc) changes no
+    value: the recompute replays the forward's generator draws."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r} "
+                         f"(one of {REMAT_POLICIES})")
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    context = (functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+               if remat_policy == "dots" else None)
     model.requires_grad_(True)
     params = list(model.parameters())
 
@@ -126,8 +169,12 @@ def make_train_step(model: Model, opt, clip_grad_norm: float = 0.0,
         return loss, out["jstat"], out["batch_stats"]
 
     def step(batch, gen):
-        loss, jstat, stats = loss_fn(batch, gen)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with stochastic.remat(remat):
+            loss, jstat, stats = (
+                stochastic.checkpoint(loss_fn, batch, gen, gen=gen,
+                                      context_fn=context)
+                if remat else loss_fn(batch, gen))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         with torch.no_grad():
             gsq = sum(g.float().pow(2).sum() for g in grads if g is not None)
             gnorm = torch.sqrt(torch.as_tensor(gsq, device=loss.device,
@@ -147,6 +194,46 @@ def make_train_step(model: Model, opt, clip_grad_norm: float = 0.0,
 
     step.loss_fn = loss_fn
     return step
+
+
+def make_grad_diagnostics(model: Model):
+    """``grads_fn(batch) -> {flax name: gradient}``: the gradient of the
+    teacher-forced eval loss with respect to every parameter, taken as
+    the JAX package's ``make_grad_diagnostics`` takes it (``train=False``:
+    running BatchNorm statistics, no dropout, the noise-free routing) on
+    the differentiable routes (``Model.forward(differentiable=True)``),
+    each in the JAX layout under its dotted flax path.  It recomputes a
+    forward and a backward, so the loop runs it at log steps only."""
+    model.requires_grad_(True)
+    named = list(model.named_parameters())
+    layout = jax_layout(model)
+
+    def grads_fn(batch) -> Dict[str, torch.Tensor]:
+        with torch.enable_grad():
+            out = model(batch["text_ids"], labels=batch["labels"],
+                        differentiable=True, **_features(batch))
+            grads = torch.autograd.grad(out["loss"], [p for _, p in named],
+                                        allow_unused=True)
+        result = {}
+        for (name, p), g in zip(named, grads):
+            _coll, path, perm = layout[name]
+            g = torch.zeros_like(p) if g is None else g.detach()
+            result[".".join(path)] = g if perm is None else g.permute(*perm)
+        return result
+
+    return grads_fn
+
+
+def log_grad_detail(writer, grads: Dict[str, torch.Tensor],
+                    step: int) -> None:
+    """The JAX loop's ``log_detail`` scalars: ``train/per_layer_norms_<p>``
+    for every parameter and ``Entropy/<p>`` for those of more than 1,024
+    elements."""
+    for name, norm in track_grad_norms(grads.items()).items():
+        writer.add_scalar(f"train/per_layer_norms_{name}", norm, step)
+    for name, g in grads.items():
+        if g.numel() > 1024:
+            writer.add_scalar(f"Entropy/{name}", spectral_entropy(g), step)
 
 
 def grad_norm_controller(grad_history, scales: Dict[str, float],
@@ -248,11 +335,13 @@ def restore_training(model: Model, opt, path: str, gen=None) -> int:
 def train_and_evaluate(model: Model, tokenizer, train_loader: Iterable,
                        eval_loader: Iterable, cfg: Config, writer=None,
                        metric_fn: Callable = compute_metrics,
-                       resume_from: Optional[str] = None):
+                       resume_from: Optional[str] = None,
+                       log_detail: bool = False):
     """Train ``model`` in place for ``cfg.run.max_steps`` steps (from a
     checkpoint's step with ``resume_from``); returns a summary dict (the
     first and the final step, the last loss and grad norm, the last
-    eval's WER and loss)."""
+    eval's WER and loss).  ``log_detail`` adds the gradient diagnostics
+    (``make_grad_diagnostics``) at every log step."""
     run = cfg.run
     os.makedirs(run.checkpoint_dir, exist_ok=True)
     with open(os.path.join(run.checkpoint_dir, "config.json"), "w") as f:
@@ -267,8 +356,10 @@ def train_and_evaluate(model: Model, tokenizer, train_loader: Iterable,
         logger.info("restored checkpoint at step %d from %s", global_step,
                     resume_from)
     train_step = make_train_step(model, opt, run.clip_grad_norm,
-                                 train_compute_dtype(run))
+                                 train_compute_dtype(run), run.remat,
+                                 run.remat_policy)
     eval_step = make_eval_step(model)
+    grad_diag = make_grad_diagnostics(model) if log_detail else None
 
     n_params_m = sum(p.numel() for p in model.parameters()) / 1e6
     grad_history: list = []
@@ -294,7 +385,8 @@ def train_and_evaluate(model: Model, tokenizer, train_loader: Iterable,
     while global_step < run.max_steps:
         start = time.time()
         rows = len(batch["text_ids"])
-        loss, gnorm, jstat = train_step(device_batch(batch, dev), gen)
+        db = device_batch(batch, dev)
+        loss, gnorm, jstat = train_step(db, gen)
         # the step is queued on the device; prepare the next host batch
         # while it runs, then read the two scalars
         if global_step + 1 < run.max_steps:
@@ -319,6 +411,8 @@ def train_and_evaluate(model: Model, tokenizer, train_loader: Iterable,
                     ("Jumps/Skipped_1_Layer", int(js[1])),
                     ("Jumps/Skipped_2_Layers", int(js[2]))):
                 writer.add_scalar(name, val, global_step)
+            if grad_diag is not None:
+                log_grad_detail(writer, grad_diag(db), global_step)
 
         do_eval = (run.eval_interval > 0
                    and global_step > run.warmup_interval
@@ -329,13 +423,13 @@ def train_and_evaluate(model: Model, tokenizer, train_loader: Iterable,
             eval_loss, n_eval, batches = 0.0, 0, 0
             all_p, all_l = [], []
             for ebatch in eval_loader:
-                db = device_batch(ebatch, dev)
-                l, preds = eval_step(db)
+                edb = device_batch(ebatch, dev)
+                l, preds = eval_step(edb)
                 eval_loss += float(l)
                 batches += 1
                 n_eval += len(ebatch["text_ids"])
                 if run.generate:
-                    preds = _greedy(model, db, int(db["labels"].shape[1]),
+                    preds = _greedy(model, edb, int(edb["labels"].shape[1]),
                                     False)
                 all_p.extend(preds.cpu().tolist())
                 all_l.extend(np.asarray(ebatch["labels"]).tolist())

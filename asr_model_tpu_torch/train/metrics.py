@@ -1,8 +1,9 @@
 """Evaluation metrics and gradient diagnostics, the counterparts of
 ``asr_model_tpu/train/metrics.py``: word-level ``levenshtein`` and
 ``wer_batch`` (WER% = errors / reference words * 100 over lowercased
-whitespace tokens; pure Python, the JAX module's own route when its
-native ``wer.cpp`` is not built), ``clean_ids`` / ``clean_batch``
+whitespace tokens) through the native engine (``native/wer.cpp``, the
+words interned to int ids), with ``levenshtein_dp``, the same two-row DP
+in Python, kept as its oracle; ``clean_ids`` / ``clean_batch``
 (dropping -100, PAD, BOS, EOS), ``compute_metrics`` (WER and
 efficiency score), ``track_grad_norms`` and ``spectral_entropy``."""
 
@@ -17,6 +18,18 @@ import torch
 
 def levenshtein(reference_words: List[str],
                 hypothesis_words: List[str]) -> int:
+    """Word-level edit distance by the native engine."""
+    from asr_model_tpu_torch.native import wer_levenshtein
+    interned: Dict[str, int] = {}
+    ids = lambda words: [interned.setdefault(w, len(interned))
+                         for w in words]
+    return wer_levenshtein(ids(reference_words), ids(hypothesis_words))
+
+
+def levenshtein_dp(reference_words: List[str],
+                   hypothesis_words: List[str]) -> int:
+    """The same edit distance in Python (two-row DP): the native
+    engine's oracle."""
     m, n = len(reference_words), len(hypothesis_words)
     if m == 0:
         return n
@@ -67,10 +80,10 @@ def track_grad_norms(named_grads) -> Dict[str, float]:
 def spectral_entropy(grad, n_bands: int = 64) -> float:
     """Normalised Shannon entropy of the FFT power of the first 2048
     gradient values."""
-    if grad is None or np.size(grad) < n_bands:
-        return 1.0
     if isinstance(grad, torch.Tensor):
         grad = grad.detach().float().cpu().numpy()
+    if grad is None or np.size(grad) < n_bands:
+        return 1.0
     flat = np.asarray(grad).reshape(-1)[:2048].astype(np.float32)
     psd = np.abs(np.fft.rfft(flat)) ** 2
     p = psd / (psd.sum() + 1e-8)

@@ -130,19 +130,23 @@ def jax_variables(margins: bool = False):
     return jm, v, jb
 
 
-def port_model(v):
-    m = Model(Dimensions(**KW), ModelConfig(dropout=0.0), device="cpu")
+def port_model(v, streaming: bool = False):
+    m = Model(Dimensions(**KW), ModelConfig(dropout=0.0,
+                                            streaming=streaming),
+              device="cpu")
     m.load_state_dict(from_jax_params(v["params"], v["batch_stats"]),
                       strict=True)
     return m
 
 
-def port_steps(v, compute: str, steps: int = STEPS):
+def port_steps(v, compute: str, steps: int = STEPS, streaming=False,
+               remat=False, remat_policy="dots"):
     """The port's ``make_train_step`` from the variables ``v``: per step
     (loss, gnorm, jstat, params tree, opt-state dict, batch stats)."""
-    m = port_model(v)
+    m = port_model(v, streaming)
     opt, _ = make_optimizer(Config(dims=Dimensions(**KW)), m)
-    step = make_train_step(m, opt, 0.0, DTYPES[compute])
+    step = make_train_step(m, opt, 0.0, DTYPES[compute], remat=remat,
+                           remat_policy=remat_policy)
     db = device_batch(batch(), "cpu")
     ours = []
     for _ in range(steps):
@@ -292,3 +296,53 @@ def update_agreement(ours, theirs, init, names):
         d2 += float(np.sum((d_o - d_t).astype(np.float64) ** 2))
         n2 += float(np.sum(d_t.astype(np.float64) ** 2))
     return same / total, float(np.sqrt(d2 / n2))
+
+
+def check_step(theirs, ours, init, n, rel_tol, share_tol, updates=True):
+    """Step ``n`` of the port (``ours``) against JAX's (``theirs``), both
+    ``run``'s per-step tuples, at the bounds of
+    ``test_torch_train_step.py``'s docstring; without ``updates``, the
+    loss, the grad norm, the jump counter and BatchNorm's statistics
+    only."""
+    tl, tg, tj, tp, ts, tb = theirs[n - 1]
+    ol, og, oj, op, os_, ob = ours[n - 1]
+    assert abs(ol - tl) <= 1e-5 * abs(tl), (ol, tl)
+    assert abs(og - tg) <= 1e-4 * abs(tg), (og, tg)
+    np.testing.assert_array_equal(oj, tj)
+    bs_tol = 1e-5 if n == 1 else 1e-3
+    for k in tb:
+        scale = max(float(np.abs(tb[k]).max()), 1.0)
+        assert float(np.abs(ob[k] - tb[k]).max()) <= bs_tol * scale, k
+    if not updates:
+        return
+    names = live_names(ts)
+    assert len(names) > 50
+    st_tol = 1e-3 if n == 1 else 1e-2
+    for key in ("row_var", "col_var", "v"):
+        for k in names:
+            scale = float(np.abs(ts[key][k]).max())
+            if scale > 0:
+                err = float(np.abs(os_[key][k] - ts[key][k]).max())
+                assert err <= st_tol * scale, (key, k, err, scale)
+    share, rel = update_agreement(op, tp, init, names)
+    assert share >= share_tol, share
+    assert rel <= rel_tol, rel
+
+
+def letters_tokenizer(path) -> str:
+    """Write a byte-level BPE ``tokenizer.json`` of 30 ids (PAD, BOS,
+    EOS, the prefix space and a-z, no merges): the GrammarDataset
+    sentences encode within a model of a few dozen tokens.  Returns the
+    path."""
+    import json
+    vocab = {"<PAD>": 0, "<BOS>": 1, "<EOS>": 2}
+    for c in "Ġabcdefghijklmnopqrstuvwxyz":
+        vocab[c] = len(vocab)
+    blob = {"added_tokens": [{"content": k, "id": v}
+                             for k, v in list(vocab.items())[:3]],
+            "normalizer": {"type": "NFKC"},
+            "pre_tokenizer": {"add_prefix_space": True},
+            "model": {"vocab": vocab, "merges": []}}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(blob, f)
+    return str(path)

@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "cli.py", "native/__init__.py", "optim/maxfactor.py",
         "optim/schedules.py", "train/loop.py", "train/metrics.py",
         "train/checkpoint.py", "data/features.py", "data/collator.py",
-        "data/dataset.py")} <= names
+        "data/dataset.py", "data/librispeech.py",
+        "compat/torch_import.py")} <= names
     bad = [(str(f.relative_to(ROOT)), n) for f in files
            for n in _imports(f) if _forbidden(n)]
     assert not bad, bad
@@ -62,8 +63,11 @@ def test_training_modules_load_no_jax():
         "import sys\n"
         "import asr_model_tpu_torch.cli, asr_model_tpu_torch.train.loop\n"
         "import asr_model_tpu_torch.data.dataset\n"
+        "import asr_model_tpu_torch.data.librispeech\n"
+        "import asr_model_tpu_torch.compat\n"
         "from asr_model_tpu_torch.native import library\n"
-        "library()\n"
+        "for name in ('world', 'flac', 'wer'):\n"
+        "    library(name)\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax', 'msgpack', "
         "'asr_model_tpu') if m in sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", script], cwd=str(ROOT),

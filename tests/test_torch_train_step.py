@@ -51,8 +51,8 @@ the sign of an element's full-size MaxFactor step)."""
 import numpy as np
 import pytest
 
-from _torch_train_step import (live_names, one_thread,  # noqa: F401
-                               port_grads, port_steps, run,
+from _torch_train_step import (check_step, live_names,  # noqa: F401
+                               one_thread, port_grads, port_steps, run,
                                update_agreement)
 
 
@@ -65,41 +65,17 @@ def steps():
         mp.undo()
 
 
-def _check(theirs, ours, init, n, rel_tol, share_tol):
-    tl, tg, tj, tp, ts, tb = theirs[n - 1]
-    ol, og, oj, op, os_, ob = ours[n - 1]
-    assert abs(ol - tl) <= 1e-5 * abs(tl), (ol, tl)
-    assert abs(og - tg) <= 1e-4 * abs(tg), (og, tg)
-    np.testing.assert_array_equal(oj, tj)
-    bs_tol = 1e-5 if n == 1 else 1e-3
-    for k in tb:
-        scale = max(float(np.abs(tb[k]).max()), 1.0)
-        assert float(np.abs(ob[k] - tb[k]).max()) <= bs_tol * scale, k
-    names = live_names(ts)
-    assert len(names) > 50
-    st_tol = 1e-3 if n == 1 else 1e-2
-    for key in ("row_var", "col_var", "v"):
-        for k in names:
-            scale = float(np.abs(ts[key][k]).max())
-            if scale > 0:
-                err = float(np.abs(os_[key][k] - ts[key][k]).max())
-                assert err <= st_tol * scale, (key, k, err, scale)
-    share, rel = update_agreement(op, tp, init, names)
-    assert share >= share_tol, share
-    assert rel <= rel_tol, rel
-
-
 @pytest.mark.parametrize("n", [1, 3])
 def test_train_step_matches_jax_f32(steps, n):
     theirs, ours, init, _v = steps[False]
-    _check(theirs, ours, init, n, 0.01 if n == 1 else 0.03,
+    check_step(theirs, ours, init, n, 0.01 if n == 1 else 0.03,
            0.995 if n == 1 else 0.99)
 
 
 @pytest.mark.parametrize("n", [1, 3])
 def test_train_step_matches_jax_f32_wide_margins(steps, n):
     theirs, ours, init, _v = steps[True]
-    _check(theirs, ours, init, n, 0.03, 0.995 if n == 1 else 0.98)
+    check_step(theirs, ours, init, n, 0.03, 0.995 if n == 1 else 0.98)
 
 
 def _rtol(name):
