@@ -4,17 +4,22 @@
         --max-steps 100 --batch-size 8 [--remat] [--import-reference X.pt]
     python -m asr_model_tpu_torch.cli --synthetic 16 --max-steps 4 \\
         --batch-size 8 --train-dtype bfloat16
+    python -m asr_model_tpu_torch.cli --synthetic 16 --chained-blocks \\
+        --moe-experts 8 --moe-top-k 2
 
 tokenizer -> dataset (``PreparedDataset`` over a ``metadata.csv`` of
 audio files under ``--data-dir``, or ``--synthetic N`` tones) -> 80/20
 split -> Model (with ``--import-reference``, the reference's torch
 ``state_dict`` loaded into it) -> MaxFactor (two bias groups) +
 FAMScheduler2 -> ``train_and_evaluate`` (``--remat``: the backward
-recomputes the forward).  It runs on the card unless ``--device cpu`` is
-given.  The JAX CLI's flags that this port does not implement yet are
-accepted and refused with the ROADMAP item that brings them:
-``--mesh-*``, ``--microbatches``, ``--moe-experts``,
-``--chained-blocks``, ``--pitch-tokens``.
+recomputes the forward).  ``--chained-blocks`` feeds each block's output
+to the next, ``--moe-experts N`` / ``--moe-top-k k`` route every block's
+MLP through N experts (the load-balance aux joins the loss).  It runs on
+the card unless ``--device cpu`` is given.  The JAX CLI's flags that
+this port does not implement yet are accepted and refused with the
+ROADMAP item that brings them: ``--mesh-*``, ``--microbatches``,
+``--pitch-tokens`` (with the reason: the JAX package's pitch-token
+model does not run).
 """
 
 from __future__ import annotations
@@ -85,17 +90,15 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _refuse(args) -> None:
     """The JAX CLI's options this port does not implement yet."""
+    from asr_model_tpu_torch.config import PITCH_TOKEN_FAULT, refusal
     later = [(any(getattr(args, f"mesh_{a}") != 1 for a in
                   ("data", "model", "seq", "expert", "pipe")),
-              "--mesh-*", 10),
-             (args.microbatches != 1, "--microbatches", 10),
-             (args.moe_experts, "--moe-experts", 9),
-             (args.chained_blocks, "--chained-blocks", 9),
-             (args.pitch_tokens, "--pitch-tokens", 9)]
-    for on, flag, item in later:
+              "--mesh-*", 10, None),
+             (args.microbatches != 1, "--microbatches", 10, None),
+             (args.pitch_tokens, "--pitch-tokens", 9, PITCH_TOKEN_FAULT)]
+    for on, flag, item, why in later:
         if on:
-            raise SystemExit(f"{flag} is not implemented by the PyTorch "
-                             f"port yet (ROADMAP Queue 1 item {item})")
+            raise SystemExit(refusal(flag, item, why))
     if not args.synthetic and not (args.metadata and args.data_dir):
         raise SystemExit("need --metadata/--data-dir or --synthetic N")
 
@@ -143,7 +146,10 @@ def main(argv=None) -> dict:
     cfg = Config(
         dims=dims,
         model=ModelConfig(streaming=args.streaming,
-                          causal_all=args.causal_all),
+                          causal_all=args.causal_all,
+                          chained_blocks=args.chained_blocks,
+                          moe_experts=args.moe_experts,
+                          moe_top_k=args.moe_top_k),
         data=data,
         optim=OptimConfig(lr=args.lr, warmup_steps=args.warmup_steps,
                           total_steps=args.max_steps),

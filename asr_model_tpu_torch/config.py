@@ -37,8 +37,8 @@ class Dimensions:
 @dataclass(frozen=True)
 class ModelConfig:
     """The options of ``asr_model_tpu``'s ModelConfig that the port
-    reads; every other option is at its reference default (no chained
-    blocks, no MoE, ...) and comes with the slice that implements it."""
+    reads (every one but the pitch-token embedding, which the port
+    refuses: ``UNSUPPORTED``), and the port's fused-kernel switches."""
 
     ctx: int = 2048              # decoder context cap (learned positions)
     theta: float = THETA         # sinusoid / rotary base
@@ -52,8 +52,31 @@ class ModelConfig:
     # logits of position t depend on tokens <= t only (and
     # ``greedy_decode_stream`` decodes incrementally)
     streaming: bool = False
+    # the reference feeds x back between blocks only with chained_blocks;
+    # without it only the last block reaches the output (and is built)
+    chained_blocks: bool = False
+    # AudioEncoder options: the n_type norm after the stem and the
+    # stack (a LocalNorm on mono stems), and a post-norm transformer
+    # encoder layer after the stack
+    encoder_norm: bool = False
+    encoder_transformer: bool = False
     num_types: int = 3           # router / tgate modality count
+    # read and written as the JAX package does, and inert as it is
+    # there: its Residual builds MSheath without the r_node ("ranvier")
+    # paths, so a checkpoint of such a config has no r_node leaves; the
+    # paths themselves are ``MSheath(mini_hc=True)`` (ROADMAP Queue 3)
+    msheath_mini_hc: bool = False
     msheath_mem: int = 64        # v_gate memory slots
+    pitch_token_bins: int = 256  # quantize_pitch bins
+    pitch_token_vocab: int = 1024  # pitch-token embedding rows
+    # mixture-of-experts MLP (models/moe.py): 0 is the dense MLP; E > 0
+    # routes each block's MLP through E experts of its shape, top_k a
+    # token, capacity_factor * T * top_k / E slots an expert and example,
+    # the load-balance aux weighted into the training loss
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
     # whole-call decode kernels, the counterparts of the JAX package's
     # PALLAS_XATTN / PALLAS_MLP / PALLAS_ROUTER switches (all off by
     # default, as there); behind each, the JAX package's gate decides
@@ -133,23 +156,34 @@ class RunConfig:
     remat_policy: str = "dots"
 
 
+# the JAX package's pitch-token model does not run: its forward raises
+# where the text length differs from the frame count (the encoder
+# slots' rotary takes its length from the pitch-token condition)
+PITCH_TOKEN_FAULT = ("the JAX package's pitch-token forward raises where "
+                     "the text length differs from the frame count "
+                     "(Attention rotates the frames' q with the text-length "
+                     "pitch-token condition), so there is no reference to "
+                     "hold a port to")
+
 # reference options the port does not implement yet: (section, field,
-# the default the port runs, the ROADMAP Queue 1 item that brings it)
-UNSUPPORTED = (("model", "chained_blocks", False, 9),
-               ("model", "encoder_norm", False, 9),
-               ("model", "encoder_transformer", False, 9),
-               ("model", "msheath_mini_hc", False, 9),
-               ("model", "moe_experts", 0, 9),
-               ("data", "pitch_tokens", False, 9),
-               ("data", "harmonics", False, 9),
-               ("data", "aperiodics", False, 9),
-               ("data", "phase", False, 9),
-               ("run", "mesh_data", 1, 10),
-               ("run", "mesh_model", 1, 10),
-               ("run", "mesh_seq", 1, 10),
-               ("run", "mesh_expert", 1, 10),
-               ("run", "mesh_pipe", 1, 10),
-               ("run", "microbatches", 1, 10))
+# the default the port runs, the ROADMAP Queue 1 item that brings it,
+# why, or None)
+UNSUPPORTED = (("data", "pitch_tokens", False, 9, PITCH_TOKEN_FAULT),
+               ("data", "harmonics", False, 9, None),
+               ("data", "aperiodics", False, 9, None),
+               ("data", "phase", False, 9, None),
+               ("run", "mesh_data", 1, 10, None),
+               ("run", "mesh_model", 1, 10, None),
+               ("run", "mesh_seq", 1, 10, None),
+               ("run", "mesh_expert", 1, 10, None),
+               ("run", "mesh_pipe", 1, 10, None),
+               ("run", "microbatches", 1, 10, None))
+
+
+def refusal(what: str, item: int, why) -> str:
+    """The message of an option the port refuses."""
+    return (f"{what} is not implemented by the PyTorch port yet (ROADMAP "
+            f"Queue 1 item {item})" + (f": {why}" if why else ""))
 
 
 def _build(cls, raw: dict):
@@ -189,12 +223,11 @@ class Config:
         raw = json.loads(s)
         sec = {k: dict(raw.get(k, {}))
                for k in ("model", "data", "optim", "run")}
-        for section, name, default, item in UNSUPPORTED:
+        for section, name, default, item, why in UNSUPPORTED:
             got = sec[section].get(name, default)
             if got != default:
-                raise ValueError(
-                    f"{section}.{name}={got!r} is not implemented by the "
-                    f"PyTorch port yet (ROADMAP Queue 1 item {item})")
+                raise ValueError(refusal(f"{section}.{name}={got!r}", item,
+                                         why))
         return Config(dims=_build(Dimensions, sec["model"].pop("dims", {})),
                       model=_build(ModelConfig, sec["model"]),
                       data=_build(DataConfig, sec["data"]),

@@ -5,18 +5,25 @@ Residual (per call):
   cross: x += attn(ln(x), cached K/V)   or, with a source xa:
          xa += sinusoids; xa, _ = MSheath(ln(xa));
          x += attn(ln(x), xa=router(xa x (layer-1)))
-  return x + ln(mlp_out(gelu(mlp_in(tgate(ln(x))))))
-with one ``ln`` shared by every position.  ``streaming`` takes the
-x-side MSheath's streaming branch, ``xa_streaming`` the xa side's (a
-text-derived xa; audio xa stays global), ``cross_causal`` masks the
-cross call causally (x and xa position-aligned).  With ``fused_mlp`` the last
+  return x + ln(mlp_out(act(mlp_in(tgate(ln(x))))))
+with one ``ln`` shared by every position; with ``moe_experts`` E > 0 the
+mlp_in/mlp_out pair is ``models/moe.py:MoEMLP`` (E experts of its
+shape).  The block's MSheath is built without its r_node paths whatever
+``ModelConfig.msheath_mini_hc`` says, as the JAX package's is.
+``streaming`` takes the x-side MSheath's streaming branch,
+``xa_streaming`` the xa side's (a text-derived xa; audio xa stays
+global), ``cross_causal`` masks the cross call causally (x and xa
+position-aligned).  With ``fused_mlp`` the last
 line is one call of ``ops/cuda/mlp.py`` wherever the JAX package's
-PALLAS_MLP gate would route it (``Residual._mlp_fused_ok``); the fields
+PALLAS_MLP gate would route it (``Residual._mlp_fused_ok``: never an
+MoE block, never an activation but GELU); the fields
 ``fused_attention`` and ``fused_router`` go to the block's Attention and
 Router.
 
 Processor (chained=False, the reference's configuration): only the last
-block reaches the output, so it is the only block built.  Per call:
+block reaches the output, so it is the only block built; with
+``chained`` every block ``block0 .. block{L-1}`` is built and each takes
+the previous block's g as its x.  Per block:
   a = blk(x, causal);  b/c/d = blk(prev, cross = slot a/b/c);
   e = a + b + c;  g = blk(d, xa = e);  logits from g (the buffer decode
   of a non-streaming model) or from sigmoid(blend) d + (1 -
@@ -28,7 +35,10 @@ block reaches the output, so it is the only block built.  Per call:
   cross), which lets ``decode_stream_step`` run one position at a time
   against per-site state (``StreamingResidual``).
 The per-slot re-encode blk(xa[k]) and the cross K/V precompute run once
-per utterance (``encode_xa``, ``precompute_cross``); every
+per utterance (``encode_xa``, ``precompute_cross``), from the last block
+alone as the JAX package's decode computes them: a chained model's
+decode runs every block against that one cache, while its forward
+re-encodes the audio and computes the cross K/V per block; every
 length-dependent op reads ``text_valid``, so a fixed buffer computes
 what the live prefix would.  Off the eval route (train mode or a
 generator) the flow is the JAX package's training one
@@ -48,6 +58,7 @@ from asr_model_tpu_torch.config import THETA
 from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.attention import Attention
 from asr_model_tpu_torch.models.gates import Router, TGate
+from asr_model_tpu_torch.models.moe import MoEMLP
 from asr_model_tpu_torch.models.norms import AbbyNormal
 from asr_model_tpu_torch.models.registry import get_activation, get_norm
 from asr_model_tpu_torch.models.sheath import MSheath
@@ -62,6 +73,8 @@ class Residual(nn.Module):
                  n_type: str, num_types: int = 3, mem: int = 64,
                  theta: float = THETA, fused_attention: bool = False,
                  fused_mlp: bool = False, fused_router: bool = False,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25,
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -75,8 +88,15 @@ class Residual(nn.Module):
                              **kw)
         self.jump = MSheath(dims, head, layer, mem=mem, **kw)
         self.tgate = TGate(dims, num_types, **kw)
-        self.mlp_in = Dense(dims, dims * num_types, **kw)
-        self.mlp_out = Dense(dims * num_types, dims, **kw)
+        self.moe = None
+        if moe_experts > 0:
+            self.moe = MoEMLP(dims, dims * num_types, moe_experts,
+                              top_k=moe_top_k,
+                              capacity_factor=moe_capacity_factor, act=act,
+                              **kw)
+        else:
+            self.mlp_in = Dense(dims, dims * num_types, **kw)
+            self.mlp_out = Dense(dims * num_types, dims, **kw)
 
     def _pe(self, xa):
         pe = sinusoids(xa.shape[1], xa.shape[-1], self.theta,
@@ -85,14 +105,16 @@ class Residual(nn.Module):
 
     def mlp(self, x):
         h = self.tgate(self.ln(x))
+        if self.moe is not None:
+            return self.ln(self.moe(h))
         return self.ln(self.mlp_out(self.act(self.mlp_in(h))))
 
     def _mlp_fused_ok(self, x) -> bool:
         """The JAX package's PALLAS_MLP gate (``Residual.
-        _mlp_fused_eligible``): AbbyNormal ``ln``, exact-erf GELU,
-        lane-aligned width, decode-prefix sizes."""
+        _mlp_fused_eligible``): a dense MLP (no MoE), AbbyNormal ``ln``,
+        exact-erf GELU, lane-aligned width, decode-prefix sizes."""
         return (self.fused_mlp and stochastic.eval_route()
-                and self.act_name == "gelu"
+                and self.moe is None and self.act_name == "gelu"
                 and isinstance(self.ln, AbbyNormal)
                 and x.dtype in (torch.bfloat16, torch.float32)
                 and self.dims % 128 == 0 and x.numel() <= 400_000)
@@ -270,21 +292,29 @@ class Processor(nn.Module):
                  act: str, n_type: str, ctx: int = 2048, num_types: int = 3,
                  mem: int = 64, theta: float = THETA,
                  causal_all: bool = False, streaming: bool = False,
-                 fused_attention: bool = False, fused_mlp: bool = False,
-                 fused_router: bool = False, device=None, dtype=None):
+                 chained: bool = False, fused_attention: bool = False,
+                 fused_mlp: bool = False, fused_router: bool = False,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.dims, self.theta = dims, theta
         self.causal_all, self.streaming = causal_all, streaming
+        self.chained = chained
         self.ln = get_norm(n_type, dims, **kw)
         self.token = Embed(tokens, dims, **kw)
         self.position = param(ctx, dims, **kw)
         self.blend = param((), **kw)
-        self.last = f"block{layer - 1}"
-        self.add_module(self.last, Residual(
-            dims, head, layer, act, n_type, num_types, mem, theta,
-            fused_attention=fused_attention, fused_mlp=fused_mlp,
-            fused_router=fused_router, **kw))
+        self.names = [f"block{i}" for i in
+                      (range(layer) if chained else [layer - 1])]
+        for name in self.names:
+            self.add_module(name, Residual(
+                dims, head, layer, act, n_type, num_types, mem, theta,
+                fused_attention=fused_attention, fused_mlp=fused_mlp,
+                fused_router=fused_router, moe_experts=moe_experts,
+                moe_top_k=moe_top_k,
+                moe_capacity_factor=moe_capacity_factor, **kw))
 
     def reset_parameters(self, gen):
         with torch.no_grad():
@@ -293,16 +323,22 @@ class Processor(nn.Module):
 
     @property
     def block(self) -> Residual:
-        return getattr(self, self.last)
+        """The last block: the one the decode's cross K/V come from."""
+        return getattr(self, self.names[-1])
+
+    @property
+    def blocks(self) -> list:
+        return [getattr(self, n) for n in self.names]
 
     def embed(self, ids):
         return self.token(ids) + self.position[:ids.shape[1]]
 
-    def encode_xa(self, xa):
-        return encode_xa(self.block, xa)
+    def encode_xa(self, xa, blk: Optional[Residual] = None):
+        return encode_xa(blk or self.block, xa)
 
-    def precompute_cross(self, xa_enc):
-        return {k: self.block.precompute_cross(xa_enc[k])
+    def precompute_cross(self, xa_enc, blk: Optional[Residual] = None):
+        blk = blk or self.block
+        return {k: blk.precompute_cross(xa_enc[k])
                 for k in ("a", "b", "c") if xa_enc.get(k) is not None}
 
     def logits_head(self, d, g, seq: bool = False,
@@ -318,21 +354,23 @@ class Processor(nn.Module):
     def forward(self, ids, xa=None, seq: bool = False, text_valid=None,
                 logits_position: Optional[int] = None, xa_kv=None):
         """``xa``: the encoded modality slots (re-encoded and cross K/V
-        precomputed here), or ``xa_kv`` from ``precompute_cross``."""
+        precomputed here, by each block), or ``xa_kv`` from
+        ``precompute_cross`` (the decode's: every block reads it)."""
         x = self.embed(ids)
-        if xa_kv is None and not stochastic.eval_route():
-            xa_enc = {k: self.block(xa[k]) for k in ("a", "b", "c")
-                      if xa.get(k) is not None}
-            d, g = run_block_xa(self.block, x, xa_enc, text_valid,
-                                streaming=self.streaming,
-                                causal_all=self.causal_all)
-            return self.logits_head(d, g, seq=seq,
-                                    logits_position=logits_position)
-        if xa_kv is None:
-            xa_kv = self.precompute_cross(self.encode_xa(xa))
-        d, g = run_block(self.block, x, xa_kv, text_valid=text_valid,
-                         streaming=self.streaming,
-                         causal_all=self.causal_all)
+        flow = dict(streaming=self.streaming, causal_all=self.causal_all)
+        d = g = None
+        for blk in self.blocks:
+            if xa_kv is not None:
+                d, g = run_block(blk, x, xa_kv, text_valid=text_valid,
+                                 **flow)
+            elif not stochastic.eval_route():
+                xa_enc = {k: blk(xa[k]) for k in ("a", "b", "c")
+                          if xa.get(k) is not None}
+                d, g = run_block_xa(blk, x, xa_enc, text_valid, **flow)
+            else:
+                kv = self.precompute_cross(self.encode_xa(xa, blk), blk)
+                d, g = run_block(blk, x, kv, text_valid=text_valid, **flow)
+            x = g
         return self.logits_head(d, g, seq=seq,
                                 logits_position=logits_position)
 
@@ -340,8 +378,12 @@ class Processor(nn.Module):
 
     def init_stream_state(self, batch: int, t_max: int, dtype) -> dict:
         """The state of ``decode_stream_step``: the five call sites
-        a/b/c/d/g of the block (chained=False, the only configuration
-        built), on the model's device."""
+        a/b/c/d/g of the block, on the model's device.  A chained model
+        has none (as in the JAX package: its stream decode is not
+        implemented; ``Transcriber`` gives it the buffer decode)."""
+        if self.chained:
+            raise NotImplementedError(
+                "incremental streaming decode supports chained=False")
         S, blk = StreamingResidual, self.block
         dev = self.position.device
         return {k: S.init_state(blk, batch, t_max, dtype, dev)

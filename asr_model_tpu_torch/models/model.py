@@ -16,9 +16,10 @@ module.  ``forward(..., differentiable=True)`` is the eval forward
 (running BatchNorm statistics, no dropout, no noise) on those routes,
 for a gradient of the eval loss.  It returns the logits,
 ``cross_entropy_ignore_pad`` when ``labels`` are given, the summed
-MSheath jump counter ``jstat`` (3,) and ``batch_stats``, the new running
+MSheath jump counter ``jstat`` (3,), ``batch_stats``, the new running
 statistics of each BatchNorm (``apply_batch_stats`` writes them to the
-buffers).
+buffers), and ``moe_aux``, the MoE calls' load-balance aux summed in f32
+(0 without MoE; the train step weights it into its loss).
 """
 
 from __future__ import annotations
@@ -69,11 +70,16 @@ class Model(nn.Module):
             dims.n_type, ctx=cfg.ctx, num_types=cfg.num_types,
             mem=cfg.msheath_mem, theta=cfg.theta,
             causal_all=cfg.causal_all, streaming=cfg.streaming,
+            chained=cfg.chained_blocks,
             fused_attention=cfg.fused_attention, fused_mlp=cfg.fused_mlp,
-            fused_router=cfg.fused_router, **kw)
+            fused_router=cfg.fused_router, moe_experts=cfg.moe_experts,
+            moe_top_k=cfg.moe_top_k,
+            moe_capacity_factor=cfg.moe_capacity_factor, **kw)
         self.enc = AudioEncoder(dims.mels, dims.dims, dims.head, dims.layer,
                                 dims.act, theta=cfg.theta,
-                                dropout=cfg.dropout, **kw)
+                                dropout=cfg.dropout, n_type=dims.n_type,
+                                norm=cfg.encoder_norm,
+                                enc=cfg.encoder_transformer, **kw)
         gen = torch.Generator(device=dev).manual_seed(seed)
         reset_all(self, gen)
         self.eval()
@@ -96,11 +102,13 @@ class Model(nn.Module):
         with stochastic.mode(train, gen, differentiable) as rec:
             out = self._forward(text_ids, labels, spectrogram, pitch,
                                 waveform, text_valid)
-            jstat = rec.jstat
+            jstat, aux = rec.jstat, rec.moe_aux
             out["batch_stats"] = rec.batch_stats
         out["jstat"] = (torch.zeros(3, dtype=torch.int32,
                                     device=text_ids.device)
                         if jstat is None else jstat)
+        out["moe_aux"] = sum((a.float() for a in aux), torch.zeros(
+            (), device=text_ids.device))
         return out
 
     def _forward(self, text_ids, labels, spectrogram, pitch, waveform,

@@ -18,9 +18,19 @@ variance E[x^2] - E[x]^2 clipped at 0, as flax computes it) and records
 flax's running update, momentum 0.9 with the biased variance, in the
 call's ``stochastic.mode`` record; the train step writes it to the
 buffers.
+
+The rest of the JAX registry's norms (``asr_model_tpu/models/norms.py``),
+as PyTorch ops: ``LocalNorm`` (the fixed-mode local response norm),
+``GlobalNorm``, ``LinearNorm``, ``RMSNorm``, ``AdaLN``,
+``InstanceNorm1d`` and ``GroupNorm``.  Where the JAX module wraps a flax
+layer, the port's module holds it under flax's automatic name
+(``RMSNorm_0``, ``GroupNorm_0``, ``Dense_0``, ``LayerNorm_0``,
+``BatchNorm_0``), so the parameter trees match.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -161,3 +171,226 @@ class BatchNorm1d(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean) * mul + self.bias
         return y.to(torch.promote_types(x.dtype, self.weight.dtype))
+
+
+def _ct(x):
+    """flax's statistics dtype: at least f32."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+class LocalNorm(nn.Module):
+    """The fixed-mode local response norm over the last axis: mode "1"
+    the windowed mean of x^2, "2" the windowed max where it exceeds
+    twice the mean, "3" the mean where ``confidence`` passes
+    ``threshold`` and the max elsewhere; ``x / (alpha * div + k)^beta``.
+    No parameters."""
+
+    def __init__(self, size: int = 5, alpha: float = 1e-4,
+                 beta: float = 0.75, k: float = 1.0, mode: str = "1",
+                 threshold: float = 0.8):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+        self.mode, self.threshold = mode, threshold
+
+    def forward(self, x, confidence=None):
+        if x.numel() == 0:
+            return x
+        div = x * x
+        avg_d = window_reduce(div, self.size, "mean")
+        if self.mode == "1":
+            div = avg_d
+        elif self.mode == "2":
+            max_d = window_reduce(div, self.size, "max")
+            cond = (max_d > 2.0 * avg_d).to(x.dtype)
+            div = cond * max_d + (1 - cond) * avg_d
+        elif self.mode == "3":
+            max_d = window_reduce(div, self.size, "max")
+            if confidence is None:
+                div = avg_d
+            else:
+                conf = (confidence > self.threshold).to(x.dtype)[..., None]
+                div = conf * avg_d + (1 - conf) * max_d
+        return x / (div * self.alpha + self.k) ** self.beta
+
+
+class GlobalNorm(nn.Module):
+    """Global L2 rescale of a 4-D input with a learned affine and a
+    residual: gamma * (x * nx) + beta + x, nx the L2 norm over axes 1
+    and 2 over its mean along the last axis."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        self.gamma = param(1, 1, 1, dim, device=device, dtype=dtype)
+        self.beta = param(1, 1, 1, dim, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen):
+        with torch.no_grad():
+            self.gamma.zero_()
+            self.beta.zero_()
+
+    def forward(self, x):
+        gx = torch.sqrt(torch.sum(x * x, dim=(1, 2), keepdim=True))
+        nx = gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)
+        return self.gamma * (x * nx) + self.beta + x
+
+
+class XavierDense(Dense):
+    """flax ``nn.Dense`` with ``xavier_uniform`` kernels (zero bias)."""
+
+    def reset_parameters(self, gen):
+        bound = math.sqrt(6.0 / (self.in_features + self.features))
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=gen)
+            if self.bias is not None:
+                self.bias.zero_()
+
+
+class LinearNorm(nn.Module):
+    """A linear map used as a norm (xavier init, ``Dense_0``)."""
+
+    def __init__(self, dims: int, use_bias: bool = True, device=None,
+                 dtype=None):
+        super().__init__()
+        self.Dense_0 = XavierDense(dims, dims, use_bias=use_bias,
+                                   device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.Dense_0(x)
+
+
+class Scale(nn.Module):
+    """The ``scale`` (and ``bias``) of a flax norm layer, as ``weight``
+    (and ``bias``): ones and zeros at init."""
+
+    def __init__(self, dims: int, use_bias: bool = True, device=None,
+                 dtype=None):
+        super().__init__()
+        self.weight = param(dims, device=device, dtype=dtype)
+        self.bias = (param(dims, device=device, dtype=dtype) if use_bias
+                     else None)
+
+    def reset_parameters(self, gen):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+
+def _affine(y, x, scale: Scale):
+    y = y * scale.weight
+    if scale.bias is not None:
+        y = y + scale.bias
+    return y.to(torch.promote_types(x.dtype, scale.weight.dtype))
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm`` (``RMSNorm_0``): x * rsqrt(mean(x^2) + eps) *
+    scale, the statistics in at least f32."""
+
+    def __init__(self, dims: int, eps: float = 1e-6, device=None,
+                 dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.RMSNorm_0 = Scale(dims, use_bias=False, device=device,
+                               dtype=dtype)
+
+    def forward(self, x):
+        xf = x.to(_ct(x))
+        ms = (xf * xf).mean(dim=-1, keepdim=True)
+        return _affine(xf * torch.rsqrt(ms + self.eps), x, self.RMSNorm_0)
+
+
+def fast_layer_norm(x, eps: float):
+    """flax's LayerNorm statistics: the variance as E[x^2] - E[x]^2
+    clipped at 0, in at least f32; no affine."""
+    xf = x.to(_ct(x))
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    return (xf - mean) * torch.rsqrt(var + eps)
+
+
+class AdaLN(nn.Module):
+    """Condition-adaptive LayerNorm: a parameter-free LayerNorm (eps
+    1e-6), and with a condition (B, D) ``(1 + gamma) * norm(x) + beta``
+    where (gamma, beta) = Dense_1(silu(Dense_0(condition))), Dense_1
+    zero at init.  ``conditioned=False`` (the registry's: its callers
+    pass no condition) builds no parameters, as the flax module creates
+    none without one."""
+
+    def __init__(self, dims: int, conditioned: bool = False, device=None,
+                 dtype=None):
+        super().__init__()
+        self.conditioned = conditioned
+        if conditioned:
+            kw = dict(device=device, dtype=dtype)
+            self.Dense_0 = Dense(dims, dims, **kw)
+            self.Dense_1 = Dense(dims, 2 * dims, **kw)
+
+    def reset_parameters(self, gen):
+        if self.conditioned:
+            with torch.no_grad():
+                self.Dense_1.weight.zero_()
+                self.Dense_1.bias.zero_()
+
+    def forward(self, x, condition=None):
+        y = fast_layer_norm(x, 1e-6).to(x.dtype)
+        if condition is None:
+            return y
+        if not self.conditioned:
+            raise ValueError("AdaLN(conditioned=False) takes no condition")
+        sb = self.Dense_1(F.silu(self.Dense_0(condition)))
+        gamma, beta = torch.chunk(sb, 2, dim=-1)
+        return y * (1 + gamma[:, None]) + beta[:, None]
+
+
+class InstanceNorm1d(nn.Module):
+    """Over time for (B, T, C): (x - mean) * rsqrt(var + eps), the
+    statistics over axis -2, no affine."""
+
+    def __init__(self, dims: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x):
+        mean = x.mean(dim=-2, keepdim=True)
+        var = ((x - mean) * (x - mean)).mean(dim=-2, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + self.eps)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` (``GroupNorm_0``, eps 1e-6): the channels
+    (last axis) in ``num_groups`` groups, the statistics of a group over
+    every axis but the first (batch) one, E[x^2] - E[x]^2 in at least
+    f32; then the affine per channel."""
+
+    def __init__(self, dims: int, num_groups: int = 1, eps: float = 1e-6,
+                 device=None, dtype=None):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.GroupNorm_0 = Scale(dims, device=device, dtype=dtype)
+
+    def forward(self, x):
+        c, g = x.shape[-1], self.num_groups
+        xf = x.to(_ct(x))
+        xg = xf.reshape(*x.shape[:-1], g, c // g)
+        axes = tuple(range(1, xg.dim() - 2)) + (xg.dim() - 1,)
+        mean = xg.mean(dim=axes, keepdim=True)
+        var = torch.clamp((xg * xg).mean(dim=axes, keepdim=True)
+                          - mean * mean, min=0.0)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(xf.shape)
+        return _affine(y, x, self.GroupNorm_0)
+
+
+class Wrapped(nn.Module):
+    """A layer under the flax automatic name its JAX wrapper gives it
+    (the registry's "layernorm" -> ``LayerNorm_0``, "batchnorm" ->
+    ``BatchNorm_0``)."""
+
+    def __init__(self, name: str, inner: nn.Module):
+        super().__init__()
+        self.inner_name = name
+        self.add_module(name, inner)
+
+    def forward(self, x, *a, **kw):
+        return getattr(self, self.inner_name)(x, *a, **kw)

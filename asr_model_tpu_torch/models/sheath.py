@@ -23,6 +23,13 @@ control on the device (no host read).  ``init_stream_state`` and
 incremental decode's form, equal by induction to the buffer form's
 newest position.
 
+``mini_hc=True`` adds the r_node ("ranvier") paths to every executed
+slot: the adapted rows go through ``rate`` parallel linear paths mixed
+by a softmax of a per-slot router, then ReLU, before the gate
+(``ranvier``).  The JAX package never sends such a scan to its kernel:
+here its eval scan is the keyed scan below with no noise, and the
+streaming scans take the paths through ``slot_rows``.
+
 Off the eval route (train mode or a generator, ``stochastic.mode``) the
 scan is the JAX package's keyed XLA scan (``_train_scan``) in PyTorch
 ops on every device, differentiable: each slot draws its own gumbel
@@ -48,11 +55,13 @@ from asr_model_tpu_torch.ops.cuda import sheath as K
 from asr_model_tpu_torch.utils import l2norm
 
 
-# the per-slot stacks the keyed scan's step reads (``MSheath._slot``)
+# the per-slot stacks the keyed scan's step reads (``MSheath._slot``),
+# and the r_node paths' with ``mini_hc``
 SLOT_PARAMS = ("ln_scale", "ln_bias", "gate_w", "gate_b", "mkey", "mval",
                "vmlp1_w", "vmlp1_b", "vmlp2_w", "vmlp2_b", "vcat_w",
                "vcat_b", "adapt_w", "adapt_b", "memgate_w", "memgate_b",
                "jump_s")
+RANVIER_PARAMS = ("par_w", "par_b", "rnet_w", "rnet_b")
 
 
 def masked_mean(x, valid, dim):
@@ -88,11 +97,13 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
 
 class MSheath(nn.Module):
     def __init__(self, dims: int, head: int, layer: int, mem: int = 64,
-                 thresh: float = 0.3, device=None, dtype=None):
+                 thresh: float = 0.3, mini_hc: bool = False, rate: int = 2,
+                 device=None, dtype=None):
         super().__init__()
         d, L, M = dims, layer, mem
         self.dims, self.head, self.layer, self.mem = d, head, L, M
-        self.thresh = thresh
+        self.thresh, self.mini_hc, self.rate = thresh, mini_hc, rate
+        self.slot_params = SLOT_PARAMS + (RANVIER_PARAMS if mini_hc else ())
         kw = dict(device=device, dtype=dtype)
         n_adapt = (L + 1) // 2
         self.mem_w = param(1, 1, d, **kw)
@@ -114,6 +125,11 @@ class MSheath(nn.Module):
         self.vcat_b = param(L, 1, **kw)
         self.adapt_w = param(n_adapt, d, d, **kw)
         self.adapt_b = param(n_adapt, d, **kw)
+        if mini_hc:
+            self.par_w = param(L, rate, d, d, **kw)
+            self.par_b = param(L, rate, d, **kw)
+            self.rnet_w = param(L, d, rate, **kw)
+            self.rnet_b = param(L, rate, **kw)
         self.pnet = MPNet(d, jump=2, **kw)
         self.mlpgate_w = param(d, 1, **kw)
         self.mlpgate_b = param(1, **kw)
@@ -147,6 +163,11 @@ class MSheath(nn.Module):
             uniform_(self.vcat_b, 2, gen)
             uniform_(self.adapt_w, self.adapt_w.shape[0] * d, gen)
             uniform_(self.adapt_b, d, gen)
+            if self.mini_hc:
+                uniform_(self.par_w, L * self.rate * d, gen)
+                uniform_(self.par_b, d, gen)
+                uniform_(self.rnet_w, L * d, gen)
+                uniform_(self.rnet_b, d, gen)
             uniform_(self.mlpgate_w, d, gen)
             uniform_(self.mlpgate_b, d, gen)
             self.mlp_ln_scale.fill_(1.0)
@@ -165,6 +186,8 @@ class MSheath(nn.Module):
             "adapt_w": self.adapt_w, "adapt_b": self.adapt_b,
             "memgate_w": self.memgate_w[:, 0], "memgate_b": self.memgate_b,
             "mem0": self.mem_w.reshape(-1), "jump_s": self.jump_s}
+        if self.mini_hc:
+            stacks |= {k: getattr(self, k) for k in RANVIER_PARAMS}
         key = tuple((t.data_ptr(), t._version, t.dtype) for t in
                     stacks.values())
         if self._scan_cache[0] != key:
@@ -274,10 +297,11 @@ class MSheath(nn.Module):
         """One step of the keyed scan: slot ``i``'s update of the carry
         (x, mem_w, i, jstat) and its action.  Every tensor it reads is an
         argument (``stacks``: the ``SLOT_PARAMS`` as the forward sees
-        them, the bf16 casts under the train step's ``functional_call``),
+        them, the bf16 casts under the train step's ``functional_call``;
+        ``RANVIER_PARAMS`` after them with ``mini_hc``),
         so a checkpoint's recompute, which runs after the forward has
         returned, recomputes the same values."""
-        w = dict(zip(SLOT_PARAMS, stacks))
+        w = dict(zip(self.slot_params, stacks))
         L, b, dev = self.layer, x.shape[0], x.device
         active = i < L
         idx = torch.clamp(i, max=L - 1)
@@ -288,6 +312,8 @@ class MSheath(nn.Module):
         adapted = (px @ w["adapt_w"].index_select(0, a_idx)[0]
                    + w["adapt_b"].index_select(0, a_idx)[0])
         apx = torch.where(idx % 2 == 0, adapted, px)
+        if self.mini_hc:
+            apx = K.ranvier(apx, w, idx)
         g_val = torch.sigmoid(px @ pick(w["gate_w"]) + pick(w["gate_b"]))
         x_new = x + g_val * (apx * ion)
         if streaming:
@@ -336,7 +362,7 @@ class MSheath(nn.Module):
                                               else 1, self.dims)
         carry = (x, mem_w, torch.zeros((), dtype=torch.int64, device=dev),
                  torch.zeros(3, dtype=torch.int32, device=dev))
-        stacks = tuple(getattr(self, n) for n in SLOT_PARAMS)
+        stacks = tuple(getattr(self, n) for n in self.slot_params)
         actions = []
         for _step in range(self.layer):
             noise = (None if gen is None else stochastic.sample_gumbel(
@@ -349,7 +375,8 @@ class MSheath(nn.Module):
         return carry[0], torch.stack(actions).to(torch.int32), carry[3]
 
     def forward(self, x, valid=None, streaming: bool = False):
-        if not stochastic.eval_route():
+        # the JAX package's kernel gate: eval, not streaming, no mini-HC
+        if not stochastic.eval_route() or (self.mini_hc and not streaming):
             xs, actions, jstat = self._train_scan(x, valid, streaming)
             stochastic.add_jstat(jstat)
             return self._mlp_tail(xs), {"jstat": jstat, "actions": actions}

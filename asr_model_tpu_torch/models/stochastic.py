@@ -30,7 +30,7 @@ thread and after ``mode`` has exited, so it replays the forward's state
 (train mode, generator, differentiable flag, remat) with the generator
 rewound to where the forward found it (``preserve_rng_state`` restores
 only the default generators), and records into a throwaway record, so
-no BatchNorm statistic or jump count is taken twice.
+no BatchNorm statistic, jump count or MoE aux is taken twice.
 """
 
 from __future__ import annotations
@@ -51,11 +51,12 @@ class _State(threading.local):
         self.depth = 0              # nesting of ``checkpoint`` bodies
         self.batch_stats = None     # {module: (mean, var)} of this call
         self.jstat = None           # summed MSheath jump counter (3,)
+        self.moe_aux = None         # the MoE calls' load-balance aux
 
 
 _STATE = _State()
 _FIELDS = ("train", "gen", "differentiable", "remat", "depth",
-           "batch_stats", "jstat")
+           "batch_stats", "jstat", "moe_aux")
 
 
 def _get():
@@ -71,11 +72,12 @@ def _set(values) -> None:
 def mode(train: bool = False, gen=None, differentiable: bool = False):
     """Run a forward in train mode and/or with a noise generator (or, with
     ``differentiable``, in eval on the differentiable routes); yields the
-    call's record (``batch_stats``, ``jstat``)."""
+    call's record (``batch_stats``, ``jstat``, ``moe_aux``: a list, one
+    scalar an MoE call)."""
     prev = _get()
     _STATE.train, _STATE.gen = bool(train), gen
     _STATE.differentiable = bool(differentiable)
-    _STATE.batch_stats, _STATE.jstat = {}, None
+    _STATE.batch_stats, _STATE.jstat, _STATE.moe_aux = {}, None, []
     try:
         yield _STATE
     finally:
@@ -123,7 +125,7 @@ def checkpoint(fn, *args, gen=None, context_fn=None):
             # the recompute, inside the backward: the forward's train,
             # gen, differentiable and remat, one body deeper, and a
             # throwaway record
-            _set(state[:4] + (state[4] + 1, {}, None))
+            _set(state[:4] + (state[4] + 1, {}, None, []))
         if replay:
             after = gen.get_state()
             gen.set_state(start)
@@ -168,6 +170,17 @@ def batch_stats_of(module):
 def add_jstat(jstat) -> None:
     if _STATE.batch_stats is not None:
         _STATE.jstat = jstat if _STATE.jstat is None else _STATE.jstat + jstat
+
+
+def collects_moe_aux() -> bool:
+    """Whether a record takes the MoE calls' aux (a ``mode`` is open):
+    without one, as in a decode, an MoE call skips computing it."""
+    return _STATE.moe_aux is not None
+
+
+def add_moe_aux(aux) -> None:
+    if _STATE.moe_aux is not None:
+        _STATE.moe_aux.append(aux)
 
 
 def sample_gumbel(shape, gen, dtype=torch.float32) -> torch.Tensor:

@@ -33,6 +33,20 @@ WEIGHT_NAMES = ("ln_scale", "ln_bias", "gate_w", "gate_b", "mkey", "mval",
                 "vcat_b", "adapt_w", "adapt_b", "memgate_w", "memgate_b")
 
 
+def ranvier(x, w: dict, i):
+    """The r_node paths of slot ``i`` (int or 0-d int64 tensor) on rows
+    x (..., D): relu(sum_e softmax(x rnet_w + rnet_b)_e (x par_w[e] +
+    par_b[e]))."""
+    if isinstance(i, int):
+        pick = lambda t: t[i]
+    else:
+        pick = lambda t: t.index_select(0, i.reshape(1))[0]
+    feats = torch.einsum("...d,edf->...ef", x, pick(w["par_w"])) \
+        + pick(w["par_b"])
+    wts = torch.softmax(x @ pick(w["rnet_w"]) + pick(w["rnet_b"]), dim=-1)
+    return torch.relu(torch.einsum("...ef,...e->...f", feats, wts))
+
+
 def slot_rows(x, w: dict, i, thresh: float):
     """One executed slot of the scan on rows x (..., D) in f32 (or f64):
     v_gate's ion (the memory-key and MLP scores through ``vcat``, then
@@ -42,8 +56,9 @@ def slot_rows(x, w: dict, i, thresh: float):
     its weights are gathered with ``index_select``, which reads no index
     back to the host).  Returns (x + gate * (adapted * ion), ion (...,
     1)).  ``w["mkey_n"]``, where given, holds the memory keys already
-    normalised.  Uncounted: the plain scan and the model's streaming
-    scan share it."""
+    normalised; ``w["par_w"]``, where given (a mini-HC MSheath), sends
+    the adapted rows through ``ranvier``.  Uncounted: the plain scan and
+    the model's streaming scan share it."""
     if isinstance(i, int):
         pick = lambda t, j=i: t[j]
     else:
@@ -68,6 +83,8 @@ def slot_rows(x, w: dict, i, thresh: float):
         a = i // 2
         apx = torch.where(i % 2 == 0, px @ pick(w["adapt_w"], a)
                           + pick(w["adapt_b"], a), px)
+    if "par_w" in w:
+        apx = ranvier(apx, w, i)
     g = torch.sigmoid(px @ pick(w["gate_w"]) + pick(w["gate_b"]))[..., None]
     return x + g * (apx * ion), ion
 

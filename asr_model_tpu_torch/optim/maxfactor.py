@@ -97,14 +97,36 @@ class MaxFactor(torch.optim.Optimizer):
                                            **kw)}
         return {"v": torch.zeros(shape, **kw)}
 
+    # the knobs the variants of ``optim/variants.py`` turn: beta_t clamped
+    # to [0.001, 0.999], rho_t floored at min_lr, the inf-norm division
+    # skipped where the norm is 0
+    beta_clamp = False
+    rho_floor = True
+    guard_inf_norm = True
+
     def rates(self, step: int):
         """(lr_t, beta_t, rho_t) of 1-based step ``step``, float32."""
         s = f32(step)
         lr_t = f32(self.lr(float(s - f32(1))) if callable(self.lr)
                    else self.lr)
         beta_t = s ** f32(self.b_decay)
-        rho_t = max(f32(self.min_lr), min(lr_t, f32(1) / np.sqrt(s)))
+        if self.beta_clamp:
+            beta_t = min(max(beta_t, f32(0.001)), f32(0.999))
+        rho_t = min(lr_t, f32(1) / np.sqrt(s))
+        if self.rho_floor:
+            rho_t = max(f32(self.min_lr), rho_t)
         return float(lr_t), float(beta_t), float(rho_t)
+
+    def direction(self, update, pv, group: dict, p):
+        """The signed row-scaled step direction: rows move by their max
+        |update| (``bias`` 1, or fewer than 3 dimensions) or their lower
+        median."""
+        mag = update.abs()
+        if pv.dim() < 3 or int(group["bias"]) == 1:
+            scale = mag.amax(dim=-1, keepdim=True)
+        else:
+            scale = lower_median(mag)
+        return torch.sign(update) * scale
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -116,10 +138,11 @@ class MaxFactor(torch.optim.Optimizer):
                 st = self.state[p]
                 if not st:
                     st.update(self.init_state(p))
-                self._update(p, st, group["bias"], lr_t, beta_t, rho_t,
-                             eps1, eps2)
+                self._update(p, st, group, lr_t, beta_t, rho_t, eps1,
+                             eps2)
 
-    def _update(self, p, st, bias, lr_t, beta_t, rho_t, eps1, eps2):
+    def _update(self, p, st, group, lr_t, beta_t, rho_t, eps1, eps2):
+        """One parameter's update; returns its trust-ratio alpha."""
         ct = torch.promote_types(p.dtype, torch.float32)
         pj = self.jax_view(p, p)
         g = (torch.zeros_like(pj, dtype=ct) if p.grad is None
@@ -145,15 +168,13 @@ class MaxFactor(torch.optim.Optimizer):
             var_est = v
         update = torch.rsqrt(torch.clamp(var_est, min=eps1 * eps1)) * g
         inf = update.abs().amax()
-        update = torch.where(inf > 0, update / torch.clamp(inf, min=eps1),
-                             update)
-        denom = torch.clamp(_rms(update) / self.d, min=1.0)
-        mag = update.abs()
-        if pv.dim() < 3 or int(bias) == 1:
-            scale = mag.amax(dim=-1, keepdim=True)
+        if self.guard_inf_norm:
+            update = torch.where(inf > 0, update / torch.clamp(inf, min=eps1),
+                                 update)
         else:
-            scale = lower_median(mag)
-        final_dir = torch.sign(update) * scale
+            update = update / torch.clamp(inf, min=eps1)
+        denom = torch.clamp(_rms(update) / self.d, min=1.0)
+        final_dir = self.direction(update, pv, group, p)
         step_size = alpha / denom
         if self.clip:
             max_step = _rms(pv) * self.cap
@@ -164,6 +185,7 @@ class MaxFactor(torch.optim.Optimizer):
         delta = -float(f32(lr_t) * f32(self.decay)) * pv \
             - step_size * final_dir
         pj.add_(delta.view(pj.shape).to(p.dtype))
+        return alpha
 
 
 class MultiSteps:

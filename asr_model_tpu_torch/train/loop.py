@@ -6,7 +6,8 @@
   ``acc_steps`` > 1 wraps it in ``MultiSteps`` (optax's accumulation).
 * ``make_train_step(model, opt, clip_grad_norm, compute_dtype, remat,
   remat_policy)``: one step of forward (train mode, the step's
-  generator), backward, global grad norm (accumulated in f32), clipping
+  generator; an MoE model's loss adds ``moe_aux_weight`` times its
+  aux), backward, global grad norm (accumulated in f32), clipping
   by ``clip_grad_norm`` and the optimizer; returns (loss, gnorm, jstat)
   as device tensors (no host read).  ``compute_dtype=torch.bfloat16``
   is the JAX package's mixed precision: f32 master parameters and
@@ -166,6 +167,9 @@ def make_train_step(model: Model, opt, clip_grad_norm: float = 0.0,
                 model, cast, (batch["text_ids"],),
                 dict(_features(batch, compute_dtype), train=True, gen=gen))
         loss = cross_entropy_ignore_pad(out["logits"], batch["labels"])
+        if model.cfg.moe_experts > 0:
+            # the MoE calls' load-balance aux, weighted into the loss
+            loss = loss + model.cfg.moe_aux_weight * out["moe_aux"]
         return loss, out["jstat"], out["batch_stats"]
 
     def step(batch, gen):

@@ -11,7 +11,8 @@ The frontend (log-mel, the pitch track, the frame-rate waveform) runs on
 the model's device; the pitch track is the one the model trained on
 (``DataConfig.pitch_estimator``): "dio" (DIO + StoneMask, ``ops/dio.py``)
 or "yin".  ``beam_size > 1`` decodes with ``models/beam.py``; a streaming
-model takes ``greedy_decode_stream``, any other the buffer decode.
+model takes ``greedy_decode_stream`` unless it is chained, any other the
+buffer decode.
 """
 
 from __future__ import annotations
@@ -98,7 +99,9 @@ class Transcriber:
         return np.asarray(audio, np.float32)
 
     def _decode(self, feats: dict, max_new_tokens: int):
-        if self.model.cfg.streaming:
+        cfg = self.model.cfg
+        # a chained model has no stream decode (as in the JAX package)
+        if cfg.streaming and not cfg.chained_blocks:
             return greedy_decode_stream(self.model, **feats,
                                         max_new_tokens=max_new_tokens)
         return greedy_decode(self.model, **feats,

@@ -13,7 +13,10 @@ the flax tree (``processor.block3.attn.q_proj``, ``enc.enc0_convlite.bn``,
 * LayerNorm / BatchNorm ``scale``       -> ``weight``
 * BatchNorm stats ``mean`` / ``var``    -> ``running_mean`` / ``running_var``
 * everything else (the MSheath (L, ...) stacks, ``position``,
-  ``blend``, ``alpha``, the rotary placeholders) as it is.
+  ``blend``, ``alpha``, the rotary placeholders) as it is, and so are
+  the leaves of the modules that keep flax's layout (``FLAX_LAYOUT``:
+  the MoE experts' stacked (E, in, out) kernels, the encoder layer's
+  ``SelfAttention_0`` (D, H, hd) / (H, hd, D) kernels).
 
 ``model.load_state_dict(from_jax_params(...), strict=True)`` checks that
 the two trees hold the same tensors.  ``to_jax_params(model)`` is the
@@ -40,8 +43,15 @@ def _flatten(tree, prefix=()):
             yield path, np.asarray(v)
 
 
+# module names whose leaves the port holds in flax's layout, under
+# flax's names
+FLAX_LAYOUT = ("experts", "SelfAttention_0")
+
+
 def _param_entry(path, a):
     *mod, leaf = path
+    if any(m in FLAX_LAYOUT for m in mod):
+        return mod + [leaf], a
     if leaf == "kernel" and a.ndim == 2:
         return mod + ["weight"], a.T
     if leaf == "kernel" and a.ndim == 3:
@@ -74,7 +84,8 @@ def _leaf_layout(module, name: str, ndim: int):
     """(collection, flax leaf name, permutation or None) of a module's
     direct parameter or buffer ``name``."""
     from asr_model_tpu_torch.models.conv import WeightNormConv1d
-    from asr_model_tpu_torch.models.norms import BatchNorm1d, LayerNorm
+    from asr_model_tpu_torch.models.norms import (BatchNorm1d, LayerNorm,
+                                                  Scale)
     from asr_model_tpu_torch.models.tlayers import Conv1d, Dense, Embed
     if isinstance(module, Dense) and name == "weight":
         return "params", "kernel", (1, 0)
@@ -84,7 +95,8 @@ def _leaf_layout(module, name: str, ndim: int):
         return "params", "v", (2, 1, 0)
     if isinstance(module, Embed) and name == "weight":
         return "params", "embedding", None
-    if isinstance(module, (LayerNorm, BatchNorm1d)) and name == "weight":
+    if isinstance(module, (LayerNorm, BatchNorm1d, Scale)) \
+            and name == "weight":
         return "params", "scale", None
     if isinstance(module, BatchNorm1d) and name in ("running_mean",
                                                     "running_var"):

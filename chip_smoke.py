@@ -28,7 +28,7 @@
    (ModelConfig fused_attention, fused_mlp, fused_router) also the
    whole-call attention, residual-MLP and router kernels.  Each path
    must launch exactly its kernels and run no plain version; each
-   prints its RTFx (median of 5 timed runs), decode ms per step and the
+   prints its RTFx (median of 3 timed runs), decode ms per step and the
    device kernels of one decode step at width 65 (torch.profiler), where
    the kernels of each wrapper in ``PROFILED`` the profiler sees must be
    the launches the wrapper counted.  Then the same weights as a
@@ -37,9 +37,11 @@
    mel, flash, fused_abby and fused_sheath_scan kernels: the streaming
    MSheath scan is PyTorch ops, as the JAX package runs it in XLA) and
    stream+fused (adding the MLP and router kernels, no whole-call
-   attention), the same counted run and checks, one stream step at
-   position 64 under torch.profiler, and the stream path's RTFx at B 64
-   (median of 3), a record.
+   attention), the same counted run and checks (RTFx the median of 2
+   runs, stream+fused one), one stream step at position 64 under
+   torch.profiler, and the stream path's RTFx at B 64 (one run), a
+   record.  (Device times are the mean of 6 calls behind a sleep,
+   ``cuda_ms``.)
 4. Serving (``Transcriber``, the same flagship weights): the kernels at
    the serving shapes no decode path runs (a 30 s long-form chunk: the
    mel on (1, 480000), flash over 3001 frames and against 3001 keys,
@@ -77,32 +79,49 @@
    over f32 masters: step 0's loss and grad norm on the kernel route
    against the plain route (f32 1e-4, bf16 7e-2 relative; taken first in
    the call, bf16 then f32, while the process is fresh: PERF.md §6),
-   then step ms
-   (median of 5), utterances and audio seconds per wall second, peak
-   memory, one step's launches and device ms (torch.profiler), and 20
-   steps on the batch (finite, the loss falling); then the training CLI
-   (16 synthetic utterances, 4 steps of 8, bf16, DIO on the host, eval,
-   a checkpoint read back and a resumed run).  The path must launch
-   mel and flash (and the eval's kernels on the CLI) and no plain
-   version.  Then training on audio files: GrammarDataset sentences
-   (``make_split(12, 4)``) written as FLAC (``tools/flac_encoder.py``)
-   into a LibriSpeech-layout tree and as WAV with a ``metadata.csv``,
-   the port's FLAC decode bit-exact against the PCM; the flagship step
-   on the first 8 through ``LibriSpeechDataset`` (mel kernel, host DIO),
-   f32 and bf16, without remat and with remat "dots" and "full": step
-   0's loss and grad norm against the step without remat (1e-6 and
-   5e-4 relative), step ms (median of 5), peak memory, one step's
-   launches and device ms; remat "full" at the 10 s tones (f32,
-   against the train step above: step 0, step ms, peak memory);
-   one ``log_detail`` call (``make_grad_diagnostics``) at the flagship,
-   every scalar finite; the CLI on the WAV files (``--metadata
+   then step ms (median of 2, step 0 the warm-up), utterances and audio
+   seconds per wall second, peak memory, one step's launches and device
+   ms (torch.profiler), and 10 steps on the batch (finite, the loss
+   falling); then the training CLI (16 synthetic utterances, 4 steps of
+   8, bf16, DIO on the host, eval, a checkpoint read back and a resumed
+   run). The path must launch mel and flash (and the eval's kernels on
+   the CLI) and no plain version. Then training on audio files:
+   GrammarDataset sentences (``make_split(12, 4)``) written as FLAC
+   (``tools/flac_encoder.py``) into a LibriSpeech-layout tree and as WAV
+   with a ``metadata.csv``, the port's FLAC decode bit-exact against the
+   PCM; the flagship step on the first 8 through ``LibriSpeechDataset``
+   (mel kernel, host DIO), f32 and bf16, without remat and with remat
+   "dots" and "full": step 0's loss and grad norm against the step
+   without remat (1e-6 and 5e-4 relative), step ms (one timed step),
+   peak memory, one step's launches and device ms; remat "full" at the
+   10 s tones (f32, against the train step above: step 0, step ms, peak
+   memory); one ``log_detail`` call (``make_grad_diagnostics``) at the
+   flagship, every scalar finite; the CLI on the WAV files (``--metadata
    --data-dir --remat``, 4 steps of 8, eval through the native WER
    engine); the golden reference (tests/golden/reference_parity.npz)
-   imported on the card, its logits against the golden's (2e-4), and
-   the CLI with ``--import-reference`` at the golden's dims.  The file
-   batch must launch mel and flash and no plain version, the CLI the
-   eval's kernels too.
-7. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
+   imported on the card, its logits against the golden's (2e-4), and the
+   CLI with ``--import-reference`` at the golden's dims. The file batch
+   must launch mel and flash and no plain version, the CLI the eval's
+   kernels too.
+7. The model variants (``variants_path``), at the flagship's width
+   from seed 0: a chained model whose blocks' MLPs are 8 routed experts
+   (top 2, capacity factor 1.25) with the encoder's norm and transformer
+   layer (``CHAINED_MOE``) served through ``Transcriber`` (bf16, DIO,
+   the 8 x 10 s tones, 64 tokens: exactly the serve path's kernels;
+   RTFx the median of 3, decode ms a step, one step's launches and
+   device ms), its first decode step against the plain route in f32
+   (6e-5) and in bf16 (read and printed, every value finite:
+   ``bf16_route_reading``'s note), once more with the fused fields on
+   (no ``fused_mlp_residual`` launch: its gate refuses an MoE block),
+   its train step 0 bf16 (loss) and f32 (loss and grad norm, with the
+   witness) on the tones cut to 2.55 s, then one timed f32 step (step
+   ms, peak memory, the MoE aux term of its forward), one profiled
+   (launches, device ms) and 5 more (the loss falling); MSheath's
+   mini-HC paths as a module (``minihc_module``: no ModelConfig field
+   builds them, as in the JAX package): its eval forward in f32 and bf16
+   and its train gradients in f32 on the card against the CPU's, with
+   no ``fused_sheath_scan`` launch (the JAX gate excludes mini-HC).
+8. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
    path), the card line, and as its last line ``{"ok": true, "device":
    {...}}``.
 
@@ -170,7 +189,7 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int = 6, warmup: int = 2) -> float:
     """Device ms per call of ``fn``: the calls are enqueued while the
     device waits behind a sleep kernel long enough to cover their host
     time, so the events between them time the device work alone, not
@@ -1514,7 +1533,7 @@ def step_profile(model, audio, ids, stream: bool = False, feats=None):
             seen)
 
 
-def drive_path(model, audio, label: str, expect, runs: int = 5,
+def drive_path(model, audio, label: str, expect, runs: int = 3,
                stream: bool = False, step_expect=None):
     """One decode path: a warm-up, the counted run (every kernel in
     ``expect`` launched, no other, no plain version), ``runs`` timed runs,
@@ -1726,7 +1745,7 @@ def check_dio(audio):
         b_ms, b_by = bound_ms(flops, nbytes(cand, f0, got), F32_PEAK)
         ms = cuda_ms(lambda: K.dio_contour(cand, f0, vrm, 0.1))
         plain = cuda_ms(lambda: K.dio_contour_plain(cand, f0, vrm, 0.1),
-                        iters=2, warmup=1)
+                        iters=1, warmup=1)
         log(f"dio_contour {label}: {ms:.4f} ms, plain version {plain:.1f} ms, "
             f"bound {b_ms:.3g} ms ({b_by})")
         entries.append(dict(
@@ -1839,10 +1858,10 @@ def serve_path(model, audio):
     s_launches, s_dev, s_copies, s_top, _ = step_profile(model, audio, ids,
                                                          feats=feats)
     # the decode alone on the serve features (DIO) and on the default
-    # path's (YIN), both without EOS suppression, in turns A B B A
+    # path's (YIN), both without EOS suppression, in turns A B
     yin = dict(zip(("spectrogram", "pitch", "waveform"), frontend(audio)))
     dec = {"dio": [], "yin": []}
-    for name in ("dio", "yin", "yin", "dio"):
+    for name in ("dio", "yin"):
         f = feats if name == "dio" else yin
         dec[name].append(host_ms(lambda: greedy_decode(
             model, **f, max_new_tokens=NEW_TOKENS), runs=1))
@@ -1856,7 +1875,7 @@ def serve_path(model, audio):
         f"mel {front['mel']:.3f} ms, DIO + StoneMask {front['dio']:.3f} ms "
         f"({dio_n} launches, {dio_dev:.3f} ms of device time), waveform "
         f"{front['waveform']:.3f} ms")
-    log("serve path: the decode alone (ms, turns A B B A): on the DIO "
+    log("serve path: the decode alone (ms, turns A B): on the DIO "
         f"features {dec['dio']}, on the YIN features {dec['yin']}")
     log(f"serve path: one decode step at width 65 on the serve features: "
         f"{s_launches} kernel launches ({s_dev:.3f} ms of device time) and "
@@ -2012,7 +2031,7 @@ def stream_vs_buffer(model, audio, dtype, tol: float):
     return share
 
 
-def stream_rtfx_at(model, batch: int, runs: int = 3) -> float:
+def stream_rtfx_at(model, batch: int, runs: int = 1) -> float:
     """RTFx of the stream decode at ``batch`` utterances (median of
     ``runs`` after a warm-up)."""
     import torch
@@ -2060,10 +2079,10 @@ TRAIN_TOKENS, TRAIN_MELS = 64, 128
 # the plain route on its loss (TRAIN_TOL) with every value finite, and
 # the flash kernel it runs is held against its plain version, forward
 # and backward, at the train shapes in bf16 (``check_flash_autograd``);
-# its witness is still read and printed.  Over ``train_path``'s 20 steps
-# the bf16 loss wanders +-15% on a plateau, so it is held to lie below
-# step 0's at the end (4,538 -> ~2,200), f32 also below the first of
-# the 20
+# its witness is still read and printed.  Over ``train_path``'s 10
+# steps the bf16 loss reaches a plateau (from step 8 it wanders +-15%
+# over 20 steps), so it is held to lie below step 0's at the end (4,538 ->
+# ~2,200), f32 also below the first of them
 TRAIN_TOL = {"f32": 1e-4, "bf16": 7e-2}
 WITNESS_ULPS, SEPARATION = 1, 4.0
 FAULT_REL = {"f32": 1e-3, "bf16": 5e-2}
@@ -2212,19 +2231,21 @@ def perturb_attention(rel: float, seed: int = 7):
     return lambda: setattr(attention, "flash_attention", inner)
 
 
-def _train_fresh(dt_name: str):
-    """(model, step) of the flagship from seed 0 with its optimizer."""
+def _train_fresh(dt_name: str, extra=None):
+    """(model, step) of the flagship from seed 0 with its optimizer
+    (``extra``: the ModelConfig fields of a variant)."""
     import torch
     from asr_model_tpu_torch.config import Config, Dimensions, ModelConfig
     from asr_model_tpu_torch.models.model import Model
     from asr_model_tpu_torch.train.loop import make_optimizer, make_train_step
-    m = Model(Dimensions(), ModelConfig(), device=DEV, seed=0)
+    m = Model(Dimensions(), ModelConfig(**(extra or {})), device=DEV, seed=0)
     opt, _ = make_optimizer(Config(), m)
     return m, make_train_step(m, opt, 0.0,
                               torch.bfloat16 if dt_name == "bf16" else None)
 
 
-def train_step0(batch_np, dt_name: str, label: str) -> dict:
+def train_step0(batch_np, dt_name: str, label: str, extra=None,
+                witness: bool = True) -> dict:
     """Step 0 of the train step on the flagship (dropout and gumbel draws
     from a seeded generator): its loss and grad norm on the kernel route
     against the plain route from the same weights and generator seed
@@ -2246,7 +2267,7 @@ def train_step0(batch_np, dt_name: str, label: str) -> dict:
         undo = plain_route()
         restore = perturb_attention(rel) if rel else (lambda: None)
         try:
-            _m, st = _train_fresh(dt_name)
+            _m, st = _train_fresh(dt_name, extra)
             loss, gn, js = st(batch, gen())
             torch.cuda.synchronize()
             return float(loss), float(gn), js.tolist()
@@ -2254,38 +2275,43 @@ def train_step0(batch_np, dt_name: str, label: str) -> dict:
             restore()
             undo()
 
-    model, step = _train_fresh(dt_name)
+    model, step = _train_fresh(dt_name, extra)
     lk, gk, jk = step(batch, gen())
     torch.cuda.synchronize()
     counts = kernels.counts()
     del model, step
     lp, gp, jp = plain_step()
     ulp = WITNESS_ULPS * float(torch.finfo(compute or torch.float32).eps)
-    reads = {"plain_again": plain_step(), "plain_1ulp": plain_step(ulp),
-             "planted_fault": plain_step(FAULT_REL[dt_name])}
-    rel_g_of = {k: abs(r[1] - gp) / abs(gp) for k, r in reads.items()}
-    witness = max(rel_g_of["plain_again"], rel_g_of["plain_1ulp"])
-    limit = float(np.sqrt(witness * rel_g_of["planted_fault"]))
+    gated = dt_name in GRAD_GATED
     rel_l = abs(float(lk) - lp) / abs(lp)
     rel_g = abs(float(gk) - gp) / abs(gp)
     tol = TRAIN_TOL[dt_name]
     why = ("f32 sums in other orders" if dt_name == "f32" else
            "bf16 rounds at other places on the two routes")
-    log(f"{label} step 0 grad norm witness (relative to the plain route's "
-        f"{gp:.4f}): plain route again {rel_g_of['plain_again']:.2e}, "
-        f"attention outputs moved {WITNESS_ULPS} ulp "
-        f"{rel_g_of['plain_1ulp']:.2e}, planted fault "
-        f"({FAULT_REL[dt_name]:g} of each output) "
-        f"{rel_g_of['planted_fault']:.2e}; limit {limit:.2e}")
-    gated = dt_name in GRAD_GATED
+    rel_g_of, limit = None, None
+    if witness or gated:
+        reads = {"plain_again": plain_step(), "plain_1ulp": plain_step(ulp),
+                 "planted_fault": plain_step(FAULT_REL[dt_name])}
+        rel_g_of = {k: abs(r[1] - gp) / abs(gp) for k, r in reads.items()}
+        wit = max(rel_g_of["plain_again"], rel_g_of["plain_1ulp"])
+        limit = float(np.sqrt(wit * rel_g_of["planted_fault"]))
+        log(f"{label} step 0 grad norm witness (relative to the plain "
+            f"route's {gp:.4f}): plain route again "
+            f"{rel_g_of['plain_again']:.2e}, attention outputs moved "
+            f"{WITNESS_ULPS} ulp {rel_g_of['plain_1ulp']:.2e}, planted "
+            f"fault ({FAULT_REL[dt_name]:g} of each output) "
+            f"{rel_g_of['planted_fault']:.2e}; limit {limit:.2e}")
+    else:
+        log(f"{label} step 0 grad norm witness: not read (the grad norm "
+            "is not gated in this dtype)")
     if gated:
-        check(rel_g_of["planted_fault"] >= SEPARATION * witness,
+        check(rel_g_of["planted_fault"] >= SEPARATION * wit,
               f"{label} step 0: the planted fault reads "
               f"{rel_g_of['planted_fault']:.2e}, at least {SEPARATION:g} x "
-              f"the witness {witness:.2e}, so the grad norm's limit "
+              f"the witness {wit:.2e}, so the grad norm's limit "
               f"{limit:.2e} (their geometric middle) separates them")
     finite = bool(np.isfinite([float(lk), float(gk), lp, gp]).all())
-    check(finite and rel_l <= tol and (rel_g <= limit or not gated),
+    check(finite and rel_l <= tol and (not gated or rel_g <= limit),
           f"{label} step 0, kernel route against plain route: loss "
           f"{float(lk):.6f} / {lp:.6f} (rel {rel_l:.2e}, tolerance "
           f"{tol:g}: {why}), grad norm {float(gk):.4f} / {gp:.4f} (rel "
@@ -2300,60 +2326,77 @@ def train_step0(batch_np, dt_name: str, label: str) -> dict:
                 gnorm0_limit=limit)
 
 
-def train_path(batch_np, dt_name: str, label: str, step0: dict):
+def train_path(batch_np, dt_name: str, label: str, step0: dict,
+               extra=None, steps: int = 10, timed: int = 2,
+               profiler=None):
     """The train step on the flagship (dropout and gumbel draws from a
     seeded generator) after ``train_step0``'s gate (``step0``): step 0,
-    then 1 warm-up and 5 timed steps (median ms, utterances and audio
-    seconds per wall second, peak memory), one step under the profiler
-    (launches, device ms), and 20 more steps on the same batch (every
-    loss and grad norm finite, the last loss below step 0's and, in f32,
-    below the first of the 20: ``TRAIN_TOL``'s note)."""
+    then ``timed`` timed steps (median ms, utterances and audio seconds
+    per wall second, peak memory), one step under ``profiler`` (default
+    ``profile_launches``; launches, device ms, and the hand kernels'
+    counts), and ``steps`` more steps on the same
+    batch (every loss and grad norm finite, the last loss below step 0's
+    and, in f32, below the first of them: ``TRAIN_TOL``'s note).  An MoE
+    variant's line adds its load-balance term (``moe_aux_weight`` times
+    the summed aux of the last timed step's forward)."""
     import torch
     from asr_model_tpu_torch.ops import cuda as kernels
     from asr_model_tpu_torch.train.loop import device_batch
+    profiler = profiler or profile_launches
     batch = device_batch(batch_np, DEV)
-    model, step = _train_fresh(dt_name)
+    model, step = _train_fresh(dt_name, extra)
     g = torch.Generator(device=DEV).manual_seed(0)
-    loss_step0 = float(step(batch, g)[0])
-    step(batch, g)                                  # warm-up
+    loss_step0 = float(step(batch, g)[0])           # and the warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(5):
+    times, seen = [], []
+    if model.cfg.moe_experts:
+        # an MoE variant's aux, read from the timed steps' own forwards
+        forward = model.forward
+        model.forward = lambda *a, **k: seen.append(forward(*a, **k)) \
+            or seen[-1]
+    for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, _gn, _js = step(batch, g)
         float(loss)
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
+    aux = None
+    if seen:
+        del model.forward
+        aux = float(model.cfg.moe_aux_weight * seen[-1]["moe_aux"])
+        seen.clear()
     kernels.reset_counts()
-    step(batch, g)
-    per_step = {n: c["launches"] for n, c in kernels.counts().items()
-                if c["launches"]}
-    launches, dev_ms = profile_launches(lambda: step(batch, g))
+    launches, dev_ms = profiler(lambda: step(batch, g))
+    calls = 2 if profiler is profile_launches else 1   # see each
+    per_step = {n: c["launches"] // calls for n, c in
+                kernels.counts().items() if c["launches"]}
     losses, gnorms = [], []
-    for _ in range(20):
+    for _ in range(steps):
         loss, gn, _js = step(batch, g)
         losses.append(float(loss))
         gnorms.append(float(gn))
     falls = losses[-1] < loss_step0 and (dt_name not in GRAD_GATED
                                          or losses[-1] < losses[0])
     check(all(np.isfinite(losses + gnorms)) and falls,
-          f"{label}: 20 steps on one batch, loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}, below step 0's {loss_step0:.4f}"
+          f"{label}: {steps} steps on one batch, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (" + ", ".join(f"{v:.2f}" for v in losses)
+          + f"), below step 0's {loss_step0:.4f}"
           + ("" if dt_name in GRAD_GATED else " (held to step 0's alone: "
              "TRAIN_TOL's note)") + ", every loss and grad norm finite")
     ms = float(np.median(times))
     b = batch_np["text_ids"].shape[0]
     secs = b * batch_np["waveform"].shape[-1] * HOP / SR
-    log(f"{label}: step {ms:.2f} ms (median of 5; {times}), "
+    log(f"{label}: step {ms:.2f} ms (median of {timed}; {times}), "
         f"{1e3 * b / ms:.2f} utterances/s, {1e3 * secs / ms:.2f} audio s "
         f"per wall s; one step {launches} launches, {dev_ms:.2f} ms of "
         f"device time ({100 * dev_ms / ms:.1f}% of the step); peak "
-        f"memory {peak / 2**30:.2f} GiB; hand kernels a step {per_step}")
+        f"memory {peak / 2**30:.2f} GiB; hand kernels a step {per_step}"
+        + ("" if aux is None else f"; MoE aux term in the loss {aux:.6f}"))
     del model, step
     torch.cuda.empty_cache()
-    return dict(step0, step_ms=ms, step_ms_runs=times,
+    return dict(step0, step_ms=ms, step_ms_runs=times, moe_aux_term=aux,
                 utt_per_s=1e3 * b / ms, audio_s_per_s=1e3 * secs / ms,
                 launches_per_step=launches, device_ms_per_step=dev_ms,
                 peak_gib=peak / 2**30, kernel_launches_per_step=per_step,
@@ -2521,7 +2564,7 @@ def file_batch(fx):
                                  text_pad_to_multiple=16)))
 
 
-def remat_variants(batch_np, dt_name: str, label: str, runs: int = 5,
+def remat_variants(batch_np, dt_name: str, label: str, runs: int = 1,
                    base=None, profile: bool = True,
                    names=("dots", "full")):
     """The flagship train step without remat and with each remat policy
@@ -2783,7 +2826,8 @@ def files_path(tones_batch, tones_f32):
                    remat={"f32": remat_variants(batch_np, "f32",
                                                 "file batch f32"),
                           "bf16": remat_variants(batch_np, "bf16",
-                                                 "file batch bf16")})
+                                                 "file batch bf16",
+                                                 profile=False)})
         log(f"training on files: remat at the file batch "
             f"{time.perf_counter() - t0:.1f} s")
         # the path's counts: the batch's features and step 0 without
@@ -2798,7 +2842,7 @@ def files_path(tones_batch, tones_f32):
                 r.pop("counts", None)
         t0 = time.perf_counter()
         out["remat"]["tones_f32"] = remat_variants(
-            tones_batch, "f32", "10 s tones f32", runs=2, base=tones_f32,
+            tones_batch, "f32", "10 s tones f32", runs=1, base=tones_f32,
             profile=False, names=("full",))
         for r in out["remat"]["tones_f32"].values():
             r.pop("counts", None)
@@ -2810,6 +2854,307 @@ def files_path(tones_batch, tones_f32):
             f"diagnostics {t2 - t1:.1f} s, the CLI runs "
             f"{time.perf_counter() - t2:.1f} s")
     return out
+
+
+# ------------------------------------------------------ the model variants
+
+# the ModelConfig variant the port serves and trains at the flagship's
+# width: a chained model whose blocks' MLPs are 8 routed experts (top 2,
+# capacity factor 1.25), with the encoder's norm and transformer layer
+CHAINED_MOE = dict(chained_blocks=True, moe_experts=8, moe_top_k=2,
+                   moe_capacity_factor=1.25, encoder_norm=True,
+                   encoder_transformer=True)
+# its train batch: the tones cut to 2.55 s (256 frames, the file
+# batch's shape; four chained blocks at the 10 s tones would hold about
+# four times the one block's 18 GiB of f32 activations), the timed
+# steps and the f32 steps after them
+VARIANT_SEC, VARIANT_TIMED, VARIANT_STEPS = 2.55, 1, 5
+# the fused kernels the fused variant launches; the MoE MLP never takes
+# the fused MLP (the JAX gate refuses an MoE block)
+CHAINED_MOE_FUSED = ("fused_attn_cached", "fused_attn_full",
+                     "fused_router_same")
+
+
+def variant(extra, dtype=None, fused: bool = False):
+    """The flagship with the ModelConfig fields ``extra`` from seed 0,
+    bf16 unless ``dtype`` says otherwise."""
+    import torch
+    from asr_model_tpu_torch.config import Dimensions, ModelConfig
+    from asr_model_tpu_torch.models.model import Model, cast_variables
+    cfg = ModelConfig(**extra, **(FUSED_FIELDS if fused else {}))
+    m = Model(Dimensions(), cfg, device=DEV, seed=0)
+    return m if dtype == torch.float32 else cast_variables(m)
+
+
+def variant_serve(model, audio, label: str, expect) -> dict:
+    """``Transcriber`` on a variant (bf16, DIO pitch on the card, 64 new
+    tokens): the counted ``transcribe_batch`` must launch exactly
+    ``expect`` and no plain version, its transcripts be the decode of
+    its ids; RTFx (median of 3), decode ms a step (the 64-step decode
+    with EOS suppressed less its prepare, over 64) and one step's
+    launches and device ms at width 65."""
+    import torch
+    from asr_model_tpu_torch.data.tokenizer import setup_tokenizer
+    from asr_model_tpu_torch.models.generate import (greedy_decode,
+                                                     prepare_cross)
+    from asr_model_tpu_torch.models.model import modality_slots
+    from asr_model_tpu_torch.ops import cuda as kernels
+    from asr_model_tpu_torch.transcribe import Transcriber
+    tok = setup_tokenizer(TOKENIZER)
+    t = Transcriber(model, tok, bf16=True, max_new_tokens=NEW_TOKENS,
+                    device=DEV)
+    wavs = list(audio.cpu().numpy())
+    decoded = []
+    decode = t._decode
+    t._decode = lambda *a, **k: decoded.append(decode(*a, **k)) or \
+        decoded[-1]
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    try:
+        texts = t.transcribe_batch(wavs)
+        torch.cuda.synchronize()
+    finally:
+        t._decode = decode
+    counts = kernels.counts()
+    log(f"{label} serve kernels " + json.dumps(counts))
+    _check_counts(f"{label} serve", counts, expect)
+    feats = t.features(audio)
+    ids = decoded[0]
+    check(tuple(ids.shape) == (BATCH, 1 + NEW_TOKENS)
+          and texts == tok.batch_decode(ids.tolist()),
+          f"{label} serve: {BATCH} transcripts, each the tokenizer's "
+          f"decode of its ids; first: {texts[0][:60]!r}")
+    batch_ms = [host_ms(lambda: t.transcribe_batch(wavs), runs=1)
+                for _ in range(3)]
+    rtfx = BATCH * UTT_SEC / (float(np.median(batch_ms)) / 1e3)
+    slots = modality_slots(feats["pitch"], feats["spectrogram"],
+                           feats["waveform"])
+    prep = host_ms(lambda: prepare_cross(model, slots), runs=1)
+    dec = host_ms(lambda: greedy_decode(model, **feats, suppress_eos=True,
+                                        max_new_tokens=NEW_TOKENS), runs=1)
+    step_ms = (dec - prep) / NEW_TOKENS
+    n, dev_ms, copies, top, _ = step_profile(model, audio, ids, feats=feats)
+    log(f"{label} serve: RTFx {rtfx:.3f} (median of 3 transcribe_batch "
+        "runs of " + ", ".join(f"{m:.1f}" for m in batch_ms) + f" ms); "
+        f"encode + re-encode + cross K/V {prep:.3f} ms; decode "
+        f"{step_ms:.3f} ms per step; one step at width 65: {n} kernel "
+        f"launches ({dev_ms:.3f} ms of device time), {copies} copies/"
+        "fills; top: " + json.dumps(top[:4]))
+    return dict(rtfx=rtfx, ms_per_batch_runs=batch_ms, prepare_ms=prep,
+                decode_ms_per_step=step_ms, step_launches=n,
+                step_device_ms=dev_ms, step_top=top, counts=counts)
+
+
+# the chained MoE model's bf16 first-step logits are read, not gated:
+# each block's output feeds the next and the MoE picks each token's
+# experts by a top-2 of bf16 router logits, so bf16 rounding alone moves
+# its logits about as far as a fault would (its kernel and plain bf16
+# routes read 1.43e-1 of the largest logit apart, 7e-2 from each other
+# with the fused fields, its f32 routes 2.1e-6; one bf16 ulp on every
+# attention output of the plain route moved them 1.9e-1, as far as a 5%
+# fault, on an H100 80GB HBM3 at 700 W).  Its hold in bf16 is every
+# value finite, the f32 route check (6e-5) on the same model and each
+# kernel's own bf16 check against its plain version at the flagship's
+# shapes (``check_kernels``, ``check_serve_shapes``).
+
+
+def bf16_route_reading(m16, lp32, audio, label: str) -> dict:
+    """``m16``'s first-step logits on its kernel route and its plain route
+    (bf16) against ``lp32``, the same weights' plain route in f32:
+    printed, and gated on finite values only (the note above)."""
+    import torch
+    lk = first_step_logits(m16, audio, torch.bfloat16)
+    undo = plain_route()
+    try:
+        lp = first_step_logits(m16, audio, torch.bfloat16)
+    finally:
+        undo()
+    scale = float(lp32.abs().max())
+    out = {"kernel_vs_f32": float((lk - lp32).abs().max()) / scale,
+           "plain_bf16_vs_f32": float((lp - lp32).abs().max()) / scale,
+           "kernel_vs_plain_bf16": float((lk - lp).abs().max())
+           / float(lp.abs().max())}
+    agree = {k: float((v.argmax(-1) == lp32.argmax(-1)).float().mean())
+             for k, v in (("kernel", lk), ("plain bf16", lp))}
+    check(bool(torch.isfinite(lk).all()),
+          f"{label}: first decode step logits (bfloat16) finite; read, not "
+          "gated (bf16 rounding decides them: the note above): kernel "
+          f"route {out['kernel_vs_f32']:.3e} of the largest logit from the "
+          f"plain route in f32, the plain bf16 route "
+          f"{out['plain_bf16_vs_f32']:.3e}, the two bf16 routes "
+          f"{out['kernel_vs_plain_bf16']:.3e} apart; argmax agreement "
+          f"with f32 {json.dumps(agree)}")
+    return out
+
+
+def variant_routes(audio, extra, label: str, fused: bool = False) -> dict:
+    """The first decode step's logits of a variant on the kernel route
+    against the plain route, f32 (6e-5) and bf16 (read:
+    ``bf16_route_reading``); with ``fused`` once more with the fused
+    fields on, whose counted kernel route must launch no
+    ``fused_mlp_residual`` (the JAX gate refuses an MoE block) and each
+    of ``CHAINED_MOE_FUSED``."""
+    import torch
+    from asr_model_tpu_torch.ops import cuda as kernels
+    rel = {}
+    for f in ((False, True) if fused else (False,)):
+        name = label + (" fused" if f else "")
+        m32 = variant(extra, torch.float32, fused=f)
+        undo = plain_route()
+        try:
+            lp32 = first_step_logits(m32, audio, torch.float32)
+        finally:
+            undo()
+        for dt in (torch.float32, torch.bfloat16):
+            m = m32 if dt == torch.float32 else variant(extra, dt, fused=f)
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            if dt == torch.float32:
+                rel[f"{name} float32"] = route_check(
+                    m, audio, dt, 6e-5, "f32 sums in other orders",
+                    name)[0]
+            else:
+                rel[f"{name} bfloat16 (read)"] = bf16_route_reading(
+                    m, lp32, audio, name)
+            c = kernels.counts()
+            if f:
+                check(c["fused_mlp_residual"]["launches"] == 0
+                      and all(c[k]["launches"] > 0
+                              for k in CHAINED_MOE_FUSED),
+                      f"{name} ({str(dt)[6:]}): the kernel route launched "
+                      + ", ".join(f"{k} {c[k]['launches']}" for k in
+                                  CHAINED_MOE_FUSED + ("fused_mlp_residual",))
+                      + " (the MLP kernel never: its gate refuses an MoE "
+                      "block)")
+            del m
+        del m32
+    torch.cuda.empty_cache()
+    return rel
+
+
+# MSheath's mini-HC (r_node) paths, as a module: no ModelConfig field
+# builds them (``msheath_mini_hc`` is inert in the JAX package, whose
+# Residual builds MSheath without them, and so in the port).  Its inputs:
+# the decode's audio slot at the flagship's width (8 x 1000 x 512)
+MINI_HC_SHAPE = (BATCH, int(UTT_SEC * SR / HOP), 512)
+# f32 on the card against f32 on the CPU (the same PyTorch ops; sums in
+# other orders), bf16 on the card against f32 on the CPU, gradients
+# against the CPU's (of the largest gradient)
+MINI_HC_TOL = {"f32": 1e-4, "bf16": 7e-2, "grad": 1e-4}
+
+
+def minihc_module() -> dict:
+    """``MSheath(mini_hc=True)`` of the flagship's block (512 wide, 4
+    heads, 4 slots, seed 0, the v_gate biased as below) on the card: its eval forward in f32 and
+    bf16, which launches no ``fused_sheath_scan`` and calls no plain
+    version of it (the JAX gate keeps mini-HC off the scan kernel), and
+    its noise-free train forward's gradients in f32, each against the
+    same module on the CPU in f32 (``MINI_HC_TOL``), the jump actions
+    equal."""
+    import torch
+    from asr_model_tpu_torch.models import stochastic
+    from asr_model_tpu_torch.models.sheath import MSheath
+    from asr_model_tpu_torch.models.tlayers import reset_all
+    from asr_model_tpu_torch.ops import cuda as kernels
+    g = torch.Generator().manual_seed(0)
+    cpu = MSheath(512, 4, 4, mini_hc=True, device="cpu")
+    reset_all(cpu, g)
+    with torch.no_grad():
+        # the v_gate's mask off on slot 0 (a forced skip) and on on slots
+        # 2 and 3, so that a jump and the r_node paths both run
+        cpu.vcat_b.add_(torch.tensor([[-3.0], [0.0], [3.0], [3.0]]))
+    x = torch.randn(MINI_HC_SHAPE, generator=g)
+    w = torch.randn(MINI_HC_SHAPE, generator=g)
+
+    def run(m, x, w=None):
+        if w is None:
+            with torch.no_grad():
+                y, aux = m(x)
+            return y.float().cpu(), aux["actions"].cpu(), None
+        m.requires_grad_(True)
+        with stochastic.mode(train=True):
+            y, aux = m(x)
+            grads = torch.autograd.grad((y.float() * w).sum(),
+                                        list(m.parameters()),
+                                        allow_unused=True)
+        m.requires_grad_(False)
+        return y.float().cpu(), aux["actions"].cpu(), [
+            None if gr is None else gr.float().cpu() for gr in grads]
+
+    y_ref, act_ref, _ = run(cpu, x)
+    _, act_tref, g_ref = run(cpu, x, w)
+    out = {}
+    kernels.reset_counts()
+    for dt in ("f32", "bf16"):
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        m = MSheath(512, 4, 4, mini_hc=True, device=DEV, dtype=dtype)
+        m.load_state_dict(cpu.state_dict())
+        y, act, _ = run(m, x.to(DEV, dtype))
+        rel = float((y - y_ref).abs().max() / y_ref.abs().max())
+        same = bool(torch.equal(act, act_ref))
+        check(bool(torch.isfinite(y).all()) and rel <= MINI_HC_TOL[dt]
+              and (same or dt == "bf16"),
+              f"mini-HC MSheath eval ({dt}, {MINI_HC_SHAPE}) on the card "
+              f"against the CPU's f32: {rel:.3e} of the largest value "
+              f"(tolerance {MINI_HC_TOL[dt]:g}); jump actions "
+              f"{act.tolist()} / {act_ref.tolist()}"
+              + ("" if dt == "f32" else " (printed in bf16)"))
+        out[f"eval_{dt}"] = dict(rel=rel, actions_equal=same)
+        if dt == "f32":
+            _, act, grads = run(m, x.to(DEV), w.to(DEV))
+            top = max(float(gr.abs().max()) for gr in g_ref
+                      if gr is not None)
+            worst = max(float((a - b).abs().max()) / top for a, b in
+                        zip(grads, g_ref) if b is not None)
+            names = [n for n, _ in cpu.named_parameters()]
+            rnode = all(float(grads[names.index(n)].abs().max()) > 0
+                        for n in ("par_w", "par_b", "rnet_w", "rnet_b"))
+            check(worst <= MINI_HC_TOL["grad"] and rnode
+                  and torch.equal(act, act_tref),
+                  f"mini-HC MSheath train (f32) on the card against the "
+                  f"CPU's: gradients {worst:.3e} of the largest (tolerance "
+                  f"{MINI_HC_TOL['grad']:g}), the r_node parameters' "
+                  f"nonzero, jump actions equal")
+            out["grad_rel"] = worst
+        del m
+    counts = kernels.counts()
+    c = counts["fused_sheath_scan"]
+    check(c["launches"] == 0 and c["plain_calls"] == 0,
+          f"mini-HC MSheath: fused_sheath_scan launched {c['launches']} "
+          f"times, its plain version called {c['plain_calls']} times (the "
+          "JAX gate keeps mini-HC off the scan kernel)")
+    torch.cuda.empty_cache()
+    return dict(out, counts=counts)
+
+
+def variants_path(paths: dict, rel: dict) -> None:
+    """The model variants: ``CHAINED_MOE`` served, route-checked and
+    trained, and MSheath's mini-HC paths as a module
+    (``minihc_module``); each path's counts go into ``paths``, the route
+    checks' readings into ``rel``."""
+    import torch
+    from asr_model_tpu_torch.ops import cuda as kernels
+    audio = torch.from_numpy(tones(BATCH, UTT_SEC)).to(DEV)
+    model = variant(CHAINED_MOE)
+    paths["chained_moe_serve"] = variant_serve(model, audio, "chained-moe",
+                                               kernels.SERVE_PATH)
+    del model
+    rel.update(variant_routes(audio, CHAINED_MOE, "chained-moe", True))
+    kernels.reset_counts()
+    short = train_batch(torch.from_numpy(tones(BATCH, VARIANT_SEC)).to(DEV))
+    step0 = {}
+    for dt in ("bf16", "f32"):
+        kernels.reset_counts()
+        step0[dt] = train_step0(short, dt, f"chained-moe train step {dt}",
+                                CHAINED_MOE, witness=False)
+        _check_counts(f"chained-moe train step {dt} (step 0)",
+                      step0[dt]["counts"], ("flash_attention",))
+    paths["chained_moe_train"] = train_path(
+        short, "f32", "chained-moe train f32", step0["f32"],
+        extra=CHAINED_MOE, steps=VARIANT_STEPS, timed=VARIANT_TIMED,
+        profiler=profile_device)
+    paths["chained_moe_train"]["loss0_bf16"] = step0["bf16"]["loss0"]
+    paths["mini_hc_module"] = minihc_module()
 
 
 def main() -> int:
@@ -2920,11 +3265,11 @@ def main() -> int:
     stream_only = ("flash_attention", "fused_abby")
     mlp_router = ("fused_mlp_residual", "fused_router_same")
     paths["stream"] = drive_path(stream, audio, "stream",
-                                 kernels.DEFAULT_PATH, stream=True,
+                                 kernels.DEFAULT_PATH, runs=2, stream=True,
                                  step_expect=stream_only)
     paths["stream_fused"] = drive_path(
         stream_fused, audio, "stream+fused", kernels.DEFAULT_PATH
-        + mlp_router, runs=3, stream=True,
+        + mlp_router, runs=1, stream=True,
         step_expect=stream_only + mlp_router)
     same = float((paths["stream_fused"]["ids"] == paths["stream"]["ids"])
                  .float().mean())
@@ -2996,6 +3341,12 @@ def main() -> int:
     paths["train_files"] = files
     paths["train_files_cli"] = files.pop("cli")
     phase_done("training on files")
+
+    # the model variants: a chained MoE model with the encoder's options,
+    # served, route-checked and trained; MSheath's mini-HC paths as a
+    # module
+    variants_path(paths, rel)
+    phase_done("model variants")
 
     for k in kern:
         by_path = {p: r["counts"][k["name"]]["launches"]

@@ -288,15 +288,18 @@ def test_cli_trains_on_cpu(tmp_path):
         assert not events
 
 
-# --remat, --metadata and --import-reference are ported: without a data
-# source they exit as the JAX CLI does
+# --remat, --metadata, --import-reference and the model variants' flags
+# are ported: without a data source they exit as the JAX CLI does
 @pytest.mark.parametrize("flag,item", [
     (["--mesh-data", "2"], "item 10"),
     (["--remat"], "--metadata/--data-dir or --synthetic"),
-    (["--moe-experts", "2"], "item 9"),
+    (["--moe-experts", "2"], "--metadata/--data-dir or --synthetic"),
     (["--metadata", "m.csv"], "--metadata/--data-dir or --synthetic"),
     (["--import-reference", "x.pt"], "--metadata/--data-dir or --synthetic"),
-    ([], "--synthetic")])
+    ([], "--synthetic"),
+    (["--chained-blocks", "--moe-top-k", "1"],
+     "--metadata/--data-dir or --synthetic"),
+    (["--pitch-tokens"], "item 9")])
 def test_cli_refuses_what_is_not_ported(flag, item):
     with pytest.raises(SystemExit, match=item):
         cli.main(["--device", "cpu"] + flag)

@@ -272,12 +272,17 @@ def test_config_from_json_reads_the_jax_config():
     assert got.dims == Dimensions(**KW)
     assert got.model.streaming and got.model.causal_all is False
     assert got.data.pitch is False and got.data.pitch_estimator == "yin"
-    for bad in (JConfig(model=JModelConfig(moe_experts=2)),
-                JConfig(model=JModelConfig(chained_blocks=True)),
-                JConfig(model=JModelConfig(encoder_norm=True)),
-                JConfig(model=JModelConfig(encoder_transformer=True)),
-                JConfig(model=JModelConfig(msheath_mini_hc=True)),
-                JConfig(data=JData(pitch_tokens=True))):
+    # the model variants are read since they were ported; the features
+    # the port does not compute are refused
+    for ok in (JConfig(model=JModelConfig(moe_experts=2)),
+               JConfig(model=JModelConfig(chained_blocks=True)),
+               JConfig(model=JModelConfig(encoder_norm=True)),
+               JConfig(model=JModelConfig(encoder_transformer=True)),
+               JConfig(model=JModelConfig(msheath_mini_hc=True))):
+        got = Config.from_json(ok.to_json())
+        assert JConfig.from_json(got.to_json()).model == ok.model
+    for bad in (JConfig(data=JData(pitch_tokens=True)),
+                JConfig(data=JData(harmonics=True))):
         with pytest.raises(ValueError, match="ROADMAP Queue 1 item 9"):
             Config.from_json(bad.to_json())
 
