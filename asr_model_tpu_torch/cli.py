@@ -15,10 +15,17 @@ FAMScheduler2 -> ``train_and_evaluate`` (``--remat``: the backward
 recomputes the forward).  ``--chained-blocks`` feeds each block's output
 to the next, ``--moe-experts N`` / ``--moe-top-k k`` route every block's
 MLP through N experts (the load-balance aux joins the loss).  It runs on
-the card unless ``--device cpu`` is given.  The JAX CLI's flags that
-this port does not implement yet are accepted and refused with the
-ROADMAP item that brings them: ``--mesh-*``, ``--microbatches``,
-``--pitch-tokens`` (with the reason: the JAX package's pitch-token
+the card unless ``--device cpu`` is given.
+
+``--mesh-data/model/seq/expert/pipe`` and ``--microbatches`` run the
+parallel paths (``train/loop.py``), one process a rank, with the JAX
+CLI's checks and messages.  With more than one rank the CLI starts its
+ranks itself (a ``file://`` store in a temporary directory; one card a
+rank over NCCL, or gloo ranks with ``--device cpu``) and returns rank
+0's summary; under ``torchrun`` (WORLD_SIZE in the environment) it
+joins that group instead.  It never runs fewer ranks than the mesh
+holds, nor the CPU where the card is asked for.  ``--pitch-tokens`` is
+accepted and refused with its reason (the JAX package's pitch-token
 model does not run).
 """
 
@@ -26,7 +33,11 @@ from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
+import pickle
+import sys
+import tempfile
 from datetime import datetime
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
@@ -88,24 +99,104 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+MESH = ("data", "model", "seq", "expert", "pipe")
+
+
 def _refuse(args) -> None:
     """The JAX CLI's options this port does not implement yet."""
     from asr_model_tpu_torch.config import PITCH_TOKEN_FAULT, refusal
-    later = [(any(getattr(args, f"mesh_{a}") != 1 for a in
-                  ("data", "model", "seq", "expert", "pipe")),
-              "--mesh-*", 10, None),
-             (args.microbatches != 1, "--microbatches", 10, None),
-             (args.pitch_tokens, "--pitch-tokens", 9, PITCH_TOKEN_FAULT)]
-    for on, flag, item, why in later:
-        if on:
-            raise SystemExit(refusal(flag, item, why))
+    if args.pitch_tokens:
+        raise SystemExit(refusal("--pitch-tokens", 9, PITCH_TOKEN_FAULT))
     if not args.synthetic and not (args.metadata and args.data_dir):
         raise SystemExit("need --metadata/--data-dir or --synthetic N")
 
 
+def _check_mesh(args) -> int:
+    """The JAX CLI's mesh checks, with its messages; returns the ranks."""
+    n = math.prod(getattr(args, f"mesh_{a}") for a in MESH)
+    if n > 1:
+        if args.device is None or args.device.startswith("cuda"):
+            import torch
+            have = torch.cuda.device_count()
+            if have < n:
+                raise SystemExit(
+                    "mesh " + "x".join(str(getattr(args, f"mesh_{a}"))
+                                       for a in MESH)
+                    + f" needs {n} devices, have {have}")
+        if args.batch_size % args.mesh_data != 0:
+            raise SystemExit(
+                f"--batch-size {args.batch_size} must be a multiple of "
+                f"--mesh-data {args.mesh_data}")
+    if args.mesh_expert > 1:
+        if args.moe_experts <= 0:
+            raise SystemExit("--mesh-expert needs --moe-experts > 0")
+        if args.moe_experts % args.mesh_expert:
+            raise SystemExit(
+                f"--moe-experts {args.moe_experts} must be a multiple "
+                f"of --mesh-expert {args.mesh_expert}")
+    if args.mesh_pipe > 1:
+        if not args.chained_blocks:
+            raise SystemExit("--mesh-pipe needs --chained-blocks")
+        if args.layer % args.mesh_pipe:
+            raise SystemExit(
+                f"--layer {args.layer} not divisible by --mesh-pipe "
+                f"{args.mesh_pipe}")
+        if args.batch_size % args.microbatches:
+            raise SystemExit(
+                f"--batch-size {args.batch_size} must be a multiple of "
+                f"--microbatches {args.microbatches}")
+    return n
+
+
+def _rank(rank: int, argv, n: int, store: str, device) -> None:
+    """One spawned rank: join the group, run ``main``; rank 0 leaves its
+    summary in the store directory."""
+    import torch.distributed as dist
+
+    import torch
+
+    from asr_model_tpu_torch.parallel.mesh import initialize_distributed
+    if device is not None and device.startswith("cpu"):
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    initialize_distributed(rank=rank, world_size=n, device=device,
+                           init_method=f"file://{store}/rendezvous")
+    try:
+        summary = main(argv)
+        if rank == 0:
+            summary.pop("model", None)
+            with open(os.path.join(store, "summary.pkl"), "wb") as f:
+                pickle.dump(summary, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(argv, n: int, device) -> dict:
+    """Start the n ranks of the mesh and wait for them."""
+    import torch.multiprocessing as mp
+    if device is not None and device.startswith("cpu"):
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    store = tempfile.mkdtemp(prefix="asr_mesh_")
+    mp.spawn(_rank, args=(argv, n, store, device), nprocs=n, join=True)
+    with open(os.path.join(store, "summary.pkl"), "rb") as f:
+        summary = pickle.load(f)
+    summary["ranks"] = n
+    return summary
+
+
 def main(argv=None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_argparser().parse_args(argv)
     _refuse(args)
+    n_ranks = _check_mesh(args)
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:      # torchrun
+            from asr_model_tpu_torch.parallel.mesh import (
+                initialize_distributed)
+            initialize_distributed(device=args.device)
+        elif n_ranks > 1:
+            return _spawn(argv, n_ranks, args.device)
     from asr_model_tpu_torch.config import (Config, DataConfig, Dimensions,
                                             ModelConfig, OptimConfig,
                                             RunConfig)
@@ -121,6 +212,9 @@ def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     dev = resolve_device(args.device)
+    if dist.is_initialized() and args.device is None:
+        import torch
+        dev = torch.device("cuda", torch.cuda.current_device())
     log_dir = args.log_dir or os.path.join(
         "./logs", datetime.now().strftime("%m-%d_%H_%M_%S"))
     os.makedirs(log_dir, exist_ok=True)
@@ -160,7 +254,11 @@ def main(argv=None) -> dict:
                       log_dir=log_dir, generate=args.generate,
                       train_dtype=args.train_dtype,
                       prefetch_depth=args.prefetch, remat=args.remat,
-                      remat_policy=args.remat_policy))
+                      remat_policy=args.remat_policy,
+                      mesh_data=args.mesh_data, mesh_model=args.mesh_model,
+                      mesh_seq=args.mesh_seq, mesh_expert=args.mesh_expert,
+                      mesh_pipe=args.mesh_pipe,
+                      microbatches=args.microbatches))
 
     if args.synthetic:
         dataset = SyntheticDataset(n=args.synthetic, tokenizer=tokenizer,
@@ -183,10 +281,12 @@ def main(argv=None) -> dict:
         print(f"imported reference state_dict {args.import_reference}")
     summary = train_and_evaluate(model, tokenizer, train_loader, eval_loader,
                                  cfg, resume_from=args.resume)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"Train dataset size: {len(train_ds)}")
-    print(f"Test dataset size: {len(eval_ds)}")
-    print(f"Trainable parameters: {n_params:,}")
+    from asr_model_tpu_torch.parallel.sharding import full_numel
+    n_params = full_numel(model)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"Train dataset size: {len(train_ds)}")
+        print(f"Test dataset size: {len(eval_ds)}")
+        print(f"Trainable parameters: {n_params:,}")
     summary["model"] = model
     return summary
 

@@ -129,7 +129,9 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Training-loop settings, single device.  ``train_dtype``
+    """Training-loop settings.  ``mesh_*`` are the ranks' mesh
+    (``train/loop.py:run_mesh``; ``microbatches`` the GPipe microbatches
+    under ``mesh_pipe``).  ``train_dtype``
     "bfloat16" runs the forward and backward in bf16 over f32 master
     weights and optimizer state; ``prefetch_depth`` collated batches are
     prepared ahead on a worker thread; ``remat`` recomputes the forward
@@ -154,6 +156,12 @@ class RunConfig:
     prefetch_depth: int = 2
     remat: bool = False
     remat_policy: str = "dots"
+    mesh_data: int = 1
+    mesh_model: int = 1
+    mesh_seq: int = 1
+    mesh_expert: int = 1
+    mesh_pipe: int = 1
+    microbatches: int = 1
 
 
 # the JAX package's pitch-token model does not run: its forward raises
@@ -171,13 +179,7 @@ PITCH_TOKEN_FAULT = ("the JAX package's pitch-token forward raises where "
 UNSUPPORTED = (("data", "pitch_tokens", False, 9, PITCH_TOKEN_FAULT),
                ("data", "harmonics", False, 9, None),
                ("data", "aperiodics", False, 9, None),
-               ("data", "phase", False, 9, None),
-               ("run", "mesh_data", 1, 10, None),
-               ("run", "mesh_model", 1, 10, None),
-               ("run", "mesh_seq", 1, 10, None),
-               ("run", "mesh_expert", 1, 10, None),
-               ("run", "mesh_pipe", 1, 10, None),
-               ("run", "microbatches", 1, 10, None))
+               ("data", "phase", False, 9, None))
 
 
 def refusal(what: str, item: int, why) -> str:

@@ -22,6 +22,17 @@ masked softmax's backward) and the plain masked softmax on a CPU one.
 With ``fused``, a whole call goes to ``ops/cuda/xattn.py`` instead
 wherever the JAX package's PALLAS_XATTN gate would route it
 (``Attention._fused_ok``: eval route only, no train mode or generator).
+
+Tensor parallelism (``parallel/sharding.py:shard_params``, ``tp`` the
+``model`` axis): q_proj and kv_proj hold this rank's heads' rows (kv_proj
+its K rows and its V rows), out_proj the matching input columns
+(row-parallel: its partial products summed over the axis, the bias added
+once), so the attention runs on this rank's heads; the head norm's train
+draws are this rank's heads' block of the whole draw.  Under the
+sequence-parallel context (``parallel/seq.py:seq_sharding``) the cached
+cross call attends over this rank's time block of the cached K/V, merged
+over the axis (``seq_sharded_attention``), and no call takes a
+whole-call kernel (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ from asr_model_tpu_torch.models.tlayers import Dense
 from asr_model_tpu_torch.ops.cuda import attention as K
 from asr_model_tpu_torch.ops.cuda import xattn as X
 from asr_model_tpu_torch.ops.cuda.abby import window_size
+from asr_model_tpu_torch.parallel import context as pctx
+from asr_model_tpu_torch.parallel import seq as SP
 
 # the JAX gate's bounds on the K/V elements of a batch row: the cached
 # call holds processed K/V tiles, the full one its whole kv-side chain
@@ -66,6 +79,8 @@ def sdpa(q, k, v, causal: bool = False, kv_valid=None):
 
 
 class Attention(nn.Module):
+    tp = None
+
     def __init__(self, dims: int, head: int, n_type: str,
                  fused: bool = False, device=None, dtype=None):
         super().__init__()
@@ -83,12 +98,21 @@ class Attention(nn.Module):
     def scale(self) -> float:
         return (self.dims // self.head) ** -0.25
 
+    @property
+    def heads(self) -> int:
+        """The heads this rank runs (all of them without ``tp``)."""
+        return self.q_proj.weight.shape[0] // (self.dims // self.head)
+
+    def _hn(self, t):
+        with pctx.draw_blocks(1, self.tp):
+            return self.head_norm(t)
+
     def _q(self, x):
-        return split_heads(self.q_proj(self.q_norm(x)), self.head)
+        return split_heads(self.q_proj(self.q_norm(x)), self.heads)
 
     def _kv(self, x):
         k, v = torch.chunk(self.kv_proj(self.kv_norm(x)), 2, dim=-1)
-        return split_heads(k, self.head), split_heads(v, self.head)
+        return split_heads(k, self.heads), split_heads(v, self.heads)
 
     def precompute_kv(self, xa):
         """Fully processed cross-attention K/V of a fixed source (kv
@@ -97,7 +121,7 @@ class Attention(nn.Module):
         read them copy nothing."""
         k, v = self._kv(xa)
         k = self.rot(k * self.scale, cond=xa, causal=False)
-        return self.head_norm(k).contiguous(), v.contiguous()
+        return self._hn(k).contiguous(), v.contiguous()
 
     # ---- one position at a time (models/generate.py:greedy_decode_stream)
 
@@ -106,14 +130,14 @@ class Attention(nn.Module):
         (B, H, 1, hd)."""
         q = self.rot(self._q(x_t) * self.scale, cond=x_t, causal=causal,
                      offset=pos)
-        return self.head_norm(q)
+        return self._hn(q)
 
     def kv_step(self, src_t, pos: int, causal: bool):
         """(B, 1, D) at position ``pos`` -> (normed rotated key heads,
         raw value heads), each (B, H, 1, hd)."""
         k, v = self._kv(src_t)
         k = self.rot(k * self.scale, cond=src_t, causal=causal, offset=pos)
-        return self.head_norm(k), v
+        return self._hn(k), v
 
     def attend_cached(self, qn, kn, v, kv_valid=None):
         """Attention of processed query heads over processed K/V (a
@@ -127,7 +151,7 @@ class Attention(nn.Module):
         """The JAX package's PALLAS_XATTN gate (``Attention.
         _fused_call_eligible``): AbbyNormal norms, lane-aligned width and
         head width, decode-prefix sizes, bounded K/V per batch row."""
-        return (self.fused and stochastic.eval_route()
+        return (self.fused and stochastic.eval_route() and self.tp is None
                 and isinstance(self.q_norm, AbbyNormal)
                 and self.dims % 128 == 0
                 and (self.dims // self.head) % 128 == 0
@@ -164,19 +188,26 @@ class Attention(nn.Module):
                 cached_kv=None):
         if cached_kv is not None:
             kn, v = cached_kv
-            if self._fused_ok(x, kn.shape[1] * kn.shape[2] * kn.shape[3],
-                              KV_LIMIT_CACHED):
+            sp = SP.active_seq_sharding()
+            if sp is None and self._fused_ok(
+                    x, kn.shape[1] * kn.shape[2] * kn.shape[3],
+                    KV_LIMIT_CACHED):
                 return X.fused_attn_cached(
                     x.contiguous(), kn.to(x.dtype).contiguous(),
                     v.to(x.dtype).contiguous(), kv_valid,
                     self.rot.freqs(False, torch.float32, x.device),
                     **self.fused_kw(x.dtype, full=False))
             q = self.rot(self._q(x) * self.scale, cond=x, causal=False)
-            a = sdpa(self.head_norm(q), kn, v, causal=False,
-                     kv_valid=kv_valid)
+            if sp is not None:
+                a = SP.seq_sharded_attention(self._hn(q), kn, v, sp,
+                                             kv_valid=kv_valid)
+            else:
+                a = sdpa(self._hn(q), kn, v, causal=False,
+                         kv_valid=kv_valid)
             return self.out_proj(merge_heads(a))
         kv_src = xa if xa is not None else x
-        if self._fused_ok(x, kv_src.shape[1] * self.dims, KV_LIMIT_FULL):
+        if SP.active_seq_sharding() is None and self._fused_ok(
+                x, kv_src.shape[1] * self.dims, KV_LIMIT_FULL):
             return X.fused_attn_full(
                 x.contiguous(), kv_src.to(x.dtype).contiguous(), kv_valid,
                 self.rot.freqs(causal, torch.float32, x.device),
@@ -184,6 +215,6 @@ class Attention(nn.Module):
         k, v = self._kv(kv_src)
         q = self.rot(self._q(x) * self.scale, cond=x, causal=causal)
         k = self.rot(k * self.scale, cond=kv_src, causal=causal)
-        a = sdpa(self.head_norm(q), self.head_norm(k), v, causal=causal,
+        a = sdpa(self._hn(q), self._hn(k), v, causal=causal,
                  kv_valid=kv_valid)
         return self.out_proj(merge_heads(a))

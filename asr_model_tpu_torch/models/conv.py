@@ -15,6 +15,11 @@ mode (``stochastic.mode``) each slot is its own pass (BatchNorm's batch
 statistics and running updates per modality, as the reference calls it)
 and dropout draws from the train generator; in eval identical slots
 encode once and slots of one length share one pass.
+``process_feature(x, valid=, pe_override=)`` is one track's stem and
+stack with the rows where ``valid`` (B, T) is False zeroed before every
+padded convolution and ``pe_override`` in place of the sinusoids: the
+sequence-parallel encoder's halo-extended block
+(``parallel/seq.py:sp_encode``).
 """
 
 from __future__ import annotations
@@ -62,6 +67,11 @@ class WeightNormConv1d(nn.Module):
         return y.transpose(-1, -2)
 
 
+def _mask(x, valid):
+    """Zero the rows (B, T, C) where ``valid`` (B, T) is False."""
+    return x if valid is None else x * valid[..., None].to(x.dtype)
+
+
 def glu(x):
     a, b = torch.chunk(x, 2, dim=-1)
     return a * torch.sigmoid(b)
@@ -78,8 +88,8 @@ class ConvLite(nn.Module):
         self.bn = BatchNorm1d(dims, **kw)
         self.point2 = Conv1d(dims, dims, 1, **kw)
 
-    def forward(self, x):
-        y = glu(self.point1(x))
+    def forward(self, x, valid=None):
+        y = _mask(glu(self.point1(x)), valid)
         y = F.silu(self.bn(self.depth(y)))
         return x + dropout(self.point2(y), self.rate)
 
@@ -180,32 +190,37 @@ class AudioEncoder(nn.Module):
         if enc:
             self.encoder_layer = TransformerEncoderLayer(dims, head, **kw)
 
-    def stem(self, x):
+    def stem(self, x, valid=None):
         x = x if x.dim() == 3 else x[None]
-        x = x.transpose(-1, -2)                       # (B, T, C)
+        x = _mask(x.transpose(-1, -2), valid)         # (B, T, C)
         if x.shape[-1] > 1:
             x = self.conv1(x)
             return self.out_norm(x) if self.norm else x
         x = self.conv2(x)
         return self.local_norm(x) if self.norm else x
 
-    def stack(self, x):
+    def stack(self, x, valid=None, pe_override=None):
         act = self.act
         for i in range(self.layer):
-            x = act(x)
+            x = _mask(act(x), valid)         # before the padded wn k3
             x = getattr(self, f"enc{i}_wn")(x)
             x = getattr(self, f"enc{i}_ln")(x)
-            x = getattr(self, f"enc{i}_convlite")(x)
-            x = act(x)
+            x = getattr(self, f"enc{i}_convlite")(x, valid)
+            x = _mask(act(x), valid)         # before the padded dw k3
             x = getattr(self, f"enc{i}_dw")(x)
             x = dropout(act(x), self.rate)
-        pe = sinusoids(x.shape[1], x.shape[-1], self.theta, device=x.device)
+        pe = pe_override if pe_override is not None else sinusoids(
+            x.shape[1], x.shape[-1], self.theta, device=x.device)
         x = x + pe.to(x.dtype)
         if self.norm:
             x = self.out_norm(x)
         if self.enc:
             x = self.encoder_layer(x)
         return x
+
+    def process_feature(self, x, valid=None, pe_override=None):
+        """One (B, C, T) track -> (B, T, dims)."""
+        return self.stack(self.stem(x, valid), valid, pe_override)
 
     def forward(self, xa: dict) -> dict:
         """Encode the a/b/c slots: identical slot tensors once, and every

@@ -114,7 +114,8 @@ class Residual(nn.Module):
         _mlp_fused_eligible``): a dense MLP (no MoE), AbbyNormal ``ln``,
         exact-erf GELU, lane-aligned width, decode-prefix sizes."""
         return (self.fused_mlp and stochastic.eval_route()
-                and self.moe is None and self.act_name == "gelu"
+                and self.moe is None and self.mlp_in.tp is None
+                and self.act_name == "gelu"
                 and isinstance(self.ln, AbbyNormal)
                 and x.dtype in (torch.bfloat16, torch.float32)
                 and self.dims % 128 == 0 and x.numel() <= 400_000)
@@ -347,7 +348,7 @@ class Processor(nn.Module):
         out = g if seq else blend * d + (1 - blend) * g
         if logits_position is not None:
             out = out[:, logits_position:logits_position + 1]
-        logits = self.ln(out) @ self.token.weight.t()
+        logits = self.token.logits(self.ln(out))
         # f32 logits (from bf16 too); a float64 model keeps float64
         return logits.to(torch.promote_types(logits.dtype, torch.float32))
 
@@ -357,22 +358,28 @@ class Processor(nn.Module):
         precomputed here, by each block), or ``xa_kv`` from
         ``precompute_cross`` (the decode's: every block reads it)."""
         x = self.embed(ids)
-        flow = dict(streaming=self.streaming, causal_all=self.causal_all)
         d = g = None
         for blk in self.blocks:
-            if xa_kv is not None:
-                d, g = run_block(blk, x, xa_kv, text_valid=text_valid,
-                                 **flow)
-            elif not stochastic.eval_route():
-                xa_enc = {k: blk(xa[k]) for k in ("a", "b", "c")
-                          if xa.get(k) is not None}
-                d, g = run_block_xa(blk, x, xa_enc, text_valid, **flow)
-            else:
-                kv = self.precompute_cross(self.encode_xa(xa, blk), blk)
-                d, g = run_block(blk, x, kv, text_valid=text_valid, **flow)
+            d, g = self.block_forward(blk, x, xa, text_valid, xa_kv)
             x = g
         return self.logits_head(d, g, seq=seq,
                                 logits_position=logits_position)
+
+    def block_forward(self, blk: Residual, x, xa=None, text_valid=None,
+                      xa_kv=None):
+        """One block's (d, g) on x: against ``xa_kv``, else the training
+        flow off the eval route, else the block's own re-encode and
+        cross K/V of the encoded slots ``xa`` (a pipeline stage runs its
+        blocks through this too)."""
+        flow = dict(streaming=self.streaming, causal_all=self.causal_all)
+        if xa_kv is not None:
+            return run_block(blk, x, xa_kv, text_valid=text_valid, **flow)
+        if not stochastic.eval_route():
+            xa_enc = {k: blk(xa[k]) for k in ("a", "b", "c")
+                      if xa.get(k) is not None}
+            return run_block_xa(blk, x, xa_enc, text_valid, **flow)
+        kv = self.precompute_cross(self.encode_xa(xa, blk), blk)
+        return run_block(blk, x, kv, text_valid=text_valid, **flow)
 
     # ---- the incremental decode of the streaming variant
 

@@ -25,6 +25,15 @@ and MSheath running sums: O(1) work a token besides the attention reads
 of the caches, the same tokens as ``greedy_decode`` on the same model.
 Whether every row has finished is read once every ``STREAM_CHECK``
 positions.
+
+``greedy_decode_sp`` is the sequence-parallel decode of long audio
+(``asr_model_tpu/models/generate.py:greedy_decode_sp``): the encoder
+runs time-split over a mesh axis (``parallel/seq.py:sp_encode``), the
+encoder output is gathered and re-encoded on every rank, each rank
+keeps its time block of the cross K/V, and every cached cross call of
+the decode merges over the axis (``seq_sharding``).  As the JAX
+package's SP decode it runs one full-length ids buffer (no prefix
+buckets).
 """
 
 from __future__ import annotations
@@ -101,13 +110,13 @@ def _start(xa: dict, max_new_tokens: int, prompt=None):
 
 
 def _greedy(model: Model, xa: dict, max_new_tokens: int, suppress_eos: bool,
-            prompt=None):
-    xa_kv = prepare_cross(model, xa)
+            prompt=None, xa_kv=None, buckets: bool = True):
+    xa_kv = prepare_cross(model, xa) if xa_kv is None else xa_kv
     ids, done, T = _start(xa, max_new_tokens, prompt)
     length = 1 if prompt is None else 1 + prompt.shape[-1]
+    sizes = _bucket_sizes(T, _decode_stages()) if buckets else [T]
     # only the buffer widths past the prompt serve a step
-    for s in [s for s in _bucket_sizes(T, _decode_stages()) if s > length] \
-            or [T]:
+    for s in [s for s in sizes if s > length] or [T]:
         if bool(done.all()):
             break
         while length < s:
@@ -139,6 +148,33 @@ def greedy_decode_prompted(model: Model, prompt, spectrogram=None,
     ``greedy_decode``'s tokens."""
     return _greedy(model, modality_slots(pitch, spectrogram, waveform),
                    max_new_tokens, suppress_eos, prompt=prompt.long())
+
+
+@torch.no_grad()
+def greedy_decode_sp(model: Model, mesh, spectrogram=None, pitch=None,
+                     waveform=None, axis: str = "seq",
+                     max_new_tokens: int = 150, suppress_eos: bool = False):
+    """The sequence-parallel greedy decode (module doc), on every rank of
+    ``mesh``'s ``axis`` with the whole features; the feature time axes
+    must divide the axis with blocks of at least the encoder's halo.
+    Returns ``greedy_decode``'s (B, 1 + max_new_tokens) ids, the same on
+    every rank."""
+    from asr_model_tpu_torch.parallel.mesh import block, gather
+    from asr_model_tpu_torch.parallel.seq import seq_sharding, sp_encode
+    ax = mesh.axis(axis)
+    xa = modality_slots(pitch, spectrogram, waveform)
+    enc, by_id = {}, {}
+    for k, v in xa.items():
+        if id(v) not in by_id:          # shared slots encode once
+            by_id[id(v)] = gather(sp_encode(model, v, mesh, axis), 1, ax)
+        enc[k] = by_id[id(v)]
+    proc = model.processor
+    kv = proc.precompute_cross(proc.encode_xa(enc))
+    kv = {k: (block(kn, 2, ax).contiguous(), block(v, 2, ax).contiguous())
+          for k, (kn, v) in kv.items()}
+    with seq_sharding(mesh, axis):
+        return _greedy(model, xa, max_new_tokens, suppress_eos, xa_kv=kv,
+                       buckets=False)
 
 
 def generate_predictions(model: Model, tokenizer=None, spectrogram=None,

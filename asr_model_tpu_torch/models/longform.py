@@ -11,6 +11,11 @@ The counterpart of ``asr_model_tpu/models/longform.py``:
 * each chunk's prompt echo is stripped, its EOS / PAD dropped, and the
   chunks' tokens are joined.
 
+``transcribe_long_sp`` is the sequence-parallel form: no chunks, the
+whole utterance's features zero-padded to a multiple of the mesh axis
+(each block at least the encoder's halo) and decoded once by
+``generate.py:greedy_decode_sp``.
+
 ``features`` is the frontend ``Transcriber`` and the long-form decode
 share: log-mel, the pitch track ("dio": DIO + StoneMask on the device,
 ``ops/dio.py``; "dio_host": the native host DIO + StoneMask of the
@@ -27,7 +32,8 @@ import numpy as np
 import torch
 
 from asr_model_tpu_torch.config import EOS_ID, PAD_ID
-from asr_model_tpu_torch.models.generate import greedy_decode_prompted
+from asr_model_tpu_torch.models.generate import (greedy_decode_prompted,
+                                                 greedy_decode_sp)
 from asr_model_tpu_torch.models.model import Model
 from asr_model_tpu_torch.ops.audio import frame_rate_waveform
 from asr_model_tpu_torch.ops.mel import log_mel_spectrogram
@@ -121,3 +127,33 @@ def transcribe_long(model: Model, audio: np.ndarray, tokenizer=None,
         prompt = out_ids[-carry_tokens:] if carry_tokens else []
     text = tokenizer.decode(out_ids) if tokenizer is not None else None
     return out_ids, text
+
+
+@torch.no_grad()
+def transcribe_long_sp(model: Model, audio: np.ndarray, mesh, tokenizer=None,
+                       sample_rate: int = 16000, hop: int = 160,
+                       axis: str = "seq", max_new_tokens: int = 600,
+                       use_pitch: bool = True, use_waveform: bool = True,
+                       pitch_estimator: str = "dio"):
+    """Single-pass sequence-parallel transcription over ``mesh``'s
+    ``axis`` (every rank of it calls this with the whole audio).
+    Returns (ids, text or None) as ``transcribe_long``."""
+    from asr_model_tpu_torch.parallel.seq import encoder_halo
+    check_pitch_estimator(pitch_estimator)
+    dev, dtype = model.device, next(model.parameters()).dtype
+    mel, pitch, wave = features(
+        torch.from_numpy(np.asarray(audio, np.float32))[None].to(dev),
+        sample_rate, hop, model.dims.mels, dtype,
+        pitch_estimator if use_pitch else None)
+    n = mesh.shape[axis]
+    T = mel.shape[-1]
+    t_local = max((T + n - 1) // n, encoder_halo(model.dims.layer))
+    pad = lambda x: torch.nn.functional.pad(x, (0, t_local * n - x.shape[-1]))
+    ids = greedy_decode_sp(
+        model, mesh, spectrogram=pad(mel),
+        pitch=pad(pitch) if use_pitch else None,
+        waveform=pad(wave) if use_waveform else None, axis=axis,
+        max_new_tokens=max_new_tokens)
+    out = [t for t in ids[0, 1:].tolist() if t not in (PAD_ID, EOS_ID)]
+    text = tokenizer.decode(out) if tokenizer is not None else None
+    return out, text

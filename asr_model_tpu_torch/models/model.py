@@ -48,12 +48,19 @@ def modality_slots(pitch=None, spectrogram=None, waveform=None
     return {k: v for k, v in xa.items() if v is not None}
 
 
-def cross_entropy_ignore_pad(logits, labels, ignore_id: int = 0):
-    """Mean cross entropy over the labels that are not ``ignore_id``."""
+def cross_entropy_sum(logits, labels, ignore_id: int = 0):
+    """(summed cross entropy, count) over the labels that are not
+    ``ignore_id``: a sharded batch sums both over its shards."""
     logp = F.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None])[..., 0]
     mask = (labels != ignore_id).to(logits.dtype)
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -(ll * mask).sum(), mask.sum()
+
+
+def cross_entropy_ignore_pad(logits, labels, ignore_id: int = 0):
+    """Mean cross entropy over the labels that are not ``ignore_id``."""
+    total, count = cross_entropy_sum(logits, labels, ignore_id)
+    return total / torch.clamp(count, min=1.0)
 
 
 class Model(nn.Module):

@@ -23,6 +23,13 @@ e, over every position) is added to the forward's record
 (``stochastic.add_moe_aux``, one scalar a call) where one is open, and
 not computed where none is (a decode); the train step weights it into
 the loss.
+
+Expert parallelism (``parallel/sharding.py:shard_params``): with the
+experts split over the ``expert`` axis (``ep``), a rank runs its block
+of experts on their slots and the combine sums over the axis; within an
+expert the pair keeps the column / row split over ``model`` (``w_out``
+sums its partial products over the axis before its bias).  Under a
+batch sharded over ranks the aux's means are over the whole batch.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import torch.nn.functional as F
 from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.registry import get_activation
 from asr_model_tpu_torch.models.tlayers import Dense, param, uniform_
+from asr_model_tpu_torch.parallel import context as pctx
+from asr_model_tpu_torch.parallel.mesh import psum
 
 
 def expert_capacity(seq_len: int, num_experts: int, top_k: int,
@@ -70,11 +79,16 @@ class StackedDense(nn.Module):
         uniform_(self.kernel, self.in_features, gen)
         uniform_(self.bias, self.in_features, gen)
 
+    tp = None
+    tp_row = False
+
     def forward(self, x):
         """x (B, E, C, in) -> (B, E, C, out), expert e's layer on its
         slots."""
-        return torch.einsum("becd,edh->bech", x, self.kernel) \
-            + self.bias[:, None]
+        y = torch.einsum("becd,edh->bech", x, self.kernel)
+        if self.tp_row:
+            y = psum(y, self.tp)
+        return y + self.bias[:, None]
 
 
 class Experts(nn.Module):
@@ -101,6 +115,7 @@ class MoEMLP(nn.Module):
         self.num_experts, self.top_k = num_experts, top_k
         self.capacity_factor = capacity_factor
         self.router = Dense(dims, num_experts, **kw)
+        self.ep = None
         self.experts = Experts(num_experts, dims, hidden, act, **kw)
 
     def route(self, x):
@@ -123,8 +138,12 @@ class MoEMLP(nn.Module):
         probs, idx, gate, slot, C = self.route(x)
         if stochastic.collects_moe_aux():
             hot = F.one_hot(idx, E).to(torch.float32)
-            stochastic.add_moe_aux(E * torch.sum(
-                hot.mean(dim=(0, 1, 2)) * probs.mean(dim=(0, 1))))
+            if pctx.batch_axis() is None:
+                f, p = hot.mean(dim=(0, 1, 2)), probs.mean(dim=(0, 1))
+            else:
+                f = pctx.global_mean(hot, (0, 1, 2))
+                p = pctx.global_mean(probs, (0, 1))
+            stochastic.add_moe_aux(E * torch.sum(f * p))
 
         keep = slot < C
         dest = idx.reshape(B, T * k) * C + torch.clamp(slot, max=C - 1)
@@ -133,10 +152,16 @@ class MoEMLP(nn.Module):
         rows = x.repeat_interleave(k, dim=1)                 # (B, T k, D)
         expert_in = x.new_zeros(B, E * C + 1, d).scatter(
             1, dest_in[..., None].expand(B, T * k, d), rows)
-        out = self.experts(expert_in[:, :E * C].reshape(B, E, C, d))
-        got = out.reshape(B, E * C, d).gather(
+        n_local = self.experts.w_in.kernel.shape[0]
+        lo = 0 if self.ep is None else self.ep.index * n_local * C
+        out = self.experts(expert_in[:, lo:lo + n_local * C].reshape(
+            B, n_local, C, d)).reshape(B, n_local * C, d)
+        if n_local < E:     # this rank's experts; the others' slots zero
+            out = torch.cat([out.new_zeros(B, lo, d), out, out.new_zeros(
+                B, E * C - lo - n_local * C, d)], dim=1)
+        got = out.gather(
             1, dest[..., None].expand(B, T * k, d))          # (B, T k, D)
         ct = torch.promote_types(x.dtype, torch.float32)
         w = (gate.reshape(B, T * k) * keep).to(x.dtype).to(ct)
         y = (got.to(ct) * w[..., None]).reshape(B, T, k, d).sum(dim=2)
-        return y.to(x.dtype)
+        return psum(y, self.ep).to(x.dtype)

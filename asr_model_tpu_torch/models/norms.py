@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.tlayers import Dense, param
 from asr_model_tpu_torch.ops.cuda import abby as K
+from asr_model_tpu_torch.parallel import context as pctx
 
 
 def window_reduce(x, size: int, kind: str):
@@ -160,8 +161,14 @@ class BatchNorm1d(nn.Module):
         ct = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(ct)
         axes = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=axes)
-        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+        if pctx.batch_axis() is None:
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean,
+                              min=0.0)
+        else:   # the whole sharded batch's statistics
+            mean = pctx.global_mean(xf, axes)
+            var = torch.clamp(pctx.global_mean(xf * xf, axes) - mean * mean,
+                              min=0.0)
         prev = stochastic.batch_stats_of(self) or (self.running_mean,
                                                    self.running_var)
         m = self.momentum

@@ -52,6 +52,7 @@ from asr_model_tpu_torch.models import stochastic
 from asr_model_tpu_torch.models.gates import MPNet
 from asr_model_tpu_torch.models.tlayers import Dense, normal_, param, uniform_
 from asr_model_tpu_torch.ops.cuda import sheath as K
+from asr_model_tpu_torch.parallel import context as pctx
 from asr_model_tpu_torch.utils import l2norm
 
 
@@ -316,13 +317,22 @@ class MSheath(nn.Module):
             apx = K.ranvier(apx, w, idx)
         g_val = torch.sigmoid(px @ pick(w["gate_w"]) + pick(w["gate_b"]))
         x_new = x + g_val * (apx * ion)
+        # the forced-skip potential is a mean over the whole batch; under
+        # a batch sharded over ranks, of every shard (``batch_pmean``)
+        sharded = pctx.batch_axis() is not None
         if streaming:
             mem = causal_mean(x_new, valid)
-            potential = ion[:, 0].mean()
+            potential = (pctx.global_mean(ion[:, 0], (0, 1)) if sharded
+                         else ion[:, 0].mean())
         else:
             mem = masked_mean(x_new, valid, dim=1)
-            potential = (ion.mean() if valid is None else
-                         masked_mean(ion, valid, dim=(0, 1, 2))[0, 0, 0])
+            if not sharded:
+                potential = (ion.mean() if valid is None else masked_mean(
+                    ion, valid, dim=(0, 1, 2))[0, 0, 0])
+            elif valid is None:
+                potential = pctx.global_mean(ion, (0, 1, 2))
+            else:
+                potential = pctx.global_masked_mean(ion, valid)
         mem_v = torch.sigmoid(mem @ w["memgate_w"] + w["memgate_b"])
         mem_w_new = mem_v * mem_w + (1 - mem_v) * mem
         last = i >= L - 1
@@ -356,7 +366,9 @@ class MSheath(nn.Module):
         ``scan_remat``; both routes draw in the same order."""
         b, dev = x.shape[0], x.device
         pooled = x[:, 0] if streaming else masked_mean(x, valid, dim=1)[:, 0]
-        policy_mean = self.pnet(pooled).mean(dim=0)
+        policy = self.pnet(pooled)
+        policy_mean = (policy.mean(dim=0) if pctx.batch_axis() is None
+                       else pctx.global_mean(policy, (0,)))
         gen = stochastic.generator()
         mem_w = self.mem_w.to(x.dtype).expand(b, x.shape[1] if streaming
                                               else 1, self.dims)
@@ -365,8 +377,9 @@ class MSheath(nn.Module):
         stacks = tuple(getattr(self, n) for n in self.slot_params)
         actions = []
         for _step in range(self.layer):
-            noise = (None if gen is None else stochastic.sample_gumbel(
-                policy_mean.shape, gen, policy_mean.dtype))
+            with pctx.whole_draws():     # (3,): one draw for the batch
+                noise = (None if gen is None else stochastic.sample_gumbel(
+                    policy_mean.shape, gen, policy_mean.dtype))
             args = (*carry, x, policy_mean, noise, valid, streaming, *stacks)
             out = (stochastic.checkpoint(self._slot, *args)
                    if stochastic.remat_active() else self._slot(*args))
@@ -375,8 +388,11 @@ class MSheath(nn.Module):
         return carry[0], torch.stack(actions).to(torch.int32), carry[3]
 
     def forward(self, x, valid=None, streaming: bool = False):
-        # the JAX package's kernel gate: eval, not streaming, no mini-HC
-        if not stochastic.eval_route() or (self.mini_hc and not streaming):
+        # the JAX package's kernel gate: eval, not streaming, no mini-HC;
+        # a batch sharded over ranks takes the keyed scan, whose batch
+        # means sum over the shards
+        if (not stochastic.eval_route() or pctx.batch_axis() is not None
+                or (self.mini_hc and not streaming)):
             xs, actions, jstat = self._train_scan(x, valid, streaming)
             stochastic.add_jstat(jstat)
             return self._mlp_tail(xs), {"jstat": jstat, "actions": actions}

@@ -41,6 +41,8 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from asr_model_tpu_torch.parallel import context as pctx
+
 
 class _State(threading.local):
     def __init__(self):
@@ -185,9 +187,11 @@ def add_moe_aux(aux) -> None:
 
 def sample_gumbel(shape, gen, dtype=torch.float32) -> torch.Tensor:
     """Standard Gumbel noise -log(-log(u)), u uniform on [tiny, 1), drawn
-    from ``gen`` on its device (in f32, then cast to ``dtype``)."""
-    u = torch.rand(shape, generator=gen, device=gen.device,
-                   dtype=torch.float32)
+    from ``gen`` on its device (in f32, then cast to ``dtype``); under a
+    sharded forward, this rank's block of the whole batch's draw
+    (``parallel/context.py:draw``)."""
+    u = pctx.draw(shape, lambda s: torch.rand(
+        s, generator=gen, device=gen.device, dtype=torch.float32))
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return (-torch.log(-torch.log(u))).to(dtype)
 

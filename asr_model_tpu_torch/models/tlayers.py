@@ -21,6 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from asr_model_tpu_torch.models import stochastic
+from asr_model_tpu_torch.parallel import context as pctx
+from asr_model_tpu_torch.parallel.mesh import gather, psum
 
 
 def uniform_(t: torch.Tensor, fan_in: int, gen) -> torch.Tensor:
@@ -44,6 +46,13 @@ class Dense(nn.Module):
     the bias bound's width where the reference declares one input width
     and feeds another (the modality router)."""
 
+    # tensor parallelism (``parallel/sharding.py:shard_params``): the
+    # axis this layer's weight is split over; a row-parallel layer holds
+    # a block of the input columns, sums its partial products over the
+    # axis and adds the bias once, after the sum
+    tp = None
+    tp_row = False
+
     def __init__(self, in_features: int, features: int, use_bias=True,
                  bias_fan_in: int | None = None, device=None, dtype=None):
         super().__init__()
@@ -60,6 +69,9 @@ class Dense(nn.Module):
             uniform_(self.bias, self.bias_fan_in, gen)
 
     def forward(self, x):
+        if self.tp_row:
+            y = psum(F.linear(x, self.weight), self.tp)
+            return y if self.bias is None else y + self.bias
         return F.linear(x, self.weight, self.bias)
 
 
@@ -108,7 +120,8 @@ def dropout(x, rate: float):
         raise ValueError("dropout in train mode needs a generator "
                          "(Model.forward(..., gen=))")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = pctx.draw(x.shape, lambda s: torch.rand(
+        s, generator=gen, device=x.device)) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -144,6 +157,12 @@ class Conv1d(nn.Module):
 
 
 class Embed(nn.Module):
+    """A token embedding; under tensor parallelism (``tp``) this rank
+    holds a block of the vocabulary's rows, looks up the ids that fall
+    in it and sums the lookups over the axis."""
+
+    tp = None
+
     def __init__(self, num: int, features: int, device=None, dtype=None):
         super().__init__()
         self.weight = param(num, features, device=device, dtype=dtype)
@@ -152,7 +171,18 @@ class Embed(nn.Module):
         normal_(self.weight, gen)
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight)
+        if self.tp is None:
+            return F.embedding(ids, self.weight)
+        n = self.weight.shape[0]
+        local = ids - self.tp.index * n
+        mine = (local >= 0) & (local < n)
+        e = F.embedding(torch.clamp(local, 0, n - 1), self.weight)
+        return psum(e * mine[..., None].to(e.dtype), self.tp)
+
+    def logits(self, x):
+        """x @ weight^T over the whole vocabulary (the tied output head):
+        the blocks' products gathered along the last axis."""
+        return gather(x @ self.weight.t(), -1, self.tp)
 
 
 def reset_all(module: nn.Module, gen) -> None:

@@ -160,8 +160,15 @@ def restore_model(model, path: str,
     without pitch and waveform has none (flax creates only the modules a
     model runs), and the model keeps its own values there.  Returns (the
     checkpoint's state, its step)."""
-    from asr_model_tpu_torch.weights import from_jax_params
     state = restore_checkpoint(path)
+    return load_model_state(model, state, mono_stem, path), \
+        int(state.get("step", 0))
+
+
+def load_model_state(model, state: dict, mono_stem: bool = True,
+                     path: str = "the state") -> dict:
+    """``restore_model``'s load of an already read ``state``."""
+    from asr_model_tpu_torch.weights import from_jax_params
     sd = from_jax_params(state["params"], state.get("batch_stats") or {})
     own = model.state_dict()
     missing = [k for k in own if k not in sd]
@@ -170,7 +177,7 @@ def restore_model(model, path: str,
         raise KeyError(f"checkpoint {path} lacks {missing}")
     sd.update({k: own[k] for k in missing})
     model.load_state_dict(sd, strict=True)
-    return state, int(state.get("step", 0))
+    return state
 
 
 # ------------------------------------------------------------------ writing

@@ -31,7 +31,16 @@
   and checkpoints, and the TensorBoard scalars under the JAX loop's
   names (``torch.utils.tensorboard`` when it imports, else none); with
   ``log_detail`` also the per-parameter grad norms and spectral
-  entropies.
+  entropies.  With ``RunConfig.mesh_*`` (or in a process group) every
+  rank runs it: ``mesh_pipe`` > 1 the GPipe step over a (data, pipe)
+  mesh (``parallel/pipeline.py``; checkpoints in the JAX package's
+  pipeline layout, the final model unsharded with a fresh optimizer
+  state, as the JAX loop writes them), else the DP / TP / EP step
+  (``parallel/sharding.py``; checkpoints gathered to the unsharded
+  layout).  Every rank reads the whole batch and takes its rows; the
+  eval runs the whole eval batch on every rank (the TP ranks together;
+  a pipeline's stages after the blocks are synced); rank 0 alone writes
+  the checkpoints, the scalars and the prints.
 
 The model's parameters are switched to ``requires_grad`` by
 ``make_train_step``; evaluation runs under ``torch.no_grad`` on the
@@ -66,20 +75,24 @@ logger = logging.getLogger(__name__)
 FEATURE_KEYS = ("spectrogram", "waveform", "pitch")
 
 
-def make_optimizer(cfg: Config, model: Model):
-    """(optimizer, schedule) for ``model``'s parameters."""
+def make_optimizer(cfg: Config, model: Model, named=None):
+    """(optimizer, schedule) for ``model``'s parameters (or for the
+    (name, parameter) pairs ``named``: a pipeline stage's own)."""
     o = cfg.optim
     sched = fam_scheduler2(o.lr, warmup_steps=o.warmup_steps,
                            total_steps=o.total_steps,
                            decay_start=o.decay_start,
                            warmup_start=o.warmup_start, eta_min=o.eta_min)
     layout = jax_layout(model)
-    named = list(model.named_parameters())
+    named = list(model.named_parameters() if named is None else named)
     opt = MaxFactor(bias_groups(named, o.bias, o.jump_bias), lr=sched,
                     b_decay=o.b_decay, eps=tuple(o.eps), d=o.d,
                     decay=o.decay, gamma=o.gamma, maximize=o.maximize,
                     min_lr=o.min_lr, clip=o.clip, cap=o.cap,
-                    layouts={p: layout[n][2] for n, p in named})
+                    # every parameter's layout, so a state read for one
+                    # outside ``named`` (a pipeline checkpoint) is in it
+                    layouts={p: layout[n][2]
+                             for n, p in model.named_parameters()})
     if cfg.run.acc_steps > 1:
         opt = MultiSteps(opt, cfg.run.acc_steps)
     return opt, sched
@@ -135,6 +148,32 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def train_forward(model: Model, batch, gen, compute_dtype=None) -> dict:
+    """The train step's forward (``Model.forward(train=True, gen=)``);
+    with a ``compute_dtype``, through ``torch.func.functional_call`` on
+    casts of the float32 parameters and buffers and of the features."""
+    if compute_dtype is None:
+        return model(batch["text_ids"], **_features(batch), train=True,
+                     gen=gen)
+    cast = {n: t.to(compute_dtype) if t.dtype == torch.float32 else t
+            for n, t in list(model.named_parameters())
+            + list(model.named_buffers())}
+    return torch.func.functional_call(
+        model, cast, (batch["text_ids"],),
+        dict(_features(batch, compute_dtype), train=True, gen=gen))
+
+
+def remat_context(remat_policy: str):
+    """The selective-checkpoint ``context_fn`` of a remat policy."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r} "
+                         f"(one of {REMAT_POLICIES})")
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return (functools.partial(create_selective_checkpoint_contexts,
+                              _dots_policy)
+            if remat_policy == "dots" else None)
+
+
 def make_train_step(model: Model, opt, clip_grad_norm: float = 0.0,
                     compute_dtype: Optional[torch.dtype] = None,
                     remat: bool = False, remat_policy: str = "dots"):
@@ -145,27 +184,12 @@ def make_train_step(model: Model, opt, clip_grad_norm: float = 0.0,
     (the casts of the compute dtype included), for callers that time or
     differentiate it on its own.  ``remat`` (module doc) changes no
     value: the recompute replays the forward's generator draws."""
-    if remat_policy not in REMAT_POLICIES:
-        raise ValueError(f"unknown remat_policy {remat_policy!r} "
-                         f"(one of {REMAT_POLICIES})")
-    from torch.utils.checkpoint import create_selective_checkpoint_contexts
-    context = (functools.partial(create_selective_checkpoint_contexts,
-                                 _dots_policy)
-               if remat_policy == "dots" else None)
+    context = remat_context(remat_policy)
     model.requires_grad_(True)
     params = list(model.parameters())
 
     def loss_fn(batch, gen):
-        if compute_dtype is None:
-            out = model(batch["text_ids"], **_features(batch), train=True,
-                        gen=gen)
-        else:
-            cast = {n: t.to(compute_dtype) if t.dtype == torch.float32
-                    else t for n, t in list(model.named_parameters())
-                    + list(model.named_buffers())}
-            out = torch.func.functional_call(
-                model, cast, (batch["text_ids"],),
-                dict(_features(batch, compute_dtype), train=True, gen=gen))
+        out = train_forward(model, batch, gen, compute_dtype)
         loss = cross_entropy_ignore_pad(out["logits"], batch["labels"])
         if model.cfg.moe_experts > 0:
             # the MoE calls' load-balance aux, weighted into the loss
@@ -324,11 +348,44 @@ def default_writer(log_dir: str):
     return SummaryWriter(log_dir=log_dir)
 
 
-def restore_training(model: Model, opt, path: str, gen=None) -> int:
+def run_mesh(run):
+    """(mesh or None, whether it is a pipeline's) from RunConfig.mesh_*:
+    a (data, pipe) mesh where mesh_pipe > 1, a (data, model, seq,
+    expert) mesh where another axis is > 1 or a process group is up
+    (one rank goes through the sharded code), else None."""
+    import torch.distributed as dist
+
+    from asr_model_tpu_torch.parallel.mesh import make_mesh, make_pipe_mesh
+    if run.mesh_pipe > 1:
+        return make_pipe_mesh(pipe=run.mesh_pipe, data=run.mesh_data), True
+    n = run.mesh_data * run.mesh_model * run.mesh_seq * run.mesh_expert
+    if n > 1 or (dist.is_available() and dist.is_initialized()):
+        return make_mesh(data=run.mesh_data, model=run.mesh_model,
+                         seq=run.mesh_seq, expert=run.mesh_expert), False
+    return None, False
+
+
+def restore_training(model: Model, opt, path: str, gen=None,
+                     pipeline: bool = False) -> int:
     """Load a checkpoint (the port's or the JAX loop's) into the model,
     the optimizer and (when it holds one) the generator; returns its
-    step."""
-    state, step = ckpt.restore_model(model, path, mono_stem=False)
+    step.  A sharded model takes it whole and keeps its blocks;
+    ``pipeline``: the checkpoint is in the pipeline layout."""
+    from asr_model_tpu_torch.parallel.sharding import unsharded
+    with unsharded(model):
+        return _restore(model, opt, path, gen, pipeline)
+
+
+def _restore(model, opt, path, gen, pipeline):
+    if pipeline:
+        from asr_model_tpu_torch.parallel import pipeline as PP
+        state = ckpt.restore_checkpoint(path)
+        state["params"] = PP.from_pipeline_params(state["params"])
+        state["opt_state"] = PP.from_pipeline_opt_state(state["opt_state"])
+        ckpt.load_model_state(model, state, mono_stem=False, path=path)
+        step = int(state.get("step", 0))
+    else:
+        state, step = ckpt.restore_model(model, path, mono_stem=False)
     ckpt.load_opt_state(opt, model, state["opt_state"])
     if gen is not None and "rng" in state:
         gen.set_state(torch.from_numpy(np.asarray(state["rng"],
@@ -347,21 +404,61 @@ def train_and_evaluate(model: Model, tokenizer, train_loader: Iterable,
     eval's WER and loss).  ``log_detail`` adds the gradient diagnostics
     (``make_grad_diagnostics``) at every log step."""
     run = cfg.run
+    mesh, pipe = run_mesh(run)
+    rank0 = mesh is None or mesh.rank == 0
     os.makedirs(run.checkpoint_dir, exist_ok=True)
-    with open(os.path.join(run.checkpoint_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
-    writer = writer if writer is not None else default_writer(run.log_dir)
+    if rank0:
+        with open(os.path.join(run.checkpoint_dir, "config.json"),
+                  "w") as f:
+            f.write(cfg.to_json())
+    writer = writer if writer is not None else (
+        default_writer(run.log_dir) if rank0 else NullWriter())
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(run.seed)
-    opt, sched = make_optimizer(cfg, model)
+    if pipe:
+        from asr_model_tpu_torch.parallel import pipeline as PP
+        if run.mesh_model != 1 or run.mesh_seq != 1 or run.mesh_expert != 1:
+            raise ValueError("mesh_pipe composes with mesh_data only (got "
+                             f"mesh_model={run.mesh_model} mesh_seq="
+                             f"{run.mesh_seq} mesh_expert={run.mesh_expert})")
+        PP.check_pipeline(model, mesh, run.microbatches, run.batch_size)
+        opt, sched = make_optimizer(cfg, model,
+                                    named=PP.stage_params(model, mesh))
+    else:
+        if mesh is not None:
+            from asr_model_tpu_torch.parallel.sharding import shard_params
+            if run.batch_size % run.mesh_data:
+                raise ValueError(f"batch_size {run.batch_size} must divide "
+                                 f"mesh_data {run.mesh_data}")
+            shard_params(model, mesh)
+        opt, sched = make_optimizer(cfg, model)
     global_step = 0
     if resume_from:
-        global_step = restore_training(model, opt, resume_from, gen)
+        global_step = restore_training(model, opt, resume_from, gen,
+                                       pipeline=pipe)
         logger.info("restored checkpoint at step %d from %s", global_step,
                     resume_from)
-    train_step = make_train_step(model, opt, run.clip_grad_norm,
-                                 train_compute_dtype(run), run.remat,
-                                 run.remat_policy)
+    compute = train_compute_dtype(run)
+    if pipe:
+        train_step = PP.make_pp_train_step(
+            model, opt, mesh, run.microbatches, run.clip_grad_norm, compute,
+            run.remat)
+    elif mesh is not None:
+        from asr_model_tpu_torch.parallel.sharding import (
+            make_sharded_train_step)
+        train_step = make_sharded_train_step(
+            model, opt, mesh, run.clip_grad_norm, compute, run.remat,
+            run.remat_policy)
+    else:
+        train_step = make_train_step(model, opt, run.clip_grad_norm,
+                                     compute, run.remat, run.remat_policy)
+
+    def saved_state(step: int) -> dict:
+        from asr_model_tpu_torch.parallel.sharding import unsharded
+        if pipe:
+            return PP.pipeline_training_state(model, opt, mesh, step, gen)
+        with unsharded(model):
+            return ckpt.training_state(model, opt, step, gen)
     eval_step = make_eval_step(model)
     grad_diag = make_grad_diagnostics(model) if log_detail else None
 
@@ -379,11 +476,25 @@ def train_and_evaluate(model: Model, tokenizer, train_loader: Iterable,
 
     def pull():
         nonlocal it
-        try:
-            return next(it)
-        except StopIteration:
-            it = iter(loader)
-            return next(it)
+        skipped = 0
+        while True:
+            try:
+                b = next(it)
+            except StopIteration:
+                it = iter(loader)
+                b = next(it)
+            rows = len(b["text_ids"])
+            # the pipeline's fixed microbatch grid skips a ragged batch,
+            # as the JAX loop does
+            if not pipe or (rows % run.microbatches == 0 and (
+                    rows // run.microbatches) % run.mesh_data == 0):
+                return b
+            skipped += 1
+            if skipped > 1000:
+                raise ValueError(
+                    "every batch is ragged for the pipeline grid "
+                    f"(microbatches={run.microbatches} x "
+                    f"data={run.mesh_data}); fix batch_size")
 
     batch = pull() if global_step < run.max_steps else None
     while global_step < run.max_steps:
@@ -423,6 +534,8 @@ def train_and_evaluate(model: Model, tokenizer, train_loader: Iterable,
                    and global_step % run.eval_interval == 0) \
             or global_step == run.max_steps - 1
         if do_eval:
+            if pipe:
+                PP.sync_blocks(model, mesh)
             eval_start = time.time()
             eval_loss, n_eval, batches = 0.0, 0, 0
             all_p, all_l = [], []
@@ -446,25 +559,34 @@ def train_and_evaluate(model: Model, tokenizer, train_loader: Iterable,
                               ("EvalTimeSeconds", time.time() - eval_start)):
                 writer.add_scalar(name, val, global_step)
             summary.update(eval_wer=metrics["wer"], eval_loss=loss_avg)
-            print(f"EVALUATION STEP:{global_step} • "
-                  f"samp:{samples_per_sec:.1f} • "
-                  f"WER:{metrics['wer']:.2f}% • Loss:{loss_avg:.4f} • "
-                  f"LR:{sched(global_step):.8f}", flush=True)
+            if rank0:
+                print(f"EVALUATION STEP:{global_step} • "
+                      f"samp:{samples_per_sec:.1f} • "
+                      f"WER:{metrics['wer']:.2f}% • Loss:{loss_avg:.4f} • "
+                      f"LR:{sched(global_step):.8f}", flush=True)
 
         if run.save_interval > 0 and global_step > 0 \
                 and global_step % run.save_interval == 0:
-            ckpt.save_model_checkpoint(
-                run.checkpoint_dir, global_step,
-                ckpt.training_state(model, opt, global_step, gen))
+            state = saved_state(global_step)
+            if rank0:
+                ckpt.save_model_checkpoint(run.checkpoint_dir, global_step,
+                                           state)
         global_step += 1
     # stop the prefetch worker (a closed pass joins it) before the
     # caller reads what it counts, such as the mel launches
     getattr(it, "close", lambda: None)()
 
     if run.save_interval > 0:
-        ckpt.save_checkpoint(
-            os.path.join(run.checkpoint_dir, "final_model.msgpack"),
-            ckpt.training_state(model, opt, global_step, gen))
+        if pipe:    # the unsharded layout, with a fresh optimizer state
+            PP.sync_blocks(model, mesh)
+            state = ckpt.training_state(
+                model, make_optimizer(cfg, model)[0], global_step, gen)
+        else:
+            state = saved_state(global_step)
+        if rank0:
+            ckpt.save_checkpoint(
+                os.path.join(run.checkpoint_dir, "final_model.msgpack"),
+                state)
     summary["step"] = global_step
     logger.info("Training completed after %d steps.", global_step)
     writer.close()

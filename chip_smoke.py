@@ -28,7 +28,7 @@
    (ModelConfig fused_attention, fused_mlp, fused_router) also the
    whole-call attention, residual-MLP and router kernels.  Each path
    must launch exactly its kernels and run no plain version; each
-   prints its RTFx (median of 3 timed runs), decode ms per step and the
+   prints its RTFx (median of 2 timed runs), decode ms per step and the
    device kernels of one decode step at width 65 (torch.profiler), where
    the kernels of each wrapper in ``PROFILED`` the profiler sees must be
    the launches the wrapper counted.  Then the same weights as a
@@ -50,7 +50,7 @@
    against its plain version (exactly) at 8 x 1001 and 1 x 3001 frames
    and the card's DIO + StoneMask against the port's CPU route, then the
    serve path: ``transcribe_batch`` on the 8 x 10 s tones (DIO pitch on
-   the card, 64 tokens, EOS not suppressed; RTFx the median of 3),
+   the card, 64 tokens, EOS not suppressed; RTFx the median of 2),
    ``__call__`` with beam 4, ``transcribe_long`` on 62 s (3 chunks, 32
    tokens each); it must launch exactly mel, flash, fused_abby,
    fused_sheath_scan and dio_contour and no plain version, and each
@@ -81,7 +81,7 @@
    the call, bf16 then f32, while the process is fresh: PERF.md §6),
    then step ms (median of 2, step 0 the warm-up), utterances and audio
    seconds per wall second, peak memory, one step's launches and device
-   ms (torch.profiler), and 10 steps on the batch (finite, the loss
+   ms (torch.profiler), and 5 steps on the batch (finite, the loss
    falling); then the training CLI (16 synthetic utterances, 4 steps of
    8, bf16, DIO on the host, eval, a checkpoint read back and a resumed
    run). The path must launch mel and flash (and the eval's kernels on
@@ -108,7 +108,7 @@
    (top 2, capacity factor 1.25) with the encoder's norm and transformer
    layer (``CHAINED_MOE``) served through ``Transcriber`` (bf16, DIO,
    the 8 x 10 s tones, 64 tokens: exactly the serve path's kernels;
-   RTFx the median of 3, decode ms a step, one step's launches and
+   RTFx of one timed run, decode ms a step, one step's launches and
    device ms), its first decode step against the plain route in f32
    (6e-5) and in bf16 (read and printed, every value finite:
    ``bf16_route_reading``'s note), once more with the fused fields on
@@ -116,12 +116,32 @@
    its train step 0 bf16 (loss) and f32 (loss and grad norm, with the
    witness) on the tones cut to 2.55 s, then one timed f32 step (step
    ms, peak memory, the MoE aux term of its forward), one profiled
-   (launches, device ms) and 5 more (the loss falling); MSheath's
+   (launches, device ms) and 3 more (the loss falling); MSheath's
    mini-HC paths as a module (``minihc_module``: no ModelConfig field
    builds them, as in the JAX package): its eval forward in f32 and bf16
    and its train gradients in f32 on the card against the CPU's, with
    no ``fused_sheath_scan`` launch (the JAX gate excludes mini-HC).
-8. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
+8. Parallelism (``parallel_path``, f32): at one rank over NCCL (what a
+   user of many cards runs on each) the DP x TP train step at data 1 x
+   model 1 through the sharded code (step 0 against the one-device step
+   0 of 6: loss within ``TRAIN_TOL``, grad norm within its witness
+   limit), ``transcribe_long_sp`` on the 62 s tones at seq 1 with the
+   fused fields (64 tokens; its ids equal to ``greedy_decode``'s on the
+   same padded features; exactly the serve path's kernels and the MLP
+   and router kernels: the SP context takes no whole-call attention
+   kernel) and the pipeline at pipe 1 on the chained flagship (dropout
+   0, noise-free, 4 of the 2.55 s tones): 1 microbatch against the
+   one-device step (1e-4), then 2 microbatches; then two gloo ranks on the one card (gloo takes
+   all_reduce on CUDA tensors, not send / recv, so the halo exchange
+   and the pipeline's hops stay at one rank): TP 2 and DP 2 on the 8 x
+   10 s batch against 6's step 0, EP 2 on the chained MoE against the
+   variants' step 0 (the same gates).  Each run prints its ranks and
+   backend, step ms (the DP x TP step's of a timed step; the pipeline's
+   and the gloo ranks' of step 0) or RTFx, and its launches by kernel,
+   and must
+   launch flash (the SP run: the serve path's kernels, the MLP's and
+   the router's) and no plain version.
+9. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
    path), the card line, and as its last line ``{"ok": true, "device":
    {...}}``.
 
@@ -1533,7 +1553,7 @@ def step_profile(model, audio, ids, stream: bool = False, feats=None):
             seen)
 
 
-def drive_path(model, audio, label: str, expect, runs: int = 3,
+def drive_path(model, audio, label: str, expect, runs: int = 2,
                stream: bool = False, step_expect=None):
     """One decode path: a warm-up, the counted run (every kernel in
     ``expect`` launched, no other, no plain version), ``runs`` timed runs,
@@ -1842,7 +1862,7 @@ def serve_path(model, audio):
           f"{len(l_ids)} tokens, the transcript the decode of its ids")
 
     batch_ms = [host_ms(lambda: t.transcribe_batch(wavs), runs=1)
-                for _ in range(3)]
+                for _ in range(2)]
     rtfx = BATCH * UTT_SEC / (float(np.median(batch_ms)) / 1e3)
     beam_ms = host_ms(lambda: t(wavs[0], beam_size=4), runs=1)
     long_ms = host_ms(lambda: t.transcribe_long(long_wav, **long_kw),
@@ -1865,8 +1885,8 @@ def serve_path(model, audio):
         f = feats if name == "dio" else yin
         dec[name].append(host_ms(lambda: greedy_decode(
             model, **f, max_new_tokens=NEW_TOKENS), runs=1))
-    log(f"serve path: RTFx {rtfx:.3f} (median of 3 transcribe_batch runs of "
-        + ", ".join(f"{m:.1f}" for m in batch_ms) + f" ms, {BATCH} x "
+    log(f"serve path: RTFx {rtfx:.3f} (median of {len(batch_ms)} "
+        "transcribe_batch runs of " + ", ".join(f"{m:.1f}" for m in batch_ms) + f" ms, {BATCH} x "
         f"{UTT_SEC:.0f} s, {NEW_TOKENS} new tokens); beam 4 on one "
         f"utterance {beam_ms:.1f} ms; transcribe_long {LONG_SEC:.0f} s "
         f"{long_ms:.1f} ms (RTFx {LONG_SEC / long_ms * 1e3:.3f})")
@@ -2327,7 +2347,7 @@ def train_step0(batch_np, dt_name: str, label: str, extra=None,
 
 
 def train_path(batch_np, dt_name: str, label: str, step0: dict,
-               extra=None, steps: int = 10, timed: int = 2,
+               extra=None, steps: int = 5, timed: int = 2,
                profiler=None):
     """The train step on the flagship (dropout and gumbel draws from a
     seeded generator) after ``train_step0``'s gate (``step0``): step 0,
@@ -2868,7 +2888,7 @@ CHAINED_MOE = dict(chained_blocks=True, moe_experts=8, moe_top_k=2,
 # batch's shape; four chained blocks at the 10 s tones would hold about
 # four times the one block's 18 GiB of f32 activations), the timed
 # steps and the f32 steps after them
-VARIANT_SEC, VARIANT_TIMED, VARIANT_STEPS = 2.55, 1, 5
+VARIANT_SEC, VARIANT_TIMED, VARIANT_STEPS = 2.55, 1, 3
 # the fused kernels the fused variant launches; the MoE MLP never takes
 # the fused MLP (the JAX gate refuses an MoE block)
 CHAINED_MOE_FUSED = ("fused_attn_cached", "fused_attn_full",
@@ -2890,7 +2910,7 @@ def variant_serve(model, audio, label: str, expect) -> dict:
     """``Transcriber`` on a variant (bf16, DIO pitch on the card, 64 new
     tokens): the counted ``transcribe_batch`` must launch exactly
     ``expect`` and no plain version, its transcripts be the decode of
-    its ids; RTFx (median of 3), decode ms a step (the 64-step decode
+    its ids; RTFx (one timed run), decode ms a step (the 64-step decode
     with EOS suppressed less its prepare, over 64) and one step's
     launches and device ms at width 65."""
     import torch
@@ -2924,8 +2944,7 @@ def variant_serve(model, audio, label: str, expect) -> dict:
           and texts == tok.batch_decode(ids.tolist()),
           f"{label} serve: {BATCH} transcripts, each the tokenizer's "
           f"decode of its ids; first: {texts[0][:60]!r}")
-    batch_ms = [host_ms(lambda: t.transcribe_batch(wavs), runs=1)
-                for _ in range(3)]
+    batch_ms = [host_ms(lambda: t.transcribe_batch(wavs), runs=1)]
     rtfx = BATCH * UTT_SEC / (float(np.median(batch_ms)) / 1e3)
     slots = modality_slots(feats["pitch"], feats["spectrogram"],
                            feats["waveform"])
@@ -2934,8 +2953,8 @@ def variant_serve(model, audio, label: str, expect) -> dict:
                                         max_new_tokens=NEW_TOKENS), runs=1)
     step_ms = (dec - prep) / NEW_TOKENS
     n, dev_ms, copies, top, _ = step_profile(model, audio, ids, feats=feats)
-    log(f"{label} serve: RTFx {rtfx:.3f} (median of 3 transcribe_batch "
-        "runs of " + ", ".join(f"{m:.1f}" for m in batch_ms) + f" ms); "
+    log(f"{label} serve: RTFx {rtfx:.3f} (one timed transcribe_batch "
+        "run of " + ", ".join(f"{m:.1f}" for m in batch_ms) + f" ms); "
         f"encode + re-encode + cross K/V {prep:.3f} ms; decode "
         f"{step_ms:.3f} ms per step; one step at width 65: {n} kernel "
         f"launches ({dev_ms:.3f} ms of device time), {copies} copies/"
@@ -3157,6 +3176,257 @@ def variants_path(paths: dict, rel: dict) -> None:
     paths["mini_hc_module"] = minihc_module()
 
 
+# ---------------------------------------------------------------------------
+# parallelism (parallel/): one rank over NCCL, and two gloo ranks on the
+# one card
+
+PAR_TOKENS = 64              # the SP long-form decode's budget
+PP_ROWS = 4                  # the pipeline runs' batch
+PAR_RANKS = 2                # gloo ranks sharing the card
+
+
+def _par_step(step, batch, gen, timed: int = 1):
+    """(loss, gnorm, jstat, step ms) of a train step's first call and the
+    median ms of ``timed`` more (with none, the first call's)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, gn, js = step(batch, gen)
+    out = (float(loss), float(gn), js.tolist())
+    times = [] if timed else [(time.perf_counter() - t0) * 1e3]
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(batch, gen)[0])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out + (float(np.median(times)),)
+
+
+def _par_case(extra, mesh_kw, batch_np, dev, timed: int = 1):
+    """One sharded f32 train step case on the flagship (or a variant)
+    from seed 0, the step's generator from seed 0: step 0's loss, grad
+    norm and jump counter, ``timed`` timed steps (none: step 0's ms),
+    the kernel counts of them all."""
+    import torch
+    from asr_model_tpu_torch.config import Config, Dimensions, ModelConfig
+    from asr_model_tpu_torch.models.model import Model
+    from asr_model_tpu_torch.ops import cuda as kernels
+    from asr_model_tpu_torch.parallel.mesh import make_mesh
+    from asr_model_tpu_torch.parallel.sharding import (
+        make_sharded_train_step, shard_params)
+    from asr_model_tpu_torch.train.loop import device_batch, make_optimizer
+    kernels.reset_counts()
+    m = Model(Dimensions(), ModelConfig(**extra), device=dev, seed=0)
+    mesh = make_mesh(**mesh_kw)
+    shard_params(m, mesh)
+    step = make_sharded_train_step(m, make_optimizer(Config(), m)[0], mesh)
+    g = torch.Generator(device=dev).manual_seed(0)
+    loss, gn, js, ms = _par_step(step, device_batch(batch_np, dev), g,
+                                 timed)
+    out = dict(loss0=loss, gnorm0=gn, jstat0=js, step_ms=ms,
+               counts=kernels.counts(),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    del m, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _par_rank(rank, store, cases, out_path):
+    """A gloo rank on the card (``parallel_path``): each case in turn,
+    rank 0's readings written to ``out_path``."""
+    sys.path.insert(0, ROOT)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from asr_model_tpu_torch.ops.cuda import build
+    from asr_model_tpu_torch.parallel.mesh import initialize_distributed
+    build.library()
+    # as ``main`` sets it: no TF32 in the f32 products and convolutions
+    # (cuDNN's default takes TF32, and its choice moves with the batch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = initialize_distributed(rank=rank, world_size=PAR_RANKS,
+                                 init_method=f"file://{store}/gloo",
+                                 device="cuda:0", backend="gloo")
+    got = {}
+    for name, extra, mesh_kw, batch_np in cases:
+        t0 = time.perf_counter()
+        # step 0's ms: through gloo on one card the time is the host's
+        got[name] = _par_case(extra, mesh_kw, batch_np, dev, timed=0)
+        got[name]["wall_s"] = time.perf_counter() - t0
+        got[name]["backend"] = dist.get_backend()
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(got, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _par_gate(label, got, ref, rel_limit=None):
+    """Step 0's loss (``TRAIN_TOL``) and grad norm (``rel_limit``, the
+    reference's witness limit) against the one-device step's."""
+    tol = TRAIN_TOL["f32"]
+    rl = abs(got["loss0"] - ref["loss0"]) / abs(ref["loss0"])
+    rg = abs(got["gnorm0"] - ref["gnorm0"]) / abs(ref["gnorm0"])
+    limit = ref.get("gnorm0_limit") if rel_limit is None else rel_limit
+    check(bool(np.isfinite([got["loss0"], got["gnorm0"]]).all())
+          and rl <= tol and rg <= limit,
+          f"{label} step 0 against the one-device step: loss "
+          f"{got['loss0']:.6f} / {ref['loss0']:.6f} (rel {rl:.2e}, "
+          f"tolerance {tol:g}), grad norm {got['gnorm0']:.4f} / "
+          f"{ref['gnorm0']:.4f} (rel {rg:.2e}, limit {limit:.2e}), jstat "
+          f"{got.get('jstat0')}")
+    return dict(rel_loss0=rl, rel_gnorm0=rg)
+
+
+def parallel_path(paths: dict, rel: dict, batch_np, step0: dict) -> None:
+    """The ``parallel`` phase (module doc, 8): one rank over NCCL (the
+    DP x TP step at data 1 x model 1, ``transcribe_long_sp`` at seq 1,
+    the pipeline at pipe 1 with 2 microbatches), then ``PAR_RANKS``
+    gloo ranks on the card (TP 2, DP 2, EP 2 on ``CHAINED_MOE``); each
+    run's counts go into ``paths``."""
+    import pickle
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from asr_model_tpu_torch.config import Config, Dimensions, ModelConfig
+    from asr_model_tpu_torch.models.generate import greedy_decode
+    from asr_model_tpu_torch.models.longform import (features,
+                                                     transcribe_long_sp)
+    from asr_model_tpu_torch.models.model import Model
+    from asr_model_tpu_torch.ops import cuda as kernels
+    from asr_model_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                   make_mesh, make_pipe_mesh)
+    from asr_model_tpu_torch.parallel.pipeline import (make_pp_train_step,
+                                                       stage_params)
+    from asr_model_tpu_torch.parallel.seq import encoder_halo
+    from asr_model_tpu_torch.train.loop import (device_batch, make_optimizer,
+                                                make_train_step)
+    store = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    initialize_distributed(rank=0, world_size=1, device=DEV,
+                           init_method=f"file://{store}/nccl")
+    log(f"parallel: 1 rank, backend {dist.get_backend()}")
+    # the DP x TP step at data 1 x model 1 (the sharded code, one rank)
+    got = _par_case({}, {}, batch_np, DEV)
+    rel["parallel_dp_tp_1"] = _par_gate("DP x TP step (data 1 x model 1, "
+                                        "NCCL)", got, step0["f32"])
+    _check_counts("DP x TP step (data 1 x model 1)", got["counts"],
+                  ("flash_attention",))
+    log(f"DP x TP step (1 rank, nccl): step {got['step_ms']:.1f} ms, "
+        f"peak {got['peak_gib']:.2f} GiB, hand kernels "
+        f"{_launches(got['counts'])}")
+    paths["parallel_dp_tp_1"] = got
+    # sequence-parallel long-form at seq 1, f32, with the fused fields
+    # (the decode's MLPs and routers through their kernels; the SP
+    # context takes neither whole-call attention kernel, as in JAX); the
+    # ids held exactly to greedy_decode's on the same padded features
+    model = flagship(True, torch.float32)
+    mesh = make_mesh(seq=1)
+    wav = tones(1, LONG_SEC)[0]
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, _ = transcribe_long_sp(model, wav, mesh, max_new_tokens=PAR_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    mel, pitch, wave = features(torch.from_numpy(wav)[None].to(DEV), SR,
+                                HOP, model.dims.mels, torch.float32, "dio")
+    T = mel.shape[-1]
+    t_pad = max(T, encoder_halo(model.dims.layer))
+    pad = lambda x: torch.nn.functional.pad(x, (0, t_pad - x.shape[-1]))
+    want = greedy_decode(model, spectrogram=pad(mel), pitch=pad(pitch),
+                         waveform=pad(wave), max_new_tokens=PAR_TOKENS)
+    want = [t for t in want[0, 1:].tolist() if t not in (0, 2)]
+    check(ids == want, f"transcribe_long_sp (seq 1, f32, {LONG_SEC:g} s, "
+          f"{PAR_TOKENS} tokens): {len(ids)} ids equal to greedy_decode's "
+          "on the same padded features")
+    _check_counts("transcribe_long_sp (seq 1)", counts, kernels.SERVE_PATH
+                  + ("fused_mlp_residual", "fused_router_same"))
+    paths["parallel_sp_1"] = dict(counts=counts, wall_s=wall,
+                                  rtfx=LONG_SEC / wall, ids_n=len(ids))
+    log(f"transcribe_long_sp (1 rank, nccl): {wall * 1e3:.1f} ms for "
+        f"{LONG_SEC:g} s, RTFx {LONG_SEC / wall:.2f}, hand kernels "
+        f"{_launches(counts)}")
+    del model
+    torch.cuda.empty_cache()
+    # the pipeline at pipe 1: 1 microbatch held to the one-device step
+    # (noise-free, dropout 0: the same function), 2 microbatches timed
+    short = train_batch(torch.from_numpy(tones(BATCH, VARIANT_SEC)).to(DEV))
+    # the pipeline's runs on 4 of them (2 microbatches of 2 rows)
+    batch = device_batch({k: v[:PP_ROWS] for k, v in short.items()}, DEV)
+    chained = dict(chained_blocks=True, dropout=0.0)
+    reads = {}
+    for label, micro in (("one-device", 0), ("pp_m1", 1), ("pp_m2", 2)):
+        m = Model(Dimensions(), ModelConfig(**chained), device=DEV, seed=0)
+        if micro:
+            pmesh = make_pipe_mesh(pipe=1)
+            step = make_pp_train_step(m, make_optimizer(
+                Config(), m, named=stage_params(m, pmesh))[0], pmesh, micro)
+        else:
+            step = make_train_step(m, make_optimizer(Config(), m)[0])
+        kernels.reset_counts()
+        loss, gn, js, ms = _par_step(step, batch, None, timed=0)
+        reads[label] = dict(loss0=loss, gnorm0=gn, jstat0=js, step_ms=ms,
+                            counts=kernels.counts())
+        del m, step
+        torch.cuda.empty_cache()
+    rel["parallel_pp_m1"] = _par_gate(
+        "pipeline (pipe 1, 1 microbatch, noise-free)", reads["pp_m1"],
+        reads["one-device"], rel_limit=1e-4)
+    for label in ("pp_m1", "pp_m2"):
+        _check_counts(f"pipeline {label}", reads[label]["counts"],
+                      ("flash_attention",))
+    check(bool(np.isfinite([reads["pp_m2"]["loss0"],
+                            reads["pp_m2"]["gnorm0"]]).all()),
+          f"pipeline (pipe 1, 2 microbatches) loss "
+          f"{reads['pp_m2']['loss0']:.4f}, grad norm "
+          f"{reads['pp_m2']['gnorm0']:.4f} finite")
+    log(f"pipeline (1 rank, nccl; chained flagship, {PP_ROWS} x "
+        f"{VARIANT_SEC:g} s): 2 microbatches, step 0 "
+        f"{reads['pp_m2']['step_ms']:.1f} ms (the first call, "
+        f"allocations included); hand kernels "
+        f"{_launches(reads['pp_m2']['counts'])}")
+    paths["parallel_pp_1"] = reads["pp_m2"]
+    dist.destroy_process_group()
+    # PAR_RANKS gloo ranks on the one card (NCCL takes one rank a card;
+    # gloo takes all_reduce on CUDA tensors, not send / recv: the halo
+    # exchange and the pipeline's hops run at one rank above)
+    torch.cuda.empty_cache()
+    cases = [("tp2", {}, dict(model=2), batch_np),
+             ("dp2", {}, dict(data=2), batch_np),
+             ("ep2", CHAINED_MOE, dict(expert=2), short)]
+    out_path = os.path.join(store, "ranks.pkl")
+    t0 = time.perf_counter()
+    mp.spawn(_par_rank, args=(store, cases, out_path), nprocs=PAR_RANKS,
+             join=True)
+    with open(out_path, "rb") as f:
+        ranks = pickle.load(f)
+    log(f"parallel: {PAR_RANKS} ranks on one card, backend "
+        f"{ranks['tp2']['backend']}, {time.perf_counter() - t0:.1f} s")
+    refs = {"tp2": step0["f32"], "dp2": step0["f32"],
+            "ep2": paths["chained_moe_train"]}
+    what = {"tp2": "TP 2 (model 2)", "dp2": "DP 2 (data 2)",
+            "ep2": "EP 2 (expert 2, chained MoE, 8 x 2.55 s)"}
+    for name, got in ranks.items():
+        rel[f"parallel_{name}"] = _par_gate(
+            f"{what[name]} step ({PAR_RANKS} gloo ranks)", got, refs[name])
+        _check_counts(f"{what[name]} step", got["counts"],
+                      ("flash_attention",))
+        log(f"{what[name]} ({PAR_RANKS} ranks, gloo, one card): step 0 "
+            f"{got['step_ms']:.1f} ms, rank 0 peak {got['peak_gib']:.2f} "
+            f"GiB, hand kernels {_launches(got['counts'])}")
+        paths[f"parallel_{name}"] = got
+
+
+def _launches(counts) -> dict:
+    return {n: c["launches"] for n, c in counts.items() if c["launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3197,7 +3467,8 @@ def main() -> int:
     batch_np = train_batch(audio)
     features = kernels.counts()
     kernels.reset_counts()
-    step0 = {"bf16": train_step0(batch_np, "bf16", "train step bf16")}
+    step0 = {"bf16": train_step0(batch_np, "bf16", "train step bf16",
+                                 witness=False)}
     kernels.reset_counts()
     step0["f32"] = train_step0(batch_np, "f32", "train step f32")
     for name, c in features.items():
@@ -3265,7 +3536,7 @@ def main() -> int:
     stream_only = ("flash_attention", "fused_abby")
     mlp_router = ("fused_mlp_residual", "fused_router_same")
     paths["stream"] = drive_path(stream, audio, "stream",
-                                 kernels.DEFAULT_PATH, runs=2, stream=True,
+                                 kernels.DEFAULT_PATH, runs=1, stream=True,
                                  step_expect=stream_only)
     paths["stream_fused"] = drive_path(
         stream_fused, audio, "stream+fused", kernels.DEFAULT_PATH
@@ -3347,6 +3618,10 @@ def main() -> int:
     # module
     variants_path(paths, rel)
     phase_done("model variants")
+
+    # parallelism: one rank over NCCL, then two gloo ranks on the card
+    parallel_path(paths, rel, batch_np, step0)
+    phase_done("parallel")
 
     for k in kern:
         by_path = {p: r["counts"][k["name"]]["launches"]

@@ -288,10 +288,11 @@ def test_cli_trains_on_cpu(tmp_path):
         assert not events
 
 
-# --remat, --metadata, --import-reference and the model variants' flags
-# are ported: without a data source they exit as the JAX CLI does
+# --remat, --metadata, --import-reference, --mesh-* and the model
+# variants' flags are ported: without a data source they exit as the JAX
+# CLI does
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh-data", "2"], "item 10"),
+    (["--mesh-data", "2"], "--metadata/--data-dir or --synthetic"),
     (["--remat"], "--metadata/--data-dir or --synthetic"),
     (["--moe-experts", "2"], "--metadata/--data-dir or --synthetic"),
     (["--metadata", "m.csv"], "--metadata/--data-dir or --synthetic"),
