@@ -43,6 +43,11 @@ from datetime import datetime
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
 
+def default_tokenizer_path() -> str:
+    """The port's own tokenizer, ``assets/tokenizer.json``."""
+    return os.path.join(ASSETS, "tokenizer.json")
+
+
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("asr_model_tpu_torch")
     p.add_argument("--metadata", type=str, default=None)
@@ -219,7 +224,7 @@ def main(argv=None) -> dict:
         "./logs", datetime.now().strftime("%m-%d_%H_%M_%S"))
     os.makedirs(log_dir, exist_ok=True)
     tokenizer = setup_tokenizer(args.tokenizer
-                                or os.path.join(ASSETS, "tokenizer.json"))
+                                or default_tokenizer_path())
     if args.tokens < tokenizer.get_vocab_size():
         raise SystemExit(
             f"--tokens {args.tokens} is smaller than the tokenizer vocab "

@@ -93,11 +93,17 @@ class DataConfig:
     trained on, which the frontend must compute too: "dio" (DIO +
     StoneMask: the native host code for training features, the device
     code when serving), "dio_host" (the native host code everywhere) or
-    "yin"."""
+    "yin".  ``harmonics``, ``aperiodics`` and ``phase`` are read and
+    written and, as in the JAX package, no path reads them (its CLI and
+    the port's featurise with them off, and the collator feeds none of
+    them to the model)."""
 
     spectrogram: bool = True
     pitch: bool = True
     waveform: bool = True
+    harmonics: bool = False
+    aperiodics: bool = False
+    phase: bool = False
     pitch_estimator: str = "dio"
     hop_length: int = 160
     sample_rate: int = 16000
@@ -176,10 +182,7 @@ PITCH_TOKEN_FAULT = ("the JAX package's pitch-token forward raises where "
 # reference options the port does not implement yet: (section, field,
 # the default the port runs, the ROADMAP Queue 1 item that brings it,
 # why, or None)
-UNSUPPORTED = (("data", "pitch_tokens", False, 9, PITCH_TOKEN_FAULT),
-               ("data", "harmonics", False, 9, None),
-               ("data", "aperiodics", False, 9, None),
-               ("data", "phase", False, 9, None))
+UNSUPPORTED = (("data", "pitch_tokens", False, 9, PITCH_TOKEN_FAULT),)
 
 
 def refusal(what: str, item: int, why) -> str:

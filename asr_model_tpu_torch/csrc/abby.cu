@@ -51,6 +51,9 @@
 // a time, and the cv and the tail read the rows from device memory.
 // Windows of up to 51 taps (D <= 1024) run from registers, wider ones
 // (103 at D = 2048, 205 at 4096, any) from the row.
+// Past the width whose staged slices fit a block (about 59,000 in bf16)
+// the global route below runs the same function in three launches
+// (asr_abby_global).
 // x is read once per CTA of the cluster (from L2 after the first) and
 // written once; the (N, D) hidden never reaches device memory.
 #include "abby_cluster.cuh"
@@ -104,6 +107,98 @@ ASR_API int asr_fused_abby(int dtype, const void* x, const void* w1,
                               alpha, k, beta, st);
   return launch_abby<bf16>(dtype, x, w1, b1, w2, b2, out, N, D, size, alpha,
                            k, beta, st);
+}
+
+// ---------------------------------------------------------------------
+// The global route, past the width whose staged W2 and b1 slices fit a
+// block (abby_smem_bytes > 232448: D past 59,392 in bf16, 92,160 in
+// f32).  The same function in three launches, every row in device
+// memory: h = silu(x W1^T + b1) rounded to the storage type
+// (linear_rows, CUDA-core products in full f32, into `hbuf`), then a
+// warp a row takes the router logits h W2^T + b2, the row's cv
+// (abby_row_cv) and the route (the first maximum, into `choice`), then a
+// thread per 8 channels of a row runs the tail over windows read from
+// the row in L2 (abby_tail8_wide).  What bounds it: the router product
+// (2 N D^2), whose D^2 weights dominate the bytes at these widths.
+template <typename T>
+__global__ void __launch_bounds__(256)
+abby_global_route(const T* __restrict__ x, const T* __restrict__ h,
+                  const T* __restrict__ w2, const T* __restrict__ b2,
+                  int* __restrict__ choice, int N, int D) {
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.x * 8 + threadIdx.x / 32;
+  if (r >= N) return;
+  const T* hr = h + (size_t)r * D;
+  float lg[3] = {0.0f, 0.0f, 0.0f};
+  for (int j = lane; j < D; j += 32) {
+    const float hv = to_f32(hr[j]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      lg[c] = fmaf(hv, to_f32(w2[(size_t)c * D + j]), lg[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) lg[c] = warp_sum(lg[c]);
+  const float cv = abby_row_cv(x + (size_t)r * D, D, lane);
+  if (lane == 0) {
+    int best = 0;
+    float bv = lg[0] + to_f32(b2[0]) + cv;
+    for (int c = 1; c < 3; ++c) {
+      const float v = lg[c] + to_f32(b2[c]) + cv;
+      if (v > bv) {
+        bv = v;
+        best = c;
+      }
+    }
+    choice[r] = best;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+abby_global_tail(const T* __restrict__ x, const int* __restrict__ choice,
+                 const T* __restrict__ res, T* __restrict__ out, int D,
+                 int size, float alpha, float k, float beta) {
+  const int r = blockIdx.x;
+  const int j0 = 8 * (blockIdx.y * 256 + threadIdx.x);
+  if (j0 >= D) return;
+  const size_t o = (size_t)r * D;
+  abby_tail8_wide(x + o, j0, D, size, choice[r], alpha, k, beta, out + o,
+                  res ? res + o : nullptr);
+}
+
+template <typename T>
+static int launch_abby_global(const void* x, const void* w1, const void* b1,
+                              const void* w2, const void* b2, const void* res,
+                              void* out, void* hbuf, int* choice, int N,
+                              int D, int size, float alpha, float k,
+                              float beta, cudaStream_t st) {
+  launch_linear_rows<T, LIN_SILU>(x, w1, b1, hbuf, N, D, D, st);
+  abby_global_route<T><<<(N + 7) / 8, 256, 0, st>>>(
+      (const T*)x, (const T*)hbuf, (const T*)w2, (const T*)b2, choice, N, D);
+  abby_global_tail<T><<<dim3(N, ((D + 7) / 8 + 255) / 256), 256, 0, st>>>(
+      (const T*)x, choice, (const T*)res, (T*)out, D, size, alpha, k, beta);
+  return (int)cudaGetLastError();
+}
+
+// x, out, res (or null): (N, D); weights as asr_fused_abby's; hbuf (N, D)
+// of the dtype and choice (N) ints of device memory from the caller.
+// Any D >= 2, N <= 65535 * 32.  Three launches.
+ASR_API int asr_abby_global(int dtype, const void* x, const void* w1,
+                            const void* b1, const void* w2, const void* b2,
+                            const void* res, void* out, void* hbuf,
+                            void* choice, int N, int D, int size,
+                            float alpha, float k, float beta, void* stream) {
+  if (D < 2 || N > 65535 * AB_ROWS || size < 1 || !hbuf || !choice)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == ASR_F32)
+    return launch_abby_global<float>(x, w1, b1, w2, b2, res, out, hbuf,
+                                     (int*)choice, N, D, size, alpha, k,
+                                     beta, st);
+  return launch_abby_global<bf16>(x, w1, b1, w2, b2, res, out, hbuf,
+                                  (int*)choice, N, D, size, alpha, k, beta,
+                                  st);
 }
 
 // the dynamic shared memory and the cluster size asr_fused_abby uses

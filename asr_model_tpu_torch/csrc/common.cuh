@@ -115,7 +115,7 @@ __device__ void gemm_rows16(const float* A, int lda, int K, const TW* w,
 // shared memory (f32 of the storage values), LIN_KCH columns at a time
 // (once, for K <= LIN_KCH), and W streams through gemm_rows16.  Shared
 // floats: linear_rows_smem_floats(K).
-enum LinearEpilogue { LIN_NONE = 0, LIN_GELU = 1 };
+enum LinearEpilogue { LIN_NONE = 0, LIN_GELU = 1, LIN_SILU = 2 };
 constexpr int LIN_KCH = 2048;
 
 __host__ __device__ constexpr int linear_rows_smem_floats(int K) {
@@ -160,6 +160,7 @@ linear_rows(const T* __restrict__ a, const T* __restrict__ w,
     if (r >= N) continue;
     float v = acc[i] + b;
     if (EPI == LIN_GELU) v = gelu_erf(v);
+    if (EPI == LIN_SILU) v = siluf_(v);
     out[(size_t)r * Nout + n] = from_f32<T>(v);
   }
 }

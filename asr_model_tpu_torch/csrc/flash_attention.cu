@@ -54,12 +54,15 @@
 // at a time in shared memory (201 KB at hd 512); in bf16 P is rounded for
 // the PV product as above; causal key tiles past a block's last row are
 // skipped unless a row of it sees no valid key.  One launch.
+// Past hd 1024 (either dtype): global_attn.cuh, three launches through an
+// f32 score matrix in device memory (asr_flash_attention_global).
 // f32: flash_fwd_kernel keeps the CUDA cores.  TF32 would keep about
 // three digits, and the f32 route is held at 1e-4 (kernel tests) and at
 // 6e-5 of the largest logit (the first decode step), so the products
 // stay in full f32: one block per (b * h, 64-query tile) looping over
 // 32-key tiles, 4 rows x 8 channels of the output per thread.
 #include "mma.cuh"
+#include "global_attn.cuh"
 
 constexpr int FA_BQ = 64;   // query rows per block
 constexpr int FA_BK = 32;   // keys per tile (f32)
@@ -878,4 +881,30 @@ ASR_API int asr_flash_attention(int dtype, const void* q, const void* k,
   if (hd <= 64) FA_TC(64, 4);
   FA_TC(128, 4);
 #undef FA_TC
+}
+
+// Head widths past FA_WIDE_HD, either dtype: scores, softmax and P v as
+// three launches (global_attn.cuh) through `scores`, B H Tq Tk f32 of
+// device memory.  q, k, v, out and kv_valid as asr_flash_attention's;
+// B H <= 65535.
+ASR_API int asr_flash_attention_global(int dtype, const void* q,
+                                       const void* k, const void* v,
+                                       const void* kv_valid, void* out,
+                                       void* scores, int B, int H, int Tq,
+                                       int Tk, int hd, float scale,
+                                       int causal, void* stream) {
+  if (hd < 1 || Tk < 1 || !scores || (long)B * H > 65535 ||
+      (Tq + GL_T - 1) / GL_T > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (B * H == 0 || Tq == 0) return 0;
+  const GlStrides qs{(long)H * Tq * hd, (long)Tq * hd, hd};
+  const GlStrides ks{(long)H * Tk * hd, (long)Tk * hd, hd};
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(dtype == ASR_F32
+                   ? gl_attention<float>(q, qs, k, ks, v, ks, kv_valid, out,
+                                         qs, (float*)scores, B, H, Tq, Tk,
+                                         hd, scale, causal, st)
+                   : gl_attention<bf16>(q, qs, k, ks, v, ks, kv_valid, out,
+                                        qs, (float*)scores, B, H, Tq, Tk, hd,
+                                        scale, causal, st));
 }

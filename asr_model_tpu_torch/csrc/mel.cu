@@ -480,6 +480,109 @@ ASR_API int asr_mel_dft_frames(int n_fft, int hop) {
   return mel_dft_frames(n_fft, hop);
 }
 
+// ---------------------------------------------------------------------
+// Past the direct DFT's shared memory (mel_dft_frames 0: one frame and
+// its power no longer fit a block, n_fft past about 38,700): the same
+// sums over device memory, two launches.  mel_dft_global_power: a thread
+// a frequency bin of MG_TF frames (a block 256 bins of a frame group),
+// the frames' samples read from the waveform in L2 (every thread of a
+// block reads the same sample: a broadcast), the twiddle carried by a
+// complex product per sample and read afresh from the table every
+// MG_ANCHOR samples (the product's rounding stays below 1e-5), the power
+// into `pw` (B, T, nf) f32 of device memory; mel_dft_global_bands: a
+// thread a (mel, frame), the filter's nonzero band over pw.  What bounds
+// it: the DFT's n_fft operations a bin, n_fft^2 / 2 a frame (the direct
+// sum, as the Pallas kernel's basis products), far above its bytes.
+constexpr int MG_TF = 8;          // frames a block
+constexpr int MG_ANCHOR = 32;     // samples between twiddle table reads
+
+__global__ void __launch_bounds__(MEL_THREADS)
+mel_dft_global_power(const float* __restrict__ audio,
+                     const float* __restrict__ win,
+                     const float2* __restrict__ tw, float* __restrict__ pw,
+                     int N, int T, int hop, int n_fft) {
+  const int nf = n_fft / 2 + 1;
+  const int k = blockIdx.x * MEL_THREADS + threadIdx.x;
+  const int f0 = blockIdx.y * MG_TF, b = blockIdx.z;
+  if (k >= nf) return;
+  const int nfr = min(MG_TF, T - f0);
+  const long s0 = (long)f0 * hop - n_fft / 2;
+  const float* xb = audio + (size_t)b * N;
+  const float2 step = __ldg(tw + k);        // exp(-2 pi i k / n_fft)
+  float re[MG_TF], im[MG_TF];
+#pragma unroll
+  for (int f = 0; f < MG_TF; ++f) re[f] = im[f] = 0.0f;
+  float2 w = make_float2(1.0f, 0.0f);
+  int idx = 0;                               // k n mod n_fft
+  for (int n = 0; n < n_fft; ++n) {
+    if (n % MG_ANCHOR == 0) w = __ldg(tw + idx);
+    const float wn = __ldg(win + n);
+#pragma unroll
+    for (int f = 0; f < MG_TF; ++f) {
+      const long i = s0 + (long)f * hop + n;
+      const float xv =
+          f < nfr && i >= 0 && i < N ? __ldg(xb + i) * wn : 0.0f;
+      re[f] = fmaf(xv, w.x, re[f]);
+      im[f] = fmaf(xv, w.y, im[f]);
+    }
+    const float wx = fmaf(w.x, step.x, -w.y * step.y);
+    w.y = fmaf(w.x, step.y, w.y * step.x);
+    w.x = wx;
+    idx += k;
+    if (idx >= n_fft) idx -= n_fft;
+  }
+#pragma unroll
+  for (int f = 0; f < MG_TF; ++f)
+    if (f < nfr)
+      pw[((size_t)b * T + f0 + f) * nf + k] = re[f] * re[f] + im[f] * im[f];
+}
+
+__global__ void __launch_bounds__(MEL_THREADS)
+mel_dft_global_bands(const float* __restrict__ pw,
+                     const int* __restrict__ band,
+                     const float* __restrict__ bw, float* __restrict__ out,
+                     int T, int nf, int n_mels) {
+  const long e = (long)blockIdx.x * MEL_THREADS + threadIdx.x;
+  const int b = blockIdx.y;
+  if (e >= (long)n_mels * T) return;
+  const int m = (int)(e / T), f = (int)(e % T);
+  const int lo = band[3 * m], len = band[3 * m + 1], off = band[3 * m + 2];
+  const float* p = pw + ((size_t)b * T + f) * nf + lo;
+  float s = 0.0f;
+  for (int i = 0; i < len; ++i) s = fmaf(p[i], bw[off + i], s);
+  out[((size_t)b * n_mels + m) * T + f] = s;
+}
+
+// The global route: audio, win, tw, band, bw, out as
+// asr_mel_spectrogram_dft's; pw (B, T, n_fft / 2 + 1) f32 of device
+// memory.  Any n_fft >= 2, any n_mels >= 1, B <= 65535.  Two launches.
+ASR_API int asr_mel_spectrogram_global(const void* audio, const void* win,
+                                       const void* tw, const void* band,
+                                       const void* bw, void* out, void* pw,
+                                       int B, int N, int hop, int n_fft,
+                                       int n_mels, void* stream) {
+  if (n_mels < 1 || hop < 1 || n_fft < 2 || !pw)
+    return (int)cudaErrorInvalidValue;
+  const int T = 1 + (N + 2 * (n_fft / 2) - n_fft) / hop;
+  if (B == 0 || T < 1) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  const int nf = n_fft / 2 + 1;
+  cudaStream_t st = (cudaStream_t)stream;
+  mel_dft_global_power<<<dim3((nf + MEL_THREADS - 1) / MEL_THREADS,
+                              (T + MG_TF - 1) / MG_TF, B),
+                         MEL_THREADS, 0, st>>>(
+      (const float*)audio, (const float*)win, (const float2*)tw, (float*)pw,
+      N, T, hop, n_fft);
+  mel_dft_global_bands<<<dim3((unsigned)(((long)n_mels * T + MEL_THREADS - 1) /
+                                         MEL_THREADS),
+                              B),
+                         MEL_THREADS, 0, st>>>((const float*)pw,
+                                               (const int*)band,
+                                               (const float*)bw, (float*)out,
+                                               T, nf, n_mels);
+  return (int)cudaGetLastError();
+}
+
 // audio: (B, N) f32; band: (n_mels, 3) int32 (first bin, length, offset
 // into bw); bw: the filters' nonzero weights, packed; out: (B, n_mels,
 // T) f32 with T = 1 + (N + 2 (n_fft / 2) - n_fft) / hop (1 + N / hop for

@@ -33,7 +33,21 @@
 // take the same launches with CUDA-core products (gemm_rows16, full f32:
 // TF32 would not hold the f32 route's 1e-4).  h0 .. h3 (N x 6D values)
 // stay in the L2.
+// Past the kernels' shared-memory plans, two more routes (either dtype):
+//   more than MLP_MAX_NT gates: the types in a launch of their own (a
+//   block a row, logits and softmax in device memory), then the gates on
+//   the CUDA cores with the gates' pointers and the types read from
+//   device memory (mlp_gates_many): six launches;
+//   a D whose norms' staged slices do not fit a block (past 59,392 in
+//   bf16): each norm as asr_abby_global's three launches (abby.cu), the
+//   second adding the residual.
 #include "abby_cluster.cuh"
+
+ASR_API int asr_abby_global(int dtype, const void* x, const void* w1,
+                            const void* b1, const void* w2, const void* b2,
+                            const void* res, void* out, void* hbuf,
+                            void* choice, int N, int D, int size,
+                            float alpha, float k, float beta, void* stream);
 
 // TGate types: 8 columns of each gate a tensor-core CTA at 12
 // (mlp_gate_cols)
@@ -292,6 +306,122 @@ mlp_gates(const T* __restrict__ h0, const T* __restrict__ cs_w,
   }
 }
 
+// past MLP_MAX_NT gates: types = softmax(h0 cs^T + cs_b) of one row a
+// block, in device memory (tys: N x nt f32), a warp a type's logit
+template <typename T>
+__global__ void __launch_bounds__(256)
+mlp_types_many(const T* __restrict__ h0, const T* __restrict__ cs_w,
+               const T* __restrict__ cs_b, float* __restrict__ tys, int D,
+               int nt) {
+  __shared__ float red[8];
+  const int r = blockIdx.x, t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const T* hr = h0 + (size_t)r * D;
+  float* ty = tys + (size_t)r * nt;
+  for (int c = warp; c < nt; c += 8) {
+    float s = 0.0f;
+    for (int j = lane; j < D; j += 32)
+      s += to_f32(hr[j]) * to_f32(cs_w[(size_t)c * D + j]);
+    s = warp_sum(s);
+    if (lane == 0) ty[c] = s + to_f32(cs_b[c]);
+  }
+  __syncthreads();
+  float mx = -INFINITY;
+  for (int c = t; c < nt; c += 256) mx = fmaxf(mx, ty[c]);
+  mx = warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = red[0];
+  for (int w = 1; w < 8; ++w) mx = fmaxf(mx, red[w]);
+  __syncthreads();
+  float z = 0.0f;
+  for (int c = t; c < nt; c += 256) {
+    const float e = expf(ty[c] - mx);
+    ty[c] = e;
+    z += e;
+  }
+  z = warp_sum(z);
+  if (lane == 0) red[warp] = z;
+  __syncthreads();
+  z = 0.0f;
+  for (int w = 0; w < 8; ++w) z += red[w];
+  for (int c = t; c < nt; c += 256) ty[c] = ty[c] / z;
+}
+
+// past MLP_MAX_NT gates, one (16-row tile, 64-column slice) on the CUDA
+// cores: h1 = sum_i sigmoid(h0 G_i^T + g_i) * types_i with the gates'
+// pointers in device memory (gw[i], gw[nt + i]) and the types from
+// mlp_types_many, h0 MLP_GKCH columns at a time
+template <typename T>
+__global__ void __launch_bounds__(256)
+mlp_gates_many(const T* __restrict__ h0, const void* const* __restrict__ gw,
+               const float* __restrict__ tys, T* __restrict__ h1, int N,
+               int D, int nt) {
+  extern __shared__ float smem[];
+  const int kch = min(D, MLP_GKCH);
+  float* xs = smem;                          // [16][kch]: h0
+  float* wt = xs + GEMM_ROWS * kch;
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * GEMM_ROWS, n0 = blockIdx.y * GEMM_NT;
+  const int n = n0 + t % GEMM_NT;
+  auto stage = [&](int k0, int kc) {
+    for (int e = t; e < GEMM_ROWS * kc; e += blockDim.x) {
+      const int r = e / kc, j = e % kc;
+      xs[e] = (r0 + r < N) ? to_f32(h0[(size_t)(r0 + r) * D + k0 + j])
+                           : 0.0f;
+    }
+    __syncthreads();
+  };
+  if (D <= MLP_GKCH) stage(0, D);
+  float hsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < nt; ++i) {
+    const T* w = (const T*)gw[i];
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k0 = 0; k0 < D; k0 += MLP_GKCH) {
+      const int kc = min(MLP_GKCH, D - k0);
+      if (D > MLP_GKCH) stage(k0, kc);
+      float part[4];
+      gemm_rows16<T, false>(xs, kc, kc, w + k0, D, n0, D, wt, part);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) acc[ii] += part[ii];
+    }
+    const float gb = n < D ? to_f32(((const T*)gw[nt + i])[n]) : 0.0f;
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int r = r0 + 4 * (t / GEMM_NT) + ii;
+      const float ty = r < N ? tys[(size_t)r * nt + i] : 0.0f;
+      hsum[ii] += sigmoidf_(acc[ii] + gb) * ty;
+    }
+  }
+  if (n >= D) return;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int r = r0 + 4 * (t / GEMM_NT) + ii;
+    if (r < N) h1[(size_t)r * D + n] = from_f32<T>(hsum[ii]);
+  }
+}
+
+// the norms' launches: the cluster kernel where its plan fits a block,
+// else asr_abby_global (hbuf (N, D) of the dtype, choice N ints)
+template <typename T>
+static int mlp_norm_launch(int dtype, const void* x, const void* w1,
+                           const void* b1, const void* w2, const void* b2,
+                           const void* res, void* out, void* hbuf,
+                           void* choice, int N, int D, int size, float alpha,
+                           float k, float beta, int vec, cudaStream_t st) {
+  if (abby_smem_bytes(dtype, D) > 232448)
+    return asr_abby_global(dtype, x, w1, b1, w2, b2, res, out, hbuf, choice,
+                           N, D, size, alpha, k, beta, st);
+  const int S = abby_cluster_size(D);
+  void (*norm)(const T*, const T*, const T*, const T*, const T*, const T*,
+               T*, int, int, int, float, float, float, int) =
+      abby_wide(D) ? mlp_norm<T, true> : mlp_norm<T, false>;
+  return (int)launch_clusters(
+      norm, dim3(S, (N + AB_ROWS - 1) / AB_ROWS, 1), S,
+      abby_smem_bytes(dtype, D), st, (const T*)x, (const T*)w1,
+      (const T*)b1, (const T*)w2, (const T*)b2, (const T*)res, (T*)out, N,
+      D, size, alpha, k, beta, vec);
+}
+
 template <typename T>
 static int launch_mlp(int dtype, const void* x, const void* ln_w1,
                       const void* ln_b1, const void* ln_w2,
@@ -299,23 +429,30 @@ static int launch_mlp(int dtype, const void* x, const void* ln_w1,
                       const MlpGates& gates, int nt, const void* in_w,
                       const void* in_b, const void* out_w, const void* out_b,
                       void* out, void* h0, void* h1, void* h2, void* h3,
+                      const void* const* dev_gates, float* tys, void* choice,
                       bool tc, int N, int D, int H, int size, float alpha,
                       float k, float beta, cudaStream_t st) {
-  const int S = abby_cluster_size(D);
-  const dim3 grid_n(S, (N + AB_ROWS - 1) / AB_ROWS, 1);
-  const size_t smem_n = abby_smem_bytes(dtype, D);
   const int vx = D % 8 == 0 && ((uintptr_t)x | (uintptr_t)ln_w1) % 16 == 0;
   const int vh = D % 8 == 0 && ((uintptr_t)h3 | (uintptr_t)ln_w1) % 16 == 0;
-  void (*norm)(const T*, const T*, const T*, const T*, const T*, const T*,
-               T*, int, int, int, float, float, float, int) =
-      abby_wide(D) ? mlp_norm<T, true> : mlp_norm<T, false>;
-  cudaError_t e = launch_clusters(
-      norm, grid_n, S, smem_n, st, (const T*)x, (const T*)ln_w1,
-      (const T*)ln_b1, (const T*)ln_w2, (const T*)ln_b2, (const T*)nullptr,
-      (T*)h0, N, D, size, alpha, k, beta, vx);
-  if (e != cudaSuccess) return (int)e;
+  // h1 is free until the gates write it: the global norm's hidden
+  int rc = mlp_norm_launch<T>(dtype, x, ln_w1, ln_b1, ln_w2, ln_b2, nullptr,
+                              h0, h1, choice, N, D, size, alpha, k, beta, vx,
+                              st);
+  if (rc) return rc;
 
-  if (tc) {
+  if (nt > MLP_MAX_NT) {
+    mlp_types_many<T><<<N, 256, 0, st>>>((const T*)h0, (const T*)cs_w,
+                                         (const T*)cs_b, tys, D, nt);
+    const size_t smem_g =
+        sizeof(float) * (GEMM_ROWS * (D < MLP_GKCH ? D : MLP_GKCH) +
+                         GEMM_WT_FLOATS);
+    cudaFuncSetAttribute(mlp_gates_many<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_g);
+    mlp_gates_many<T><<<dim3((N + GEMM_ROWS - 1) / GEMM_ROWS,
+                             (D + GEMM_NT - 1) / GEMM_NT), 256, smem_g, st>>>(
+        (const T*)h0, dev_gates, tys, (T*)h1, N, D, nt);
+  } else if (tc) {
     const int rt = (N + MLP_ROWS - 1) / MLP_ROWS;
     const size_t smem_g = mlp_gates_tc_smem();
     const int sw = mlp_gate_cols(nt);
@@ -324,6 +461,20 @@ static int launch_mlp(int dtype, const void* x, const void* ln_w1,
                          (int)smem_g);
     mlp_gates_tc<<<dim3(rt, (D + sw - 1) / sw), 256, smem_g, st>>>((const bf16*)h0, (const bf16*)cs_w,
                          (const bf16*)cs_b, gates, (bf16*)h1, N, D, nt);
+  } else {
+    const size_t smem_g =
+        sizeof(float) * (GEMM_ROWS * (D < MLP_GKCH ? D : MLP_GKCH) +
+                         GEMM_WT_FLOATS + GEMM_ROWS * MLP_MAX_NT);
+    cudaFuncSetAttribute(mlp_gates<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_g);
+    mlp_gates<T><<<dim3((N + GEMM_ROWS - 1) / GEMM_ROWS,
+                        (D + GEMM_NT - 1) / GEMM_NT), 256, smem_g, st>>>(
+        (const T*)h0, (const T*)cs_w, (const T*)cs_b, gates, (T*)h1, N, D,
+        nt);
+  }
+  if (tc) {
+    const int rt = (N + MLP_ROWS - 1) / MLP_ROWS;
     const size_t smem_l =
         sizeof(bf16) * tc_ring_elems(2, 2, false, false, MLP_ST);
     cudaFuncSetAttribute(mlp_linear_tc<LIN_GELU>,
@@ -341,25 +492,14 @@ static int launch_mlp(int dtype, const void* x, const void* ln_w1,
             (const bf16*)h2, (const bf16*)out_w, (const bf16*)out_b,
             (bf16*)h3, N, H, D);
   } else {
-    const size_t smem_g =
-        sizeof(float) * (GEMM_ROWS * (D < MLP_GKCH ? D : MLP_GKCH) +
-                         GEMM_WT_FLOATS + GEMM_ROWS * MLP_MAX_NT);
-    cudaFuncSetAttribute(mlp_gates<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem_g);
-    mlp_gates<T><<<dim3((N + GEMM_ROWS - 1) / GEMM_ROWS,
-                        (D + GEMM_NT - 1) / GEMM_NT), 256, smem_g, st>>>(
-        (const T*)h0, (const T*)cs_w, (const T*)cs_b, gates, (T*)h1, N, D,
-        nt);
     launch_linear_rows<T, LIN_GELU>(h1, in_w, in_b, h2, N, D, H, st);
     launch_linear_rows<T, LIN_NONE>(h2, out_w, out_b, h3, N, H, D, st);
   }
 
-  e = launch_clusters(
-      norm, grid_n, S, smem_n, st, (const T*)h3, (const T*)ln_w1,
-      (const T*)ln_b1, (const T*)ln_w2, (const T*)ln_b2, (const T*)x,
-      (T*)out, N, D, size, alpha, k, beta, vh);
-  if (e != cudaSuccess) return (int)e;
+  // h1 is free again after W_in
+  rc = mlp_norm_launch<T>(dtype, h3, ln_w1, ln_b1, ln_w2, ln_b2, x, out, h1,
+                          choice, N, D, size, alpha, k, beta, vh, st);
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }
 
@@ -376,38 +516,47 @@ static bool mlp_tc_ok(const void* const* ptrs, int n, int D, int H) {
 // gate_b[i] (D,) for i < nt; in_w (H, D), in_b (H,); out_w (D, H),
 // out_b (D,) -- torch (out, in) layouts, all of one dtype (0 = f32,
 // 1 = bf16).  Workspace from the caller: h0, h1, h3 (N, D) and h2 (N, H)
-// of the dtype.  D >= 2 (the norms' shared memory, abby_smem_bytes,
-// bounds it), nt <= 12, any window size, N <= 65535 * 32.  Five launches.
+// of the dtype.  Past MLP_MAX_NT gates also dev_gates (device memory: the
+// nt gate_w pointers, then the nt gate_b pointers; gate_w / gate_b are
+// not read) and tys (N x nt f32); where the norms' plan does not fit a
+// block (abby_smem_bytes), choice (N ints).  D >= 2, any nt >= 1, any
+// window size, N <= 65535 * 32.  Five launches up to MLP_MAX_NT gates,
+// six past them; each norm past the plan three launches, not one.
 ASR_API int asr_fused_mlp_residual(
     int dtype, const void* x, const void* ln_w1, const void* ln_b1,
     const void* ln_w2, const void* ln_b2, const void* cs_w, const void* cs_b,
     const void* const* gate_w, const void* const* gate_b, int nt,
     const void* in_w, const void* in_b, const void* out_w, const void* out_b,
-    void* out, void* h0, void* h1, void* h2, void* h3, int N, int D, int H,
-    int size, float alpha, float k, float beta, void* stream) {
-  if (D < 2 || abby_smem_bytes(dtype, D) > 232448 || H < 1 || nt < 1 ||
-      nt > MLP_MAX_NT || size < 1 || N > 65535 * AB_ROWS)
+    void* out, void* h0, void* h1, void* h2, void* h3,
+    const void* const* dev_gates, void* tys, void* choice, int N, int D,
+    int H, int size, float alpha, float k, float beta, void* stream) {
+  const bool many = nt > MLP_MAX_NT;
+  const bool global = abby_smem_bytes(dtype, D) > 232448;
+  if (D < 2 || H < 1 || nt < 1 || size < 1 || N > 65535 * AB_ROWS ||
+      (many && (!dev_gates || !tys)) || (global && !choice))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   MlpGates gates = {};
   const void* ptrs[4 + 2 * MLP_MAX_NT] = {in_w, out_w, h0, h1};
-  for (int i = 0; i < nt; ++i) {
+  const int ng = many ? 0 : nt;      // the gates the tensor cores read
+  for (int i = 0; i < ng; ++i) {
     gates.w[i] = gate_w[i];
     gates.b[i] = gate_b[i];
     ptrs[4 + i] = gate_w[i];
   }
-  ptrs[4 + nt] = h2;
-  ptrs[5 + nt] = h3;
+  ptrs[4 + ng] = h2;
+  ptrs[5 + ng] = h3;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ASR_F32)
     return launch_mlp<float>(dtype, x, ln_w1, ln_b1, ln_w2, ln_b2, cs_w,
                              cs_b, gates, nt, in_w, in_b, out_w, out_b, out,
-                             h0, h1, h2, h3, false, N, D, H, size, alpha, k,
-                             beta, st);
+                             h0, h1, h2, h3, dev_gates, (float*)tys, choice,
+                             false, N, D, H, size, alpha, k, beta, st);
   return launch_mlp<bf16>(dtype, x, ln_w1, ln_b1, ln_w2, ln_b2, cs_w, cs_b,
                           gates, nt, in_w, in_b, out_w, out_b, out, h0, h1,
-                          h2, h3, mlp_tc_ok(ptrs, 6 + nt, D, H), N, D, H,
-                          size, alpha, k, beta, st);
+                          h2, h3, dev_gates, (float*)tys, choice,
+                          mlp_tc_ok(ptrs, 6 + ng, D, H), N, D, H, size, alpha,
+                          k, beta, st);
 }
 
 // the dynamic shared memory of the tensor-core gates launch, and the

@@ -112,6 +112,7 @@ struct SheathArgs {
   float* jump_w;           // (1,)
   int* actions;            // (L,)
   int* jstat;              // (3,)
+  float* aog;              // the GL rows' adapter outputs, or null
   int N, B, C, D, D2, M, L, SCP, DP;
   float thresh;
 };
@@ -161,6 +162,25 @@ __host__ __device__ constexpr size_t sh_smem_bytes(int R, int D, int NP) {
                           SH_NST * 2 * SH_KC * SH_LDW +
                           (5 + 4 * SH_MAX_CLUSTER) * R + 128 +
                           (NP - 1) * R * SH_LDW);
+}
+
+// whether the row kernel keeps its slot vectors and adapter outputs in
+// device memory (GL): past the width where a 16-row tile's shared memory
+// (sh_smem_bytes) passes a block's
+__host__ __device__ constexpr bool sh_gl(int D, int SCP, int DP) {
+  return sh_wide(D) && sh_smem_bytes(16, D, sh_passes(SCP, DP)) > 232448;
+}
+
+// the GL row kernel's shared memory: the ring and the per-row values
+// alone (the slot vectors and the earlier passes' adapter outputs stay in
+// device memory), and its device-memory scratch of adapter outputs, in
+// floats, for one CTA
+__host__ __device__ constexpr size_t sh_smem_bytes_gl(int R) {
+  return sizeof(float) * (SH_NST * 2 * SH_KC * SH_LDW +
+                          (5 + 4 * SH_MAX_CLUSTER) * R + 128);
+}
+__host__ __device__ constexpr size_t sh_aog_floats(int R, int NP) {
+  return (size_t)(NP - 1) * R * SH_LDW;
 }
 
 // LayerNorm of one value, in the order the plain version computes it
@@ -295,7 +315,13 @@ __device__ __forceinline__ void sh_load_rows(const SheathArgs& a, int step,
 // f32 state, where each CTA first writes its share of their columns with
 // the pending jump term (step 0: x converted), a cluster barrier later
 // read by every CTA from L2.
-template <typename T, int R, typename TW, bool MP, bool WIDE = false>
+// GL (WIDE, past the width whose slot vectors and adapter outputs fit
+// beside the ring, sh_smem_bytes > 232448: D past 8,320): the slot's
+// LayerNorm scale and bias and skip-gate weights are read from device
+// memory where they are used, and the adapter outputs of the passes
+// before the last go to the CTA's share of a.aog (device memory, L2).
+template <typename T, int R, typename TW, bool MP, bool WIDE = false,
+          bool GL = false>
 __global__ void __launch_bounds__(SH_THREADS, R == 16 ? 2 : 1)
 sheath_rows(SheathArgs a, int step) {
   constexpr int MW = R / 16, KG = SH_KC / 8;
@@ -316,9 +342,9 @@ sheath_rows(SheathArgs a, int step) {
   extern __shared__ __align__(128) float sh_smem[];
   float* xt = sh_smem;                          // [R][lda]  x (not WIDE)
   float* lns = xt + (WIDE ? 0 : R * lda);       // [lda] LayerNorm scale
-  float* lnb = lns + lda;                       // [lda] LayerNorm bias
-  float* gw = lnb + lda;                        // [lda] skip-gate weights
-  float* ring = gw + lda;                       // [NST][2][KC][LDW]
+  float* lnb = lns + (GL ? 0 : lda);            // [lda] LayerNorm bias
+  float* gw = lnb + (GL ? 0 : lda);             // [lda] skip-gate weights
+  float* ring = gw + (GL ? 0 : lda);            // [NST][2][KC][LDW]
   float* so = ring;                             // [R][LDW] score product
   float* mu = ring + SH_NST * 2 * SH_KC * SH_LDW;   // [R] row mean
   float* rstd = mu + R;                         // [R] 1 / row std
@@ -334,7 +360,11 @@ sheath_rows(SheathArgs a, int step) {
   float* rmlp = rsv + SH_MAX_CLUSTER * R;
   float* colw = rmlp + SH_MAX_CLUSTER * R;      // [64] key norm or MLP w2
   float* colb = colw + 64;                      // [64] mval or MLP bias
-  float* aosave = colb + 64;  // [passes - 1][R][LDW] adapter products
+  // [passes - 1][R][LDW] adapter products
+  float* aosave =
+      GL ? a.aog + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) *
+                       sh_aog_floats(R, sh_passes(a.SCP, a.DP))
+         : colb + 64;
   // the adapter product of pass p: the last pass's stays in the ring
   auto ao_of = [&](int p) {
     return p == plast ? ring + R * SH_LDW : aosave + p * R * SH_LDW;
@@ -383,13 +413,23 @@ sheath_rows(SheathArgs a, int step) {
 #pragma unroll
   for (int st = 0; st < SH_NST - 1; ++st) load_stage(0, st);
 
-  // the slot's vectors
-  for (int j = t; j < lda; j += SH_THREADS) {
-    const bool in = j < D;
-    lns[j] = in ? a.ln_scale[(size_t)i * D + j] : 0.0f;
-    lnb[j] = in ? a.ln_bias[(size_t)i * D + j] : 0.0f;
-    gw[j] = in ? a.gate_w[(size_t)i * D + j] : 0.0f;
-  }
+  // the slot's vectors (GL: read where used, 0 past D)
+  if constexpr (!GL)
+    for (int j = t; j < lda; j += SH_THREADS) {
+      const bool in = j < D;
+      lns[j] = in ? a.ln_scale[(size_t)i * D + j] : 0.0f;
+      lnb[j] = in ? a.ln_bias[(size_t)i * D + j] : 0.0f;
+      gw[j] = in ? a.gate_w[(size_t)i * D + j] : 0.0f;
+    }
+  auto slot_vec = [&](const float* sv, const float* dv, int j) -> float {
+    if constexpr (GL)
+      return j < D ? __ldg(dv + (size_t)i * D + j) : 0.0f;
+    else
+      return sv[j];
+  };
+  auto lns_at = [&](int j) { return slot_vec(lns, a.ln_scale, j); };
+  auto lnb_at = [&](int j) { return slot_vec(lnb, a.ln_bias, j); };
+  auto gw_at = [&](int j) { return slot_vec(gw, a.gate_w, j); };
   load_cols(0);
   const bool pend = step > 0 && a.ctl[1] != 0;
   // x of the tile's row r, column j (0 outside the tile's rows and D)
@@ -448,7 +488,7 @@ sheath_rows(SheathArgs a, int step) {
     const float rs = rsqrtf(group_sum<TPR>(v) / (float)D + 1e-5f);
     float gs = 0.0f;
     for (int j = q; j < D; j += TPR)
-      gs += sh_ln(xval(r, j), m, rs, lns[j], lnb[j]) * gw[j];
+      gs += sh_ln(xval(r, j), m, rs, lns_at(j), lnb_at(j)) * gw_at(j);
     gs = group_sum<TPR>(gs);
     if (q == 0) {
       mu[r] = m;
@@ -505,8 +545,8 @@ sheath_rows(SheathArgs a, int step) {
             sh_frag_b(ws + SH_KC * SH_LDW, kr, 8 * (nt0 + n) + g, tg, bah[n],
                       bal[n]);
         }
-        const float s0 = lns[k], s1 = lns[k + 4], b0 = lnb[k],
-                    b1 = lnb[k + 4];
+        const float s0 = lns_at(k), s1 = lns_at(k + 4), b0 = lnb_at(k),
+                    b1 = lnb_at(k + 4);
 #pragma unroll
         for (int m = 0; m < MW; ++m) {
           float xv[4];
@@ -661,7 +701,8 @@ sheath_rows(SheathArgs a, int step) {
       if (row >= a.N || n >= D) continue;
       const float xv = xval(r, n);
       const float apx = i % 2 == 0 ? ao[r * SH_LDW + c] + ab[n]
-                                   : sh_ln(xv, mu[r], rstd[r], lns[n], lnb[n]);
+                                   : sh_ln(xv, mu[r], rstd[r], lns_at(n),
+                                           lnb_at(n));
       a.xs[(size_t)row * D + n] = xv + gv[r] * (apx * ionr[r]);
     }
   }
@@ -789,11 +830,13 @@ __global__ void sheath_finish(SheathArgs a) {
   }
 }
 
-template <typename T, int R, typename TW, bool MP, bool WIDE = false>
+template <typename T, int R, typename TW, bool MP, bool WIDE = false,
+          bool GL = false>
 static int launch_rows(const SheathArgs& a, int step, cudaStream_t st) {
-  const size_t smem = sh_smem_bytes(R, a.D, sh_passes(a.SCP, a.DP));
+  const size_t smem = GL ? sh_smem_bytes_gl(R)
+                         : sh_smem_bytes(R, a.D, sh_passes(a.SCP, a.DP));
   cudaError_t e = cudaFuncSetAttribute(
-      sheath_rows<T, R, TW, MP, WIDE>,
+      sheath_rows<T, R, TW, MP, WIDE, GL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int cs = sh_cluster_size(a.SCP, a.DP);
@@ -809,8 +852,8 @@ static int launch_rows(const SheathArgs& a, int step, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, sheath_rows<T, R, TW, MP, WIDE>, a,
-                                 step);
+  return (int)cudaLaunchKernelEx(&cfg, sheath_rows<T, R, TW, MP, WIDE, GL>,
+                                 a, step);
 }
 
 template <typename T, typename TW>
@@ -819,7 +862,9 @@ static int launch_sheath(const SheathArgs& a, int rows, cudaStream_t st) {
   const int ew_grid = (int)std::min<size_t>((nd + 255) / 256, 4096);
   const dim3 mem_grid(a.B, (a.D + 31) / 32);
   for (int step = 0; step < a.L; ++step) {
-    const int rc = sh_wide(a.D) ? launch_rows<T, 16, TW, true, true>(a, step,
+    const int rc = sh_gl(a.D, a.SCP, a.DP)
+                       ? launch_rows<T, 16, TW, true, true, true>(a, step, st)
+                   : sh_wide(a.D) ? launch_rows<T, 16, TW, true, true>(a, step,
                                                                       st)
                    : sh_passes(a.SCP, a.DP) > 1
                        ? launch_rows<T, 16, TW, true>(a, step, st)
@@ -838,8 +883,9 @@ static int launch_sheath(const SheathArgs& a, int rows, cudaStream_t st) {
 // the slot products' weights in (in, out) layout with zero columns up to
 // SCP and DP, multiples of 64, in f32 (wdtype 0) or, when every value is
 // exact in bf16, bf16 (wdtype 1); rows 16 or 64 a tile, 16 past 8
-// slices (the shared memory of sh_smem_bytes must fit).  Launches 2 L +
-// 1 kernels.
+// slices (the shared memory of sh_smem_bytes must fit, or past it (GL)
+// aog holds sh_aog_floats(16, passes) f32 for each CTA of the row
+// launch: cluster size x row tiles).  Launches 2 L + 1 kernels.
 ASR_API int asr_fused_sheath_scan(
     int dtype, const void* x_in, void* out, const void* valid,
     const void* mem0, const void* sampled, const void* jump_s,
@@ -850,9 +896,10 @@ ASR_API int asr_fused_sheath_scan(
     const void* wad, const void* adapt_b, const void* memgate_w,
     const void* memgate_b, void* xs, void* ion, void* mem, void* mem_w,
     void* ctl, void* counter, void* jump_w, void* actions, void* jstat,
-    int N, int B, int C, int D, int D2, int M, int L, int SCP, int DP,
-    int wdtype, int rows, float thresh, void* stream) {
+    void* aog, int N, int B, int C, int D, int D2, int M, int L, int SCP,
+    int DP, int wdtype, int rows, float thresh, void* stream) {
   if (B < 1 || M < 1 || SCP % 64 || DP % 64 ||
+      (SCP % 64 == 0 && DP % 64 == 0 && sh_gl(D, SCP, DP) && !aog) ||
       SCP < M + D2 || DP < D || L < 1 || D < 1 || (rows != 16 && rows != 64) ||
       (sh_passes(SCP, DP) > 1 && rows != 16))
     return (int)cudaErrorInvalidValue;
@@ -889,6 +936,7 @@ ASR_API int asr_fused_sheath_scan(
   a.jump_w = (float*)jump_w;
   a.actions = (int*)actions;
   a.jstat = (int*)jstat;
+  a.aog = (float*)aog;
   a.N = N;
   a.B = B;
   a.C = C;

@@ -83,3 +83,11 @@ def load_wave(audio: Union[str, dict], sample_rate: int = 16000,
         return (np.asarray(audio["array"], dtype=np.float32),
                 int(audio["sampling_rate"]))
     raise TypeError("Invalid wave_data format.")
+
+
+def get_audio(audio, sample_rate: int = 16000):
+    """({"raw": ``load_wave``'s samples, "sampling_rate": sr}, the
+    duration in seconds) of a file or a ``{"array", "sampling_rate"}``
+    dict."""
+    wav, sr = load_wave(audio, sample_rate)
+    return {"raw": np.asarray(wav), "sampling_rate": sr}, wav.shape[-1] / sr

@@ -69,6 +69,27 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * hd)
 
 
+def taylor_softmax(x: torch.Tensor, order: int = 2) -> torch.Tensor:
+    """The Taylor-series softmax surrogate: 1 + sum_i x^i / i! up to
+    ``order``, normalised over the last axis (no model path calls it)."""
+    ta = torch.ones_like(x)
+    for i in range(1, order + 1):
+        ta = ta + x ** i / float(math.factorial(i))
+    return ta / torch.sum(ta, dim=-1, keepdim=True)
+
+
+def rbf_scores(q: torch.Tensor, k: torch.Tensor, rbf_sigma: float = 1.0,
+               rbf_ratio: float = 0.3) -> torch.Tensor:
+    """Blended dot-product and RBF attention logits over (B, H, T, hd):
+    (1 - r) q k^T + r exp(-||q - k||^2 / (2 sigma^2)) (no model path
+    calls it)."""
+    dot = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    q2 = torch.sum(q * q, dim=-1)[..., :, None]
+    k2 = torch.sum(k * k, dim=-1)[..., None, :]
+    rbf = torch.exp(-(q2 + k2 - 2 * dot) / (2 * rbf_sigma ** 2))
+    return (1 - rbf_ratio) * dot + rbf_ratio * rbf
+
+
 def sdpa(q, k, v, causal: bool = False, kv_valid=None):
     """Scaled dot-product attention over (B, H, T, hd) with the 1/sqrt(hd)
     scale; ``kv_valid`` (B, Tk) bool.  Masked logits are -1e30 (a fully

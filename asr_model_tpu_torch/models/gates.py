@@ -1,11 +1,16 @@
 """Gating and routing: the modality ``Router``, the ``TGate`` mixture of
-sigmoid gates inside the residual MLP, and the MSheath jump-policy
-network ``MPNet``, through the plain stacked path; with ``fused``, a
-Router call over one tensor repeated goes to ``ops/cuda/router.py``
-wherever the JAX package's PALLAS_ROUTER gate would route it (on the
-eval route only: no train mode or generator)."""
+sigmoid gates inside the residual MLP, the MSheath jump-policy network
+``MPNet``, and two modules no model path builds (the JAX package's API
+surface): ``Gate`` (a top-2 hard and soft mixture of sigmoid gates) and
+``OneShot`` (a cross-modal attention-bias head whose ``scale`` the train
+loop's grad-norm controller adjusts).  All through plain PyTorch; with
+``fused``, a Router call over one tensor repeated goes to
+``ops/cuda/router.py`` wherever the JAX package's PALLAS_ROUTER gate
+would route it (on the eval route only: no train mode or generator)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -117,3 +122,58 @@ class MPNet(nn.Module):
 
     def forward(self, pooled):
         return torch.softmax(self.fc2(F.silu(self.fc1(pooled))), dim=-1)
+
+
+class Gate(nn.Module):
+    """``num_types`` sigmoid gates mixed by sigmoid(alpha) * top2-hard(top)
+    + (1 - sigmoid(alpha)) * softmax(features)."""
+
+    def __init__(self, dims: int, num_types: int, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.num_types = num_types
+        for i in range(num_types):
+            self.add_module(f"gate{i}", Dense(dims, dims, **kw))
+        self.features = Dense(dims, num_types, **kw)
+        self.top = Dense(dims, num_types, **kw)
+        self.alpha = param(1, **kw)
+
+    def reset_parameters(self, gen):
+        with torch.no_grad():
+            self.alpha.fill_(1.0)
+
+    def forward(self, x, num: int = 2):
+        gates = torch.stack([torch.sigmoid(getattr(self, f"gate{i}")(x))
+                             for i in range(self.num_types)], dim=-1)
+        feats = torch.softmax(self.features(x), dim=-1)
+        alpha = torch.sigmoid(self.alpha)
+        sel = alpha * _topk_hard(self.top(x), num) + (1 - alpha) * feats
+        return torch.sum(gates * sel[..., None, :], dim=-1)
+
+
+class OneShot(nn.Module):
+    """Cross-modal attention-bias head: (B, H, L, K) logits q k^T * scale
+    / sqrt(hd), q from x and k from xa.  ``scale`` (a float or a tensor)
+    is the runtime value the grad-norm controller sets; without it the
+    constructor's ``default_scale`` (1 / num_features when given, else
+    ``scale``)."""
+
+    def __init__(self, dims: int, head: int, scale: float = 0.3,
+                 num_features: int | None = None, device=None, dtype=None):
+        super().__init__()
+        self.dims, self.head = dims, head
+        self.scale, self.num_features = scale, num_features
+        self.q = Dense(dims, dims, device=device, dtype=dtype)
+        self.k = Dense(dims, dims, device=device, dtype=dtype)
+
+    @property
+    def default_scale(self) -> float:
+        return 1.0 / self.num_features if self.num_features else self.scale
+
+    def forward(self, x, xa, scale=None):
+        hd = self.dims // self.head
+        b, n = x.shape[:2]
+        q = self.q(x).reshape(b, n, self.head, hd).transpose(1, 2)
+        k = self.k(xa).reshape(b, xa.shape[1], self.head, hd).transpose(1, 2)
+        s = self.default_scale if scale is None else scale
+        return torch.einsum("bhld,bhkd->bhlk", q, k) * s / math.sqrt(hd)

@@ -144,3 +144,40 @@ def cast_variables(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
         if t.dtype == torch.float32:
             t.data = t.data.to(dtype)
     return model
+
+
+def init_w(model: nn.Module) -> Dict[str, int]:
+    """The module-count self-check over a model's parameters, counted as
+    the JAX package's ``init_w`` counts its flax params tree: each
+    parameter's flax path (``weights.jax_layout``), a 2-D Dense kernel a
+    Linear, a 3-D kernel or weight-norm ``v`` a Conv1d, a norm scale a
+    LayerNorm (a stacked (L, d) one L of them), an embedding an
+    Embedding; prints the summary."""
+    from asr_model_tpu_torch.weights import jax_layout
+    counts = {"Linear": 0, "Conv1d": 0, "LayerNorm": 0, "Embedding": 0,
+              "Other": 0}
+    shapes = dict(model.state_dict())
+    leaves = sorted((path, shapes[key]) for key, (coll, path, perm)
+                    in jax_layout(model).items() if coll == "params")
+    seen = set()
+    for path, leaf in leaves:
+        parent, name = "/".join(path[:-1]), path[-1]
+        if parent in seen:
+            continue
+        if name == "kernel" and leaf.dim() == 2:
+            counts["Linear"] += 1
+            seen.add(parent)
+        elif name in ("kernel", "v") and leaf.dim() == 3:
+            counts["Conv1d"] += 1
+            seen.add(parent)
+        elif name in ("scale", "ln_scale", "mlp_ln_scale", "gamma"):
+            counts["LayerNorm"] += leaf.shape[0] if leaf.dim() == 2 else 1
+            seen.add(parent + "/" + name)
+        elif name == "embedding":
+            counts["Embedding"] += 1
+            seen.add(parent)
+    print("Initialization summary:")
+    for k, v in counts.items():
+        if v > 0:
+            print(f"{k}: {v}")
+    return counts

@@ -401,3 +401,24 @@ class Wrapped(nn.Module):
 
     def forward(self, x, *a, **kw):
         return getattr(self, self.inner_name)(x, *a, **kw)
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over the channel axis of channel-last (..., T, C) conv
+    activations (the reference transposes around ``F.layer_norm``; here
+    the channels are last already), under flax's name ``LayerNorm_0``."""
+
+    def __init__(self, dims: int, eps: float = 1e-5, device=None,
+                 dtype=None):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(dims, eps, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.LayerNorm_0(x)
+
+
+class Identity(nn.Module):
+    """Returns its first argument; takes and ignores any other."""
+
+    def forward(self, x, *a, **kw):
+        return x

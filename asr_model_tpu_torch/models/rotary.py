@@ -28,6 +28,16 @@ def gammatone_freqs(dims: int, head: int, min_freq: float = 200.0,
     return (f / 1000.0).astype(np.float32)
 
 
+def wideband_freqs(dims: int, head: int,
+                   max_freq: float = 8000.0) -> np.ndarray:
+    """A mel-derived frequency ladder in kHz (head_dim // 2,)."""
+    head_dim = dims // head
+    mel_max = 2595.0 * np.log10(1.0 + max_freq / 700.0)
+    mel_scale = 10.0 ** (np.linspace(0, mel_max, head_dim // 2)
+                         / 2595.0) - 1.0
+    return (700.0 * mel_scale / 1000.0).astype(np.float32)
+
+
 def compute_freqs(dims: int, head: int, causal: bool, theta: float = THETA,
                   dtype=np.float32) -> np.ndarray:
     """Per-channel angular frequencies (head_dim // 2,).  float64

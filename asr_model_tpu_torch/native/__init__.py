@@ -5,7 +5,8 @@
 compiled by ``g++`` at first use into ``asr_model_tpu_torch/_build/
 native/<hash of the source>/lib<name>.so`` (git-ignored) and loaded with
 ``ctypes``.  A failed build raises.  ``world_dio``, ``world_stonemask``,
-``read_flac`` and ``wer_levenshtein`` keep the JAX package's signatures
+``world_cheaptrick``, ``world_d4c``, ``read_flac`` and
+``wer_levenshtein`` keep the JAX package's signatures
 (``asr_model_tpu/native/__init__.py``)."""
 
 from __future__ import annotations
@@ -42,6 +43,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             _dbl, ctypes.c_longlong, ctypes.c_int, _dbl, _dbl,
             ctypes.c_longlong, _dbl]
         lib.world_stonemask.restype = ctypes.c_int
+        for fn in (lib.world_cheaptrick, lib.world_d4c):
+            fn.argtypes = [_dbl, ctypes.c_longlong, ctypes.c_int, _dbl,
+                           _dbl, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_double, _dbl]
+            fn.restype = ctypes.c_int
     elif name == "flac":
         lib.flac_info.argtypes = [
             ctypes.c_char_p, ctypes.c_longlong, _int, _int, _int,
@@ -115,6 +121,36 @@ def world_stonemask(x, f0, t, fs: int):
     if rc != 0:
         raise RuntimeError("world_stonemask failed")
     return out
+
+
+def _world_spectral(fname: str, x, f0, t, fs: int, fft_size: int,
+                    knob: float):
+    """One of WORLD's per-frame spectral analyses: (frames, fft_size // 2
+    + 1) float64."""
+    x = np.ascontiguousarray(np.asarray(x, dtype=np.float64).reshape(-1))
+    f0 = np.ascontiguousarray(np.asarray(f0, dtype=np.float64))
+    t = np.ascontiguousarray(np.asarray(t, dtype=np.float64))
+    out = np.empty((f0.shape[0], fft_size // 2 + 1), dtype=np.float64)
+    rc = getattr(library("world"), fname)(
+        _ptr(x), x.shape[0], fs, _ptr(f0), _ptr(t), f0.shape[0], fft_size,
+        knob, _ptr(out))
+    if rc != 0:
+        raise RuntimeError(f"{fname} failed")
+    return out
+
+
+def world_cheaptrick(x, f0, t, fs: int, fft_size: int = 256,
+                     q1: float = -0.15):
+    """CheapTrick spectral envelope of a DIO + StoneMask track: (frames,
+    fft_size // 2 + 1) float64 power."""
+    return _world_spectral("world_cheaptrick", x, f0, t, fs, fft_size, q1)
+
+
+def world_d4c(x, f0, t, fs: int, fft_size: int = 256,
+              threshold: float = 0.85):
+    """D4C band aperiodicity of a DIO + StoneMask track: (frames,
+    fft_size // 2 + 1) float64 in [0, 1]."""
+    return _world_spectral("world_d4c", x, f0, t, fs, fft_size, threshold)
 
 
 def pitch_track_host(audio, sample_rate: int = 16000,

@@ -64,3 +64,9 @@ def frame_rate_waveform(audio: torch.Tensor, sample_rate: int = 16000,
     if n > target:
         return adaptive_avg_pool1d(x, target)
     return linear_interpolate(x, target)
+
+
+def peak_normalize(w: torch.Tensor) -> torch.Tensor:
+    """w / max|w| where that is positive, else w."""
+    m = torch.max(torch.abs(w))
+    return torch.where(m > 0, w / torch.where(m > 0, m, 1.0), w)

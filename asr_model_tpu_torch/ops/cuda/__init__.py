@@ -17,7 +17,12 @@ package); it serves direct callers.  The serving frontend's DIO pitch
 Pallas counterpart (the JAX package runs that scan in XLA).  Training
 (``TRAIN_PATH``) runs the mel kernel in the data pipeline and flash's
 forward under autograd; the other wrappers refuse a call autograd needs
-a gradient of (``build.eval_only``)."""
+a gradient of (``build.eval_only``).
+
+Past each kernel's shared-memory plan a wrapper takes a route that keeps
+its rows, heads or frames in device memory (no configuration of the
+repo reaches one); ``<wrapper>.routes`` counts each route's launches
+apart (``counts()["<wrapper>/<route>"]``)."""
 
 from asr_model_tpu_torch.ops.cuda import (abby, attention, dio, mel, mlp,
                                           router, sheath, xattn)
@@ -54,8 +59,16 @@ def reset_counts() -> None:
     for wrapper, plain in WRAPPERS.values():
         wrapper.launches = 0
         plain.calls = 0
+        for r in getattr(wrapper, "routes", {}):
+            wrapper.routes[r] = 0
 
 
 def counts() -> dict:
-    return {name: {"launches": w.launches, "plain_calls": p.calls}
-            for name, (w, p) in WRAPPERS.items()}
+    """Launches and plain calls by wrapper, and by route past the plans
+    (``"<wrapper>/<route>"``, launches also counted in the wrapper's)."""
+    out = {name: {"launches": w.launches, "plain_calls": p.calls}
+           for name, (w, p) in WRAPPERS.items()}
+    out.update({f"{name}/{r}": {"launches": n, "plain_calls": 0}
+                for name, (w, _) in WRAPPERS.items()
+                for r, n in getattr(w, "routes", {}).items()})
+    return out

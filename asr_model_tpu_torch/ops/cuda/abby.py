@@ -13,6 +13,14 @@ slices' partial logits meet in distributed shared memory, summed in a
 fixed order, and each CTA runs the tail on its share of the tile's rows
 (x read and written once).  Arithmetic after the router product is f32;
 the output is cast back to x's dtype.
+
+Past the width whose staged slices fit a block (D 59,392 in bf16, 92,160
+in f32) the global route runs the same function in three launches, the
+rows in device memory (``abby.cu:asr_abby_global``: the router product
+with its SiLU into a scratch, the routes a warp a row, the tail a thread
+per 8 channels; ``launch_plan``, ``fused_abby.routes["global"]``).  The
+whole-call attention and the MLP take their norms through it past that
+width too.
 """
 
 from __future__ import annotations
@@ -49,6 +57,22 @@ def abby_tail(x, logits, size: int, alpha: float, k: float, beta: float):
     return x / torch.exp(beta * torch.log(mix * alpha + k))
 
 
+CAST_ELEMS = 1 << 26      # weight elements the plain versions convert at once
+
+
+def linear_t(a, w, ct):
+    """``a @ w.to(ct).t()`` for a torch (out, in) weight w; a weight of more
+    than CAST_ELEMS elements is converted a block of its rows at a time,
+    so the plain versions hold no whole f32 copy of a weight past the
+    widths whose kernels take the global routes (the same sums, column
+    block by column block)."""
+    if w.dtype == ct or w.numel() <= CAST_ELEMS:
+        return a @ w.to(ct).t()
+    rows = max(1, CAST_ELEMS // w.shape[1])
+    return torch.cat([a @ w[i:i + rows].to(ct).t()
+                      for i in range(0, w.shape[0], rows)], dim=-1)
+
+
 def abby_values(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
                 beta: float):
     """The eval AbbyNormal of x2 (N, D) as f32 (f64 for f64) values, not
@@ -56,7 +80,7 @@ def abby_values(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
     in torch (out, in) layout."""
     ct = torch.promote_types(x2.dtype, torch.float32)
     xf = x2.to(ct)
-    h = F.silu(xf @ w1.to(ct).t() + b1.to(ct))
+    h = F.silu(linear_t(xf, w1, ct) + b1.to(ct))
     h = h.to(x2.dtype).to(ct)             # rounded as the kernel rounds it
     logits = h @ w2.to(ct).t() + b2.to(ct)
     return abby_tail(xf, logits, size, alpha, k, beta)
@@ -79,6 +103,7 @@ MAX_TAPS = 103          # widest window of the attention calls' tensor-core
 W_RING = 8              # W1 chunks in flight past 16 (AB_WRING)
 KCH = 512               # f32 x columns a CTA holds past STREAM_D (AB_KCH)
 SMEM_MAX = 232448       # dynamic shared memory a block may use
+GLOBAL_LAUNCHES = 3     # the global route (abby.cu asr_abby_global)
 
 
 def launch_plan(n: int, d: int, dtype) -> dict:
@@ -90,7 +115,9 @@ def launch_plan(n: int, d: int, dtype) -> dict:
     tile, half of it past D 1024, none past D 2048, where the rows stay
     in device memory: ``wide``, bf16 x's chunks in the ring beside W1's,
     f32 512 columns of x at a time) and the dynamic shared memory of a
-    CTA in bytes (the formula of ``abby_smem_bytes``)."""
+    CTA in bytes (the formula of ``abby_smem_bytes``).  Where that passes
+    a block's, the plan is the global route's: ``route`` "global", three
+    launches, the (n, d) hidden and the n routes in device memory."""
     cols = 64 if d <= 512 else 128 if d <= 1024 else 64 * -(-d // 512)
     cluster = -(-d // cols)
     chunks = -(-d // 64)
@@ -100,6 +127,11 @@ def launch_plan(n: int, d: int, dtype) -> dict:
         smem = (2 * W_RING * 96 * 72 if dtype == torch.bfloat16
                 else 4 * (16 * KCH + 32 * 65 + 16 * 64))
         smem += 4 * (4 * ROWS * 3 + 4 * cols + (ROWS + 8) * 3 + 2 * ROWS)
+        if smem > SMEM_MAX:
+            es = torch.empty((), dtype=dtype).element_size()
+            return dict(route="global", launches=GLOBAL_LAUNCHES,
+                        cluster_smem=smem, hidden_bytes=n * d * es,
+                        route_bytes=4 * n)
         return dict(cols=cols, cluster=cluster, tiles=-(-n // ROWS),
                     rows=ROWS, w_slots=slots, f32_rows=0, wide=True,
                     smem=smem)
@@ -121,12 +153,17 @@ def _launch():
                        B.F, B.F, B.F, B.P])
 
 
+def is_global(d: int, dtype) -> bool:
+    """Whether rows of width d take the global route."""
+    return launch_plan(1, d, dtype).get("route") == "global"
+
+
 def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
                beta: float):
     """The whole eval AbbyNormal over the rows of x2 (N, D): the kernel
-    on CUDA tensors (f32 or bf16, weights in x2's dtype, any D whose
-    ``launch_plan`` shared memory fits a block -- up to about 57,000 --
-    N <= 65535 * 32, any window), the plain version on CPU tensors."""
+    on CUDA tensors (f32 or bf16, weights in x2's dtype, any D >= 2:
+    past the cluster plan's width the global route; N <= 65535 * 32, any
+    window), the plain version on CPU tensors."""
     if x2.device.type == "cpu":
         return abby_plain(x2, w1, b1, w2, b2, size, alpha, k, beta)
     if x2.device.type != "cuda":
@@ -135,7 +172,6 @@ def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
                 "stochastic.eval_route()", lambda: (x2, w1, b1, w2, b2))
     n, d = x2.shape
     ok = (x2.dim() == 2 and d >= 2 and n <= 65535 * ROWS and size >= 1
-          and launch_plan(n, d, x2.dtype)["smem"] <= SMEM_MAX
           and w1.shape == (d, d)
           and b1.shape == (d,) and w2.shape == (3, d) and b2.shape == (3,)
           and all(t.dtype == x2.dtype and t.is_contiguous()
@@ -143,13 +179,18 @@ def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
                   for t in (x2, w1, b1, w2, b2)))
     if not ok:
         raise ValueError(
-            "fused_abby kernel takes contiguous (N, D) x with (D, D), (D,), "
-            "(3, D), (3,) weights of its dtype and device, a D whose shared "
-            "memory fits a block; "
+            "fused_abby kernel takes contiguous (N, D >= 2) x with (D, D), "
+            "(D,), (3, D), (3,) weights of its dtype and device; "
             f"got x {tuple(x2.shape)} {x2.dtype}, w1 {tuple(w1.shape)} "
             f"{w1.dtype}")
     code = B.dtype_code(x2.dtype)
     out = torch.empty_like(x2)
+    if is_global(d, x2.dtype):
+        abby_global(x2, w1, b1, w2, b2, None, out, size, alpha, k, beta)
+        n_l = GLOBAL_LAUNCHES if n else 0
+        fused_abby.launches += n_l
+        fused_abby.routes["global"] += n_l
+        return out
     rc = _launch()(code, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, d,
                    int(size), float(alpha), float(k), float(beta),
@@ -160,6 +201,25 @@ def fused_abby(x2, w1, b1, w2, b2, size: int, alpha: float, k: float,
 
 
 fused_abby.launches = 0
+fused_abby.routes = {"global": 0}
+
+
+def abby_global(x2, w1, b1, w2, b2, res, out, size: int, alpha: float,
+                k: float, beta: float) -> None:
+    """One global-route launch sequence into ``out`` (out = res + the norm
+    where ``res`` is given), with its scratch; uncounted (the callers
+    count)."""
+    n, d = x2.shape
+    ws, (hbuf, choice) = B.workspace(
+        x2.device, [n * d * x2.element_size(), 4 * n])
+    rc = B.function("asr_abby_global",
+                    [B.I, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.I,
+                     B.I, B.I, B.F, B.F, B.F, B.P])(
+        B.dtype_code(x2.dtype), x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), B.ptr(res), out.data_ptr(), hbuf,
+        choice, n, d, int(size), float(alpha), float(k), float(beta),
+        B.stream_of(x2))
+    B.check(rc, "asr_abby_global")
 
 
 # ------------------------------------------------ the tail on its own

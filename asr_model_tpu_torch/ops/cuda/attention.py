@@ -16,6 +16,13 @@ one merges in the same launch (a workspace per call, tile counters per
 device and stream).  f32 stays on the CUDA cores in full f32 (TF32 would
 not hold the f32 route's 1e-4).
 
+Head widths past 1024 (either dtype) take the global route
+(``csrc/global_attn.cuh``): three launches through an f32 score matrix
+(B, H, Tq, Tk) in device memory -- the masked scores, the row softmax in
+place, then P (rounded to the storage type) times V -- with the same
+masking (``launch_plan``; the route's own count is
+``flash_attention.routes["global"]``).
+
 Training: where autograd needs a gradient of a CUDA call, the call goes
 through ``FlashTrain``, whose forward is this kernel and whose backward
 recomputes the plain masked softmax and differentiates it, as the JAX
@@ -71,15 +78,19 @@ def _launch():
 
 TILE = 64          # keys per tile of the bf16 kernel
 TC_MAX_HD = 256    # the widest head of the tensor-core kernel; past it
-MAX_HD = 1024      # flash_wide_kernel (CUDA cores, either dtype)
+MAX_HD = 1024      # flash_wide_kernel (CUDA cores, either dtype); past it
+GLOBAL_LAUNCHES = 3   # the global route (csrc/global_attn.cuh)
 MAX_SPLIT = 16
 MIN_SPLIT_TILES = 4
 
 
 def route(hd: int, dtype) -> str:
     """The kernel a call takes: "tc" (bf16 up to hd 256, the tensor
-    cores), "f32" (f32 up to 256, the CUDA cores) or "wide" (past 256,
-    either dtype: ``flash_wide_kernel``)."""
+    cores), "f32" (f32 up to 256, the CUDA cores), "wide" (past 256,
+    either dtype: ``flash_wide_kernel``) or "global" (past MAX_HD: the
+    three launches of ``csrc/global_attn.cuh``)."""
+    if hd > MAX_HD:
+        return "global"
     if hd > TC_MAX_HD:
         return "wide"
     return "tc" if dtype == torch.bfloat16 else "f32"
@@ -121,6 +132,19 @@ def splits(bh: int, tq: int, tk: int, sms: int, hd: int = 128) -> int:
     n = max(1, min(MAX_SPLIT, nkt // MIN_SPLIT_TILES,
                    -(-per_sm * sms // blocks)))
     return -(-nkt // -(-nkt // n))      # no split left without a tile
+
+
+def launch_plan(b: int, h: int, tq: int, tk: int, hd: int, dtype,
+                sms: int = 132) -> dict:
+    """What a call launches: its ``route``, the kernel launches, the key
+    splits of the bf16 tensor-core kernel and, on the global route, the
+    bytes of its f32 score matrix."""
+    r = route(hd, dtype)
+    if r == "global":
+        return dict(route=r, launches=GLOBAL_LAUNCHES, splits=1,
+                    scores_bytes=4 * b * h * tq * tk)
+    return dict(route=r, launches=1, splits=(
+        splits(b * h, tq, tk, sms, hd) if r == "tc" else 1))
 
 
 _COUNTERS: dict = {}
@@ -168,10 +192,10 @@ class FlashTrain(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
                     scale: float | None = None):
     """(B, H, Tq, hd) x (B, H, Tk, hd) -> (B, H, Tq, hd); ``kv_valid``
-    (B, Tk) bool.  The flash kernel on CUDA tensors (f32 or bf16,
-    hd <= 1024: past 256 ``flash_wide_kernel``, ``wide_rows`` query rows
-    a block on the CUDA cores), on the current stream, the plain version
-    on CPU tensors.
+    (B, Tk) bool.  The flash kernel on CUDA tensors (f32 or bf16; past
+    hd 256 ``flash_wide_kernel``, ``wide_rows`` query rows a block on the
+    CUDA cores; past 1024 the global route), on the current stream, the
+    plain version on CPU tensors.
     The split merge's tile counters are kept per stream, so calls on
     two streams may run at once."""
     if scale is None:
@@ -186,11 +210,13 @@ def flash_attention(q, k, v, causal: bool = False, kv_valid=None,
 
 
 def _flash(q, k, v, causal, kv_valid, scale):
-    """One launch of the kernel (counted)."""
+    """One call of the kernel (its launches counted)."""
     b, h, tq, hd = q.shape
     tk = k.shape[2]
+    # the global route's grid: (key tiles, query tiles, B * H)
+    grid_ok = hd <= MAX_HD or (b * h <= 65535 and -(-tq // 16) <= 65535)
     ok = (q.dim() == 4 and k.shape == (b, h, tk, hd) and v.shape == k.shape
-          and q.dtype == k.dtype == v.dtype and 1 <= hd <= MAX_HD
+          and q.dtype == k.dtype == v.dtype and hd >= 1 and grid_ok
           and tk >= 1
           and all(t.is_contiguous() and t.device == q.device
                   for t in (q, k, v)))
@@ -202,13 +228,26 @@ def _flash(q, k, v, causal, kv_valid, scale):
     if not ok:
         raise ValueError(
             "flash_attention kernel takes contiguous "
-            f"(B, H, T, hd<={MAX_HD}) "
+            "(B, H, T, hd) (past hd 1024: B * H <= 65535) "
             "q/k/v of one dtype on one device and a (B, Tk) bool mask; "
             f"got q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
             f"{q.dtype}")
     code = B.dtype_code(q.dtype)
     out = torch.empty_like(q)
     stream = B.stream_of(q)
+    if route(hd, q.dtype) == "global":
+        ws, (scores,) = B.workspace(q.device, [4 * b * h * tq * tk])
+        rc = B.function("asr_flash_attention_global",
+                        [B.I, B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I,
+                         B.I, B.I, B.F, B.I, B.P])(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), B.ptr(kv_valid),
+            out.data_ptr(), scores, b, h, tq, tk, hd, float(scale),
+            int(bool(causal)), stream)
+        B.check(rc, "asr_flash_attention_global")
+        n = GLOBAL_LAUNCHES if b * h * tq else 0
+        flash_attention.launches += n
+        flash_attention.routes["global"] += n
+        return out
     nsplit, part_o, part_ml, counters, ws = 1, None, None, None, None
     if code == 1 and hd <= TC_MAX_HD:
         nsplit = splits(b * h, tq, tk, _sm_count(q.device.index or 0), hd)
@@ -230,3 +269,4 @@ def _flash(q, k, v, causal, kv_valid, scale):
 
 
 flash_attention.launches = 0
+flash_attention.routes = {"global": 0}

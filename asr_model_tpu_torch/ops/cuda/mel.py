@@ -15,8 +15,12 @@ included; Whisper's 400) takes Bluestein's algorithm: the DFT as a
 circular convolution of power-of-two length done by two FFTs
 (``bluestein_tables``).  n_fft below 64 or past 4096, and more than 256
 mels, take the direct DFT (``mel_dft_kernel``: a thread a frequency bin,
-8 frames a block, as the Pallas kernel's basis products sum it).  See
-the source for the design.
+8 frames a block, as the Pallas kernel's basis products sum it).  Where
+not even one frame and its power fit a block's shared memory (n_fft past
+about 38,700) the same sums run over device memory: the global route's
+two launches (``mel_dft_global_power``, a thread a bin of 8 frames, the
+power into a scratch; ``mel_dft_global_bands``; ``launch_plan``,
+``mel_spectrogram.routes["global"]``).  See the source for the design.
 """
 
 from __future__ import annotations
@@ -61,6 +65,19 @@ def route(n_fft: int, n_mels: int) -> str:
     if MIN_FFT <= n_fft <= MAX_FFT and n_mels <= MAX_MELS:
         return "fft" if is_pow2(n_fft) else "bluestein"
     return "dft"
+
+
+def launch_plan(b: int, n: int, n_fft: int, hop: int, n_mels: int) -> dict:
+    """What a call on (b, n) audio launches: its ``route`` ("fft",
+    "bluestein", "dft", or "global" where ``dft_frames`` is 0), the
+    kernel launches, the frames and, on the global route, the bytes of
+    its power scratch."""
+    r = route(n_fft, n_mels)
+    frames = 1 + (n + 2 * (n_fft // 2) - n_fft) // hop
+    if r == "dft" and dft_frames(n_fft, hop) == 0:
+        return dict(route="global", launches=2, frames=frames,
+                    power_bytes=4 * b * frames * (n_fft // 2 + 1))
+    return dict(route=r, launches=1, frames=frames)
 
 
 def bluestein_len(n_fft: int) -> int:
@@ -156,10 +173,10 @@ def mel_spectrogram(audio, sample_rate: int = 16000, n_fft: int = 1024,
                     f_min: float = 50.0, f_max: float = 8000.0):
     """(B, N) float32 audio -> (B, n_mels, T) power mel spectrogram
     (center=True, n_fft // 2 zeros a side: T = 1 + N // hop_length for an
-    even n_fft; HTK filterbank).  One kernel
-    launch for the whole batch on a CUDA tensor (``route``; any n_fft >= 2
-    whose frame fits in shared memory, about 38,000 at hop 160, any
-    n_mels); the plain version on a CPU tensor."""
+    even n_fft; HTK filterbank).  One kernel launch for the whole batch
+    on a CUDA tensor (``route``; any n_fft >= 2, any n_mels; two launches
+    past the frame that fits in shared memory, ``launch_plan``); the
+    plain version on a CPU tensor."""
     if audio.device.type == "cpu":
         return mel_spectrogram_plain(audio, sample_rate, n_fft, hop_length,
                                      n_mels, f_min, f_max)
@@ -170,18 +187,33 @@ def mel_spectrogram(audio, sample_rate: int = 16000, n_fft: int = 1024,
         raise ValueError("mel_spectrogram kernel takes contiguous (B, N) "
                          f"float32 audio, got {tuple(audio.shape)} "
                          f"{audio.dtype}")
-    if n_mels < 1 or n_fft < 2 or hop_length < 1 \
-            or dft_frames(n_fft, hop_length) == 0:
+    if n_mels < 1 or n_fft < 2 or hop_length < 1:
         raise ValueError("mel_spectrogram kernel takes n_mels >= 1 and an "
-                         "n_fft >= 2 whose frame fits in shared memory, got "
-                         f"n_mels {n_mels}, n_fft {n_fft}")
+                         f"n_fft >= 2, got n_mels {n_mels}, n_fft {n_fft}")
     win, tw, wc, bf, band, bw = _consts(audio.device, sample_rate, n_fft,
                                         n_mels, f_min, f_max)
     b, n = audio.shape
     frames = 1 + (n + 2 * (n_fft // 2) - n_fft) // hop_length
     out = torch.empty(b, n_mels, frames, device=audio.device,
                       dtype=torch.float32)
-    if route(n_fft, n_mels) == "dft":
+    plan = launch_plan(b, n, n_fft, hop_length, n_mels)
+    if plan["route"] == "global":
+        if b > 65535:
+            raise ValueError("mel_spectrogram's global route takes at most "
+                             f"65535 rows, got {b}")
+        ws, (pw,) = B.workspace(audio.device, [plan["power_bytes"]])
+        rc = B.function("asr_mel_spectrogram_global",
+                        [B.P, B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I,
+                         B.I, B.I, B.P])(
+            audio.data_ptr(), win.data_ptr(), tw.data_ptr(),
+            band.data_ptr(), bw.data_ptr(), out.data_ptr(), pw, b, n,
+            hop_length, n_fft, n_mels, B.stream_of(audio))
+        B.check(rc, "asr_mel_spectrogram_global")
+        n_l = plan["launches"] if b else 0
+        mel_spectrogram.launches += n_l
+        mel_spectrogram.routes["global"] += n_l
+        return out
+    if plan["route"] == "dft":
         rc = B.function("asr_mel_spectrogram_dft",
                         [B.P, B.P, B.P, B.P, B.P, B.P, B.I, B.I, B.I, B.I,
                          B.I, B.P])(
@@ -200,3 +232,4 @@ def mel_spectrogram(audio, sample_rate: int = 16000, n_fft: int = 1024,
 
 
 mel_spectrogram.launches = 0
+mel_spectrogram.routes = {"global": 0}

@@ -15,6 +15,13 @@ its weights come in the layout ``kernel_weights`` builds once per
 weight set.  The reductions
 read the validity mask directly instead of the TPU program's pooling
 matrices.  All arithmetic is f32; x comes back in its own dtype.
+
+Past the width where a 16-row tile's slot vectors and adapter outputs
+fit beside the weight ring (D 8,320 at the model's D2 = D / 2) the row
+kernel takes its global route (``launch_plan`` route "global", the same
+2 L + 1 launches): the slot's LayerNorm and gate vectors are read from
+device memory where they are used and each CTA's earlier passes' adapter
+outputs go to a scratch in device memory (``fused_sheath_scan.routes``).
 """
 
 from __future__ import annotations
@@ -158,6 +165,12 @@ def smem_bytes(rows: int, d: int, passes: int) -> int:
                 + (passes - 1) * rows * 72)
 
 
+def smem_bytes_global(rows: int) -> int:
+    """The global route's shared memory (``sh_smem_bytes_gl``): the ring
+    and the per-row values alone."""
+    return 4 * (3 * 2 * 32 * 72 + 37 * rows + 128)
+
+
 def launch_plan(n: int, d: int, d2: int, m_keys: int,
                 max_clusters: dict | None = None, batch: int = 1) -> dict:
     """The row kernel's launch for n rows: score columns (M + D2) and
@@ -168,7 +181,10 @@ def launch_plan(n: int, d: int, d2: int, m_keys: int,
     weights once per tile, so fewer, taller tiles stream less).  Past 8
     slices each CTA takes every 8th slice, one pass each, on 16-row
     tiles.  The memory kernel runs a block per (batch row, 32 channels)
-    and takes the EMA in the last block MEM_GROUP batch rows a pass."""
+    and takes the EMA in the last block MEM_GROUP batch rows a pass.
+    Where the 16-row tile's shared memory passes a block's (wide rows
+    only), the global route: ``route`` "global", the ring alone in shared
+    memory and ``aog_bytes`` of adapter outputs in device memory."""
     scp = 64 * -(-(m_keys + d2) // 64)
     dp = 64 * -(-d // 64)
     slices = max(scp, dp) // 64
@@ -180,11 +196,16 @@ def launch_plan(n: int, d: int, d2: int, m_keys: int,
                 and -(-n // r) <= max_clusters[r]):
             rows = r
             break
-    return dict(scp=scp, dp=dp, cluster=cluster, passes=passes, rows=rows,
+    plan = dict(scp=scp, dp=dp, cluster=cluster, passes=passes, rows=rows,
                 wide=d > WIDE_D, tiles=-(-n // rows),
                 smem=smem_bytes(rows, d, passes),
                 mem_blocks=batch * -(-d // 32),
                 mem_groups=-(-batch // MEM_GROUP))
+    if d > WIDE_D and plan["smem"] > SMEM_MAX:
+        plan.update(route="global", smem=smem_bytes_global(rows),
+                    aog_bytes=4 * plan["tiles"] * cluster * (passes - 1)
+                    * rows * 72)
+    return plan
 
 
 def max_clusters_on(dev, d: int, cluster: int) -> dict:
@@ -251,18 +272,17 @@ def kernel_weights(weights: dict, L: int) -> dict:
 
 def _launch():
     return B.function("asr_fused_sheath_scan",
-                      [B.I] + [B.P] * 31 + [B.I] * 11 + [B.F, B.P])
+                      [B.I] + [B.P] * 32 + [B.I] * 11 + [B.F, B.P])
 
 
 def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
                       weights: dict, L: int, thresh: float):
     """The MSheath eval scan over x2 (N = batch * C rows, D): the kernel
     sequence on CUDA tensors (x2 f32 or bf16; ``sampled`` a device int32
-    scalar; mem0, jump_s and the weights f32; any batch; any D where the
-    row kernel's shared memory (``launch_plan``) fits: past D 2048 the
-    rows stay in the f32 state, up to about 8,000), the plain version on
-    CPU tensors.  Returns (x, actions (L,)
-    int32, jstat (3,) int32)."""
+    scalar; mem0, jump_s and the weights f32; any batch; any D: past D
+    2048 the rows stay in the f32 state, past about 8,300 the global
+    route, ``launch_plan``), the plain version on CPU tensors.  Returns
+    (x, actions (L,) int32, jstat (3,) int32)."""
     if x2.device.type == "cpu":
         return sheath_scan_plain(x2, batch, valid, mem0, sampled, jump_s,
                                  weights, L, thresh)
@@ -316,8 +336,10 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
     xs = torch.empty(n, d, device=dev, dtype=torch.float32)
     actions = torch.empty(L, device=dev, dtype=torch.int32)
     jstat = torch.empty(3, device=dev, dtype=torch.int32)
-    _buf, (ion, mem, mem_w, ctl, counter, jump_w) = B.workspace(
-        dev, [4 * n, 4 * batch * d, 4 * batch * d, 8, 4, 4])
+    gl = plan.get("route") == "global"
+    _buf, (ion, mem, mem_w, ctl, counter, jump_w, aog) = B.workspace(
+        dev, [4 * n, 4 * batch * d, 4 * batch * d, 8, 4, 4,
+              plan.get("aog_bytes", 0)])
     args = {k: w[k].data_ptr() for k in WEIGHT_NAMES}
     args.update(mkinv=kw["mkinv"].data_ptr(), wsc=kw["wsc"].data_ptr(),
                 wad=kw["wad"].data_ptr())
@@ -328,13 +350,18 @@ def fused_sheath_scan(x2, batch: int, valid, mem0, sampled, jump_s,
         code, x2.data_ptr(), out.data_ptr(), B.ptr(valid), mem0.data_ptr(),
         sampled.data_ptr(), jump_s.data_ptr(), *[args[k] for k in order],
         xs.data_ptr(), ion, mem, mem_w, ctl, counter, jump_w,
-        actions.data_ptr(), jstat.data_ptr(), n, batch, c, d, d2, m_keys, L,
+        actions.data_ptr(), jstat.data_ptr(), aog if gl else None, n,
+        batch, c, d, d2, m_keys, L,
         plan["scp"], plan["dp"], B.dtype_code(kw["wsc"].dtype), plan["rows"],
         float(thresh), B.stream_of(x2))
     B.check(rc, "asr_fused_sheath_scan")
     # sheath_rows and sheath_mem_ctl per step, sheath_finish
-    fused_sheath_scan.launches += 2 * L + 1 if n else 0
+    n_l = 2 * L + 1 if n else 0
+    fused_sheath_scan.launches += n_l
+    if gl:
+        fused_sheath_scan.routes["global"] += n_l
     return out, actions, jstat
 
 
 fused_sheath_scan.launches = 0
+fused_sheath_scan.routes = {"global": 0}

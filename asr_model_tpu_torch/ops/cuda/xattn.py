@@ -1,5 +1,6 @@
 """Whole attention calls of the decode step: the CUDA kernels
-``csrc/xattn.cu`` and their plain PyTorch versions.
+``csrc/xattn.cu`` (and ``csrc/xattn_wide.cu``) and their plain PyTorch
+versions.
 
 Replaces ``asr_model_tpu/ops/pallas/xattn_kernel.py:fused_attn_cached``
 (cross-attention against a precomputed, processed K/V cache) and
@@ -28,12 +29,19 @@ exact softmax in one pass, the PV product and out_proj.  Other full
 calls (f32, longer key sets) take four CUDA-core launches.
 
 Other widths -- head widths other than 128 and 256 (up to 1024), rows
-past 2048 channels -- take the wide route of ``csrc/xattn.cu`` in either
+past 2048 channels -- take the wide route (``csrc/xattn_wide.cu``) in either
 dtype (route "wide"): the norms through ``fused_abby``'s kernel, a CUDA-core
 projection with the rotary in its epilogue, a two-pass softmax attention
 a (16-query tile, head, batch row; keys split over up to 8 blocks where
 those do not fill the card), out_proj; five launches a cached call, eight
 a full one, two more with a key split (``launch_plan_cached``).
+
+Past the wide route's widths the same chain takes global pieces (route
+"global"): head widths past 1024 take the attention as three launches
+through an f32 score matrix (``csrc/global_attn.cuh``, flash's global
+route), and a D (or head width) past AbbyNormal's cluster plan takes that
+norm as its global route's three launches (``abby.is_global``);
+``fused_attn_*.routes["global"]`` counts their launches.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ import torch
 from asr_model_tpu_torch.ops.cuda import build as B
 from asr_model_tpu_torch.ops.cuda import abby
 from asr_model_tpu_torch.ops.cuda.attention import _counters, _sm_count
-from asr_model_tpu_torch.ops.cuda.abby import abby_values
+from asr_model_tpu_torch.ops.cuda.abby import abby_values, linear_t
 
 NEG_INF = -1e30
 # the head widths and rows of xattn.cu's two routes; other widths take
@@ -108,7 +116,7 @@ def _side(x, w, freqs, head: int, size_d: int, akw, ct, kv: bool):
     b_, t_, d = x.shape
     n = abby_values(x.reshape(-1, d), *(w[k] for k in NORM_KEYS), size_d,
                     *akw).to(x.dtype).to(ct)
-    p = n @ w["proj_w"].to(ct).t() + w["proj_b"].to(ct)
+    p = linear_t(n, w["proj_w"], ct) + w["proj_b"].to(ct)
     p = p.reshape(b_, t_, -1)
     v = p[..., d:] if kv else None
     qk = p[..., :d] * (d // head) ** -0.25
@@ -131,7 +139,7 @@ def _attend_out(qhn, khn, v, kv_valid, causal: bool, wo, dt, ct):
     a = torch.einsum("bhqk,bhkd->bhqd", w, v.to(dt).to(ct))
     b_, h, t_, _ = a.shape
     o = a.transpose(1, 2).reshape(b_, t_, h * hd).to(dt).to(ct)
-    return (o @ wo["proj_w"].to(ct).t() + wo["proj_b"].to(ct)).to(dt)
+    return (linear_t(o, wo["proj_w"], ct) + wo["proj_b"].to(ct)).to(dt)
 
 
 def attn_cached_plain(x, kn, v, kv_valid, freqs, wq, wh, wo, head: int,
@@ -179,7 +187,7 @@ attn_full_plain.calls = 0
 # ---------------------------------------------------------------- kernels
 
 def _weights(wq, wkv, wh, wo):
-    """The 18 weights in the kernels' order (csrc/xattn.cu XaWeight)."""
+    """The 18 weights in the kernels' order (csrc/xattn.cuh XaWeight)."""
     out = [wq[n] for n in NORM_KEYS + PROJ_KEYS]
     out += ([wkv[n] for n in NORM_KEYS + PROJ_KEYS] if wkv is not None
             else [None] * 6)
@@ -200,7 +208,21 @@ def wide_splits(b: int, t: int, tk: int, head: int, sms: int = 132) -> int:
     return -(-tk // kps)
 
 
-def _wide_plan(b, t, tk, head, sms, launches):
+def _wide_plan(b, t, tk, d, head, dtype, sms, launches, norms):
+    """The wide route's plan, or the global route's where the head width
+    passes WIDE_MAX_HD (the attention: 3 launches, no key split) or a
+    norm passes AbbyNormal's cluster plan (each such norm call: 3
+    launches); ``norms`` counts the calls of the D-wide and the head
+    norms."""
+    hd = d // head
+    gl_attn = hd > WIDE_MAX_HD
+    extra = 2 * (norms[0] * abby.is_global(d, dtype)
+                 + norms[1] * abby.is_global(hd, dtype))
+    if gl_attn or extra:
+        return dict(route="global", splits=1,
+                    attention="global" if gl_attn else "wide",
+                    launches=launches + extra + (2 if gl_attn else 0),
+                    scores_bytes=4 * b * head * t * tk if gl_attn else 0)
     ns = wide_splits(b, t, tk, head, sms)
     return dict(route="wide", splits=ns,
                 launches=launches + (2 if ns > 1 else 0))
@@ -213,13 +235,11 @@ def narrow(d: int, head: int) -> bool:
 
 
 def supports(d: int, head: int) -> bool:
-    """The widths the kernels take: D = hd * heads a multiple of 64, an
-    even head width of at most WIDE_MAX_HD, and a D whose AbbyNormal fits
-    a block (``abby.launch_plan``)."""
+    """The widths the kernels take: D = hd * heads a multiple of 64 and
+    an even head width (past WIDE_MAX_HD, or past AbbyNormal's cluster
+    plan, the global route)."""
     return (head >= 1 and d % head == 0 and d % 64 == 0
-            and (d // head) % 2 == 0 and d // head <= WIDE_MAX_HD
-            and abby.launch_plan(1, d, torch.bfloat16)["smem"]
-            <= abby.SMEM_MAX)
+            and (d // head) % 2 == 0)
 
 
 def _check(name, x, tensors, head, weights, kv_valid, tk):
@@ -236,7 +256,7 @@ def _check(name, x, tensors, head, weights, kv_valid, tk):
     if not ok:
         raise ValueError(
             f"{name} kernels take contiguous (B, T, D = hd * heads, a "
-            f"multiple of 64, hd even and <= {WIDE_MAX_HD}) "
+            "multiple of 64, hd even) "
             "inputs and torch-layout weights of one dtype on one device and "
             f"a (B, Tk) bool mask; got x {tuple(x.shape)} {x.dtype}, "
             f"{head} heads")
@@ -251,16 +271,22 @@ def _cuda_freqs(x, freqs):
 
 
 def _wide_call(full, x, xa, kn, v, kv_valid, fr, ws, head, size_d, size_h,
-               alpha, k, beta, causal, ns):
-    """The wide route (``asr_fused_attn_wide``) with ``ns`` key splits:
-    out (B, T, D)."""
+               alpha, k, beta, causal, plan):
+    """The wide or global route (``asr_fused_attn_wide``) with the plan's
+    key splits: out (B, T, D)."""
     b_, t_, d = x.shape
     tk = (xa if full else kn).shape[1 if full else 2]
     es = x.element_size()
     hd = d // head
+    ns = plan["splits"]
+    rows = b_ * max(t_, tk if full else 0)
+    gnorm = plan["route"] == "global" and (abby.is_global(d, x.dtype)
+                                           or abby.is_global(hd, x.dtype))
     sizes = ([b_ * t_ * d * es] * 4 + [b_ * tk * d * es * full] * 4
              + ([4 * b_ * head * ns * t_ * 2, 4 * b_ * head * ns * t_ * hd]
-                if ns > 1 else [0, 0]))
+                if ns > 1 else [0, 0])
+             + [plan.get("scores_bytes", 0), rows * d * es * gnorm,
+                4 * rows * head * gnorm])
     work, pieces = B.workspace(x.device, sizes)
     out = torch.empty_like(x)
     fn = B.function("asr_fused_attn_wide",
@@ -270,7 +296,8 @@ def _wide_call(full, x, xa, kn, v, kv_valid, fr, ws, head, size_d, size_h,
     rc = fn(B.dtype_code(x.dtype), int(full), x.data_ptr(), B.ptr(xa),
             B.ptr(kn), B.ptr(v), B.ptr(kv_valid), fr.data_ptr(),
             B.ptr_array([B.ptr(w) for w in ws]), out.data_ptr(),
-            B.ptr_array(pieces), b_, t_, tk, d, head, int(bool(causal)),
+            B.ptr_array([p if n else None for p, n in zip(pieces, sizes)]),
+            b_, t_, tk, d, head, int(bool(causal)),
             int(size_d), int(size_h), float(alpha), float(k), float(beta),
             int(ns), B.stream_of(x))
     B.check(rc, "asr_fused_attn_wide")
@@ -322,7 +349,8 @@ def launch_plan_cached(b: int, t: int, tk: int, d: int, dtype,
     head = head or d // 128
     hd = d // head
     if not narrow(d, head):
-        return _wide_plan(b, t, tk, head, sms, LAUNCHES_WIDE_CACHED)
+        return _wide_plan(b, t, tk, d, head, dtype, sms,
+                          LAUNCHES_WIDE_CACHED, (1, 1))
     tiles_rows = -(-b * t // ROWS)
     if not (dtype == torch.bfloat16 and operands_ok and tiles_rows <= 65535
             and b * head <= 65535):
@@ -380,11 +408,13 @@ def fused_attn_cached(x, kn, v, kv_valid, freqs, wq, wh, wo, head: int,
           and max(size_d, size_h) <= abby.MAX_TAPS)
     plan = launch_plan_cached(b_, t_, tk, d, x.dtype, ok,
                               _sm_count(x.device.index or 0), head)
-    if plan["route"] == "wide":
+    if plan["route"] in ("wide", "global"):
         out = _wide_call(False, x, None, kn, v, kv_valid, fr, ws, head,
-                         size_d, size_h, alpha, k, beta, False,
-                         plan["splits"])
-        fused_attn_cached.launches += plan["launches"] if b_ else 0
+                         size_d, size_h, alpha, k, beta, False, plan)
+        n_l = plan["launches"] if b_ else 0
+        fused_attn_cached.launches += n_l
+        if plan["route"] == "global":
+            fused_attn_cached.routes["global"] += n_l
         return out
     tc = plan["route"] == "tc"
     stream = B.stream_of(x)
@@ -412,6 +442,7 @@ def fused_attn_cached(x, kn, v, kv_valid, freqs, wq, wh, wo, head: int,
 
 
 fused_attn_cached.launches = 0
+fused_attn_cached.routes = {"global": 0}
 
 
 def _align(n: int) -> int:
@@ -455,7 +486,8 @@ def launch_plan_full(b: int, t: int, ta: int, d: int, dtype,
     head = head or d // 128
     hd = d // head
     if not narrow(d, head):
-        return _wide_plan(b, t, ta, head, sms, LAUNCHES_WIDE_FULL)
+        return _wide_plan(b, t, ta, d, head, dtype, sms, LAUNCHES_WIDE_FULL,
+                          (2, 2))
     tiles = -(-b * t // ROWS) + -(-b * ta // ROWS)
     if not (dtype == torch.bfloat16 and ta <= TC_MAX_KEYS and operands_ok
             and tiles <= 65535 and b <= 65535):
@@ -496,11 +528,13 @@ def fused_attn_full(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head: int,
           and max(size_d, size_h) <= abby.MAX_TAPS)
     plan = launch_plan_full(b_, t_, ta, d, x.dtype, ok, head,
                             _sm_count(x.device.index or 0))
-    if plan["route"] == "wide":
+    if plan["route"] in ("wide", "global"):
         out = _wide_call(True, x, xa, None, None, kv_valid, fr, ws, head,
-                         size_d, size_h, alpha, k, beta, causal,
-                         plan["splits"])
-        fused_attn_full.launches += plan["launches"] if b_ else 0
+                         size_d, size_h, alpha, k, beta, causal, plan)
+        n_l = plan["launches"] if b_ else 0
+        fused_attn_full.launches += n_l
+        if plan["route"] == "global":
+            fused_attn_full.routes["global"] += n_l
         return out
     tc = plan["route"] == "tc"
     if tc:                        # normed rows, then q, k, v heads
@@ -527,3 +561,4 @@ def fused_attn_full(x, xa, kv_valid, freqs, wq, wkv, wh, wo, head: int,
 
 
 fused_attn_full.launches = 0
+fused_attn_full.routes = {"global": 0}

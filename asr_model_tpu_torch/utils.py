@@ -18,6 +18,21 @@ def aborc(a, b, c):
     return aorb(a, aorb(b, c))
 
 
+def abcord(a, b, c, d):
+    return aorb(a, aborc(b, c, d))
+
+
+def no_none(x: dict) -> dict:
+    """The entries of a feature dict that are not None."""
+    return {k: v for k, v in x.items() if v is not None}
+
+
+def exact_div(x: int, y: int) -> int:
+    if x % y:
+        raise ValueError(f"{x} is not a multiple of {y}")
+    return x // y
+
+
 def l2norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-12):
     """``F.normalize`` semantics: t / max(||t||, eps), with a norm that
     is exactly 0 (not NaN) for an all-zero row."""

@@ -18,6 +18,11 @@ the flax tree (``processor.block3.attn.q_proj``, ``enc.enc0_convlite.bn``,
   the MoE experts' stacked (E, in, out) kernels, the encoder layer's
   ``SelfAttention_0`` (D, H, hd) / (H, hd, D) kernels).
 
+The latent modules (``models/extras.py``, ``gates.Gate`` and ``OneShot``,
+``norms.ChannelLayerNorm``) follow the same rules: their Dense layers
+transposed, their stacked and scalar parameters (``imp_w``,
+``span_scale``, ...) as they are.
+
 ``model.load_state_dict(from_jax_params(...), strict=True)`` checks that
 the two trees hold the same tensors.  ``to_jax_params(model)`` is the
 inverse (the flax ``params`` and ``batch_stats`` trees of a model), and

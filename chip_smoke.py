@@ -81,7 +81,7 @@
    the call, bf16 then f32, while the process is fresh: PERF.md §6),
    then step ms (median of 2, step 0 the warm-up), utterances and audio
    seconds per wall second, peak memory, one step's launches and device
-   ms (torch.profiler), and 5 steps on the batch (finite, the loss
+   ms (torch.profiler), and 3 steps on the batch (finite, the loss
    falling); then the training CLI (16 synthetic utterances, 4 steps of
    8, bf16, DIO on the host, eval, a checkpoint read back and a resumed
    run). The path must launch mel and flash (and the eval's kernels on
@@ -116,7 +116,7 @@
    its train step 0 bf16 (loss) and f32 (loss and grad norm, with the
    witness) on the tones cut to 2.55 s, then one timed f32 step (step
    ms, peak memory, the MoE aux term of its forward), one profiled
-   (launches, device ms) and 3 more (the loss falling); MSheath's
+   (launches, device ms) and 2 more (the loss falling); MSheath's
    mini-HC paths as a module (``minihc_module``: no ModelConfig field
    builds them, as in the JAX package): its eval forward in f32 and bf16
    and its train gradients in f32 on the card against the CPU's, with
@@ -141,9 +141,29 @@
    and must
    launch flash (the SP run: the serve path's kernels, the MLP's and
    the router's) and no plain version.
-9. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
-   path), the card line, and as its last line ``{"ok": true, "device":
-   {...}}``.
+9. Past the kernels' shared-memory plans ("limits", ``check_limits``):
+   each route that keeps rows, heads or frames in device memory, at the
+   smallest shape past its limit the JAX gate admits, weights and inputs
+   made on the card from a seed: flash at head width 2048 (8, 1, 1001,
+   2048) causal with a prefix mask; both whole attention calls at one
+   head of 2048 and at D 59,520 (93 heads of 640: the norms past
+   AbbyNormal's cluster plan; 6 D^2 bf16 weights, 42.5 GB); the
+   residual MLP at 16 TGate types and at D 59,520 (10 D^2 bf16 weights,
+   70.8 GB); AbbyNormal at (6, 59520); the MSheath scan at D 8,448 (2 x
+   59 rows); the mel at n_fft 38,742.  Each is held against its plain
+   version at its in-limit route's tolerance and timed (kernel, plain,
+   library where one PyTorch call computes it), and must launch its
+   route (``<wrapper>.routes``).
+10. The latent modules (``latent_modules``): ``models/extras.py``,
+   ``Gate``, ``OneShot``, ``taylor_softmax``, ``rbf_scores``,
+   ``ChannelLayerNorm``, ``Identity`` and ``peak_normalize`` on CUDA
+   tensors in f32 and bf16 against the same weights on the CPU, and
+   ``extract_features`` with every flag (pitch tokens, WORLD harmonics
+   and aperiodics, phase) on the 8 tones: finite, the JAX shapes, ms.
+11. Prints the paths' JSON line, the ``kernels`` JSON line (launches by
+   path; each route an entry ``<wrapper>/<route>``, with its launches in
+   the limits phase), the card line, and as its last line ``{"ok":
+   true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -1117,6 +1137,538 @@ def check_lifted_shapes() -> dict:
     add("fused_abby_tail", _tail_entry(
         "lifted (8*9, 4608) + f32 logits",
         (x, lg, abby.window_size(d), 1e-4, 1.0, 0.75)))
+    return out
+
+
+# ------------------------------------------- past the shared-memory plans
+
+LIMIT_SOURCES = {
+    "mel_spectrogram/global": ("asr_model_tpu_torch/csrc/mel.cu",
+                               "asr_model_tpu/ops/pallas/mel_kernel.py:119"),
+    "flash_attention/global": ("asr_model_tpu_torch/csrc/global_attn.cuh",
+                               "asr_model_tpu/ops/pallas/attention_kernel.py"
+                               ":156"),
+    "fused_abby/global": ("asr_model_tpu_torch/csrc/abby.cu",
+                          "asr_model_tpu/ops/pallas/abby_kernel.py:180"),
+    "fused_sheath_scan/global": ("asr_model_tpu_torch/csrc/sheath.cu",
+                                 "asr_model_tpu/ops/pallas/sheath_kernel.py"
+                                 ":180"),
+    "fused_attn_cached/global": ("asr_model_tpu_torch/csrc/xattn_wide.cu",
+                                 "asr_model_tpu/ops/pallas/xattn_kernel.py"
+                                 ":275"),
+    "fused_attn_full/global": ("asr_model_tpu_torch/csrc/xattn_wide.cu",
+                               "asr_model_tpu/ops/pallas/xattn_kernel.py:333"),
+    "fused_mlp_residual/types": ("asr_model_tpu_torch/csrc/mlp.cu",
+                                 "asr_model_tpu/ops/pallas/mlp_kernel.py:125"),
+    "fused_mlp_residual/global": ("asr_model_tpu_torch/csrc/mlp.cu",
+                                  "asr_model_tpu/ops/pallas/mlp_kernel.py"
+                                  ":125"),
+}
+ABBY_GLOBAL_D = 59520        # the first multiple of 128 past the bf16
+                             # cluster plan (59,392)
+ABBY_GLOBAL_D_F32 = 92288    # ... past the f32 one (92,160)
+SHEATH_GLOBAL_D = 8448       # the first multiple of 128 past the row
+                             # kernel's shared memory (8,320)
+MEL_GLOBAL_FFT = 38742       # the first n_fft past one frame in shared
+                             # memory (38,740)
+
+
+def _uniform(g, *shape, sc: float = 1.0, dtype=None):
+    """Weights U(-sc, sc), bf16 unless ``dtype`` says otherwise, made in
+    place on the card (no f32 copy: the widest cases hold tens of GB)."""
+    import torch
+    return torch.empty(*shape, device=DEV,
+                       dtype=dtype or torch.bfloat16).uniform_(
+        -sc, sc, generator=g)
+
+
+def _limit_entry(key: str, label: str, fn, plain_fn, judge, cost,
+                 peak: float, lib_fn=None) -> dict:
+    """One route at one shape: a counted call (the route's launches),
+    the plain version, ``judge(got, want)`` (its checks; returns the max
+    abs err), then kernel, plain and library device ms; ``cost()`` gives
+    the function's (operations, bytes) for its bound, read after the
+    judge (a count that depends on this run's data)."""
+    import torch
+    from asr_model_tpu_torch.ops import cuda as kernels
+    kernels.reset_counts()
+    got = fn()
+    torch.cuda.synchronize()
+    launches = kernels.counts()[key]["launches"]
+    want = plain_fn()
+    e = judge(got, want)
+    del got, want
+    check(launches > 0, f"{key} {label}: {launches} launches of the route")
+    ms = cuda_ms(fn, iters=3, warmup=1)
+    plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
+    flops, nb = cost()
+    b_ms, b_by = bound_ms(flops, nb, peak)
+    lib = cuda_ms(lib_fn, iters=3, warmup=1) if lib_fn else None
+    log(f"limits {key} {label}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+        f"{b_ms:.5f} by {b_by}{'' if lib is None else f', library {lib:.4f}'}"
+        f"), {launches} launches")
+    return dict(shape=label, max_abs_err=e, launches=launches, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, **rates(flops, ms, b_ms))
+
+
+def check_limits() -> list:
+    """The "limits" phase: each route past a kernel's shared-memory plan
+    at the smallest shape past its limit that the JAX gate admits (flash
+    and the MLP at the two limits a config can reach: head width 2048
+    and 16 TGate types), weights and inputs made on the card from a
+    seed, held against its plain version at its in-limit route's
+    tolerance and timed.  Returns the ``kernels`` entries, one a route."""
+    import torch
+    from asr_model_tpu_torch.models.rotary import compute_freqs
+    from asr_model_tpu_torch.models.sheath import masked_mean
+    from asr_model_tpu_torch.ops.cuda import (abby, attention, mel, mlp,
+                                              sheath, xattn)
+    from asr_model_tpu_torch.ops.mel import mel_filterbank
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(41)
+    out: dict = {}
+    add = lambda key, entry: out.setdefault(key, []).append(entry)
+    akw = dict(alpha=1e-4, k=1.0, beta=0.75)
+
+    def fused_judge(label):
+        return lambda got, want: _fused_close(label, got, want,
+                                              got.shape[-1])
+
+    # flash past head width 1024: a dims-2048 one-head encoder's self
+    # attention (8, 1, 1001, 2048), causal, with a prefix mask
+    b_, h, t, hd = BATCH, 1, 1001, 2048
+    q, k, v = (torch.randn(b_, h, t, hd, device=dev, generator=g).bfloat16()
+               for _ in range(3))
+    lens = 1001 - 100 * torch.arange(b_, device=dev)
+    valid = torch.arange(t, device=dev)[None] < lens[:, None]
+    mask = (torch.ones(t, t, dtype=torch.bool, device=dev).tril()[None, None]
+            & valid[:, None, None, :])
+
+    def flash_judge(got, want):
+        e, bad, rows = close_rows(got, want, 0.0, FLASH_TOL, hd)
+        check(bad == 0, f"flash_attention global (8,1,1001,2048) causal + "
+              f"kv_valid: max abs err {e:.3e}, {bad}/{rows} rows out "
+              f"(tolerance {FLASH_TOL:g} max|plain| per row)")
+        return e
+    add("flash_attention/global", _limit_entry(
+        "flash_attention/global", "(8,1,1001,2048) causal + kv_valid",
+        lambda: attention.flash_attention(q, k, v, True, valid),
+        lambda: attention.attention_plain(q.float(), k.float(), v.float(),
+                                          True, valid),
+        flash_judge, lambda: (4.0 * h * _pairs(t, t, True, valid) * hd,
+                              nbytes(q, k, v, q, valid)), BF16_PEAK,
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)))
+    del q, k, v, mask
+
+    # the whole attention calls past head width 1024: D 2048, one head
+    # of 2048 (the cached call against 1001 keys, the full call self
+    # causal over 9 rows: the JAX gates' K/V bounds)
+    d, heads, t, tk = 2048, 1, 9, 1001
+    hd = d // heads
+    r = lambda *sh, sc=1.0: _uniform(g, *sh, sc=sc)
+    norm = lambda m: dict(zip(("n_w1", "n_b1", "n_w2", "n_b2"),
+                              (r(m, m, sc=m ** -0.5), r(m, sc=0.1),
+                               r(3, m, sc=m ** -0.5), r(3, sc=0.1))))
+    proj = lambda o, i: {"proj_w": r(o, i, sc=i ** -0.5),
+                         "proj_b": r(o, sc=0.1)}
+
+    def attn_case(d, heads, t, tk, label, full_t=None):
+        hd = d // heads
+        wq, wh, wo = norm(d) | proj(d, d), norm(hd), proj(d, d)
+        kw = dict(head=heads, size_d=abby.window_size(d),
+                  size_h=abby.window_size(hd), **akw)
+        x = torch.randn(1 if d > 4096 else BATCH, t, d, device=dev,
+                        generator=g).bfloat16() * 0.5
+        bsz, nq = x.shape[0], x.shape[0] * t
+        wbytes = sum(nbytes(*m.values()) for m in (wq, wh, wo))
+        q_side = (_abby_ops(nq, d, kw["size_d"]) + 2.0 * nq * d * d
+                  + _abby_ops(nq * heads, hd, kw["size_h"]))
+        kn = torch.randn(bsz, heads, tk, hd, device=dev,
+                         generator=g).bfloat16()
+        vv = torch.randn(bsz, heads, tk, hd, device=dev,
+                         generator=g).bfloat16()
+        cvalid = torch.ones(bsz, tk, dtype=torch.bool, device=dev)
+        fr = torch.from_numpy(compute_freqs(d, heads, False)).to(dev)
+        cargs = (x, kn, vv, cvalid, fr)
+        ckw = dict(kw, wq=wq, wh=wh, wo=wo)
+        lab = f"x ({bsz},{t},{d}), {heads} heads of {hd}, {tk} keys"
+        add("fused_attn_cached/global", _limit_entry(
+            "fused_attn_cached/global", lab,
+            lambda: xattn.fused_attn_cached(*cargs, **ckw),
+            lambda: xattn.attn_cached_plain(*cargs, **ckw),
+            fused_judge(f"fused_attn_cached global {lab}"),
+            lambda: (q_side + heads * nq * tk * 4.0 * hd + 2.0 * nq * d * d,
+                     nbytes(x, kn, vv, x) + wbytes), BF16_PEAK))
+        del kn, vv, cargs
+        ft = full_t or t
+        xf = x[:, :ft].contiguous()
+        wkv = norm(d) | proj(2 * d, d)
+        fvalid = (torch.arange(ft, device=dev) < max(ft - 1, 1))[None] \
+            .expand(bsz, ft).contiguous()
+        fr = torch.from_numpy(compute_freqs(d, heads, True)).to(dev)
+        fargs = (xf, xf, fvalid, fr)
+        fkw = dict(kw, wq=wq, wkv=wkv, wh=wh, wo=wo)
+        nf = bsz * ft
+        q_side = (_abby_ops(nf, d, kw["size_d"]) + 2.0 * nf * d * d
+                  + _abby_ops(nf * heads, hd, kw["size_h"]))
+        lab = (f"self causal ({bsz},{ft},{d}) + kv_valid, {heads} heads of "
+               f"{hd}")
+        add("fused_attn_full/global", _limit_entry(
+            "fused_attn_full/global", lab,
+            lambda: xattn.fused_attn_full(*fargs, causal=True, **fkw),
+            lambda: xattn.attn_full_plain(*fargs, causal=True, **fkw),
+            fused_judge(f"fused_attn_full global {lab}"),
+            lambda: (2 * q_side + 2.0 * nf * d * d
+                     + heads * _pairs(ft, ft, True, fvalid) * (4.0 * hd + 5)
+                     + 2.0 * nf * d * d,
+                     nbytes(xf, fvalid, xf) + wbytes
+                     + nbytes(*wkv.values())), BF16_PEAK))
+    attn_case(2048, 1, 9, 1001, "hd 2048")
+    torch.cuda.empty_cache()
+    # past AbbyNormal's cluster plan: D 59,520, 93 heads of 640 (the JAX
+    # gates: x.size <= 400k, 35 cached keys and 2 kv rows a call at this
+    # D); weights 6 D^2 bf16, 42.5 GB
+    attn_case(ABBY_GLOBAL_D, 93, 6, 35, "D 59520", full_t=2)
+    torch.cuda.empty_cache()
+
+    # the residual MLP past 12 TGate types: (8*9, 512), 16 gates
+    def mlp_args(n, d, nt):
+        hid = nt * d
+        x = torch.randn(n, d, device=dev, generator=g).bfloat16()
+        return (x, (r(d, d, sc=d ** -0.5), r(d, sc=0.1), r(3, d, sc=d ** -0.5),
+                    r(3, sc=0.1)),
+                r(nt, d, sc=d ** -0.5), r(nt, sc=0.1),
+                [(r(d, d, sc=d ** -0.5), r(d, sc=0.1)) for _ in range(nt)],
+                r(hid, d, sc=d ** -0.5), r(hid, sc=0.1),
+                r(d, hid, sc=hid ** -0.5), r(d, sc=0.1), abby.window_size(d),
+                1e-4, 1.0, 0.75)
+
+    for key, n, d, nt in (("fused_mlp_residual/types", BATCH * 9, 512, 16),
+                          ("fused_mlp_residual/global", 6, ABBY_GLOBAL_D, 3)):
+        margs = mlp_args(n, d, nt)
+        hid = nt * d
+        wb = nbytes(*margs[1], margs[2], margs[3],
+                    *[t_ for gw in margs[4] for t_ in gw], *margs[5:9])
+        lab = f"({n}, {d}), {nt} gates, hidden {hid}"
+        add(key, _limit_entry(
+            key, lab, lambda: mlp.fused_mlp_residual(*margs),
+            lambda: mlp.mlp_residual_plain(*margs),
+            fused_judge(f"fused_mlp_residual {key.split('/')[1]} {lab}"),
+            lambda: (_mlp_ops(n, d, nt, hid),
+                     nbytes(margs[0], margs[0]) + wb), BF16_PEAK))
+        del margs
+        torch.cuda.empty_cache()
+
+    # AbbyNormal past its cluster plans: (6, 59520) bf16 and (6, 92288)
+    # f32 (a 34.1 GB W1)
+    for d, dt in ((ABBY_GLOBAL_D, torch.bfloat16),
+                  (ABBY_GLOBAL_D_F32, torch.float32)):
+        n = 6
+        x = (torch.randn(n, d, device=dev, generator=g) * 2.0).to(dt)
+        w = (_uniform(g, d, d, sc=d ** -0.5, dtype=dt),
+             _uniform(g, d, sc=0.1, dtype=dt),
+             _uniform(g, 3, d, sc=d ** -0.5, dtype=dt),
+             _uniform(g, 3, sc=0.1, dtype=dt))
+        size = abby.window_size(d)
+        lab = f"({n}, {d}) {'bf16' if dt == torch.bfloat16 else 'f32'}"
+
+        def abby_judge(got, want, lab=lab, d=d):
+            e, bad, rows = close_rows(got, want, 8e-3, 1e-3, d)
+            check(bad <= rows // 100, f"fused_abby global {lab}: max abs "
+                  f"err {e:.3e}, {bad}/{rows} rows out (tolerance 8e-3 "
+                  "|plain| + 1e-3 max|plain|, one bf16 rounding; at most 1% "
+                  "of rows may route differently on a near tie)")
+            return e
+        add("fused_abby/global", _limit_entry(
+            "fused_abby/global", lab,
+            lambda: abby.fused_abby(x, *w, size, **akw),
+            lambda: abby.abby_plain(x, *w, size, **akw), abby_judge,
+            lambda: (_abby_ops(n, d, size), nbytes(x, x, *w)),
+            BF16_PEAK if dt == torch.bfloat16 else F32_PEAK))
+        del x, w
+        torch.cuda.empty_cache()
+    # named and left out: past the f32 plan the whole calls' and the
+    # MLP's weights do not fit on the card
+    dd = ABBY_GLOBAL_D_F32
+    for what, count in (("fused_attn_cached/global f32", 3),
+                        ("fused_attn_full/global f32", 6),
+                        ("fused_mlp_residual/global f32", 10)):
+        log(f"limits left out: {what} at D {dd} ({n} rows): {count} D^2 f32 "
+            f"weights, {count * dd * dd * 4 / 1e9:.1f} GB, past the card's "
+            "80 GB")
+
+    # the MSheath scan past the row kernel's shared memory: D 8448, 2
+    # batch rows of 59 (118 rows, the JAX gate's 1M elements)
+    jm = _wide_sheath(dev, SHEATH_GLOBAL_D, SHEATH_GLOBAL_D // 128)
+    d, bsz, ctx = SHEATH_GLOBAL_D, 2, 59
+    w = jm.scan_weights()
+    sw = {kk: w[kk] for kk in sheath.WEIGHT_NAMES}
+    kw = sheath.kernel_weights(sw, jm.layer)
+    n_prod = 3 if kw["split"] else 2
+    x = torch.randn(bsz, ctx, d, device=dev, generator=g).bfloat16()
+    valid = torch.arange(ctx, device=dev)[None] < torch.tensor(
+        [[ctx], [ctx - 9]], device=dev)
+    pooled = masked_mean(x, valid, dim=1)[:, 0]
+    sampled = torch.argmax(jm.pnet(pooled).mean(0)).to(torch.int32)
+    args = (x.reshape(-1, d), bsz, valid, w["mem0"], sampled, w["jump_s"],
+            sw, jm.layer, jm.thresh)
+
+    def sheath_judge(got, want):
+        (gx, ga, gj), (px, pa, pj) = got, want
+        e, bad, rows = close_rows(gx, px, 8e-3, 1e-3, d)
+        same = ga.tolist() == pa.tolist() and gj.tolist() == pj.tolist()
+        check(bad <= rows // 1000 and same,
+              f"fused_sheath_scan global ({bsz}*{ctx}, {d}) + valid: max abs"
+              f" err {e:.3e}, {bad}/{rows} rows out, actions {ga.tolist()} "
+              f"vs {pa.tolist()} (tolerance 8e-3 |plain| + 1e-3 max|plain| "
+              "per element; actions and jstat exact)")
+        sheath_judge.actions = ga.tolist()
+        return e
+    nrows = bsz * ctx
+    m, d2 = jm.mem, d // 2
+
+    def sheath_cost():
+        """The executed slots' operations and bytes, from this run's
+        actions."""
+        slots, i = [], 0
+        for a in sheath_judge.actions:
+            if i >= jm.layer:
+                break
+            slots.append(i)
+            i = min(i + a + 1, jm.layer) if a > 0 else i + 1
+        flops = sum(2.0 * nrows * d * (m + d2) + (2.0 * nrows * d * d
+                                                  if s_ % 2 == 0 else 0)
+                    + 30.0 * nrows * d for s_ in slots)
+        return flops, (nbytes(x, x, valid, w["mem0"], w["jump_s"])
+                       + _sheath_weight_bytes(sw, kw, slots))
+    entry = _limit_entry(
+        "fused_sheath_scan/global", f"({bsz}*{ctx}, {d}) + valid",
+        lambda: sheath.fused_sheath_scan(*args),
+        lambda: sheath.sheath_scan_plain(*args), sheath_judge, sheath_cost,
+        TF32_PEAK / n_prod)
+    entry["tf32_products"] = n_prod
+    add("fused_sheath_scan/global", entry)
+    del jm, w, sw, kw, x, args
+    torch.cuda.empty_cache()
+
+    # the mel past one frame in shared memory: n_fft 38,742, 128 mels, a
+    # 3 s utterance (the JAX kernel takes one 1-D utterance a call)
+    n_fft, n_mels = MEL_GLOBAL_FFT, 128
+    audio = torch.from_numpy(tones(1, 3.0)).to(dev)
+    mkw = dict(n_fft=n_fft, hop_length=HOP, n_mels=n_mels)
+    fb = torch.from_numpy(mel_filterbank(n_fft // 2 + 1, 50.0, 8000.0,
+                                         n_mels)).to(dev)
+    win = torch.hann_window(n_fft, device=dev)
+
+    def mel_judge(got, want):
+        err = (got - want).abs()
+        check(bool((err <= 2e-3 * want.abs() + 2e-3).all()),
+              f"mel_spectrogram global (1, 48000) n_fft {n_fft}, {n_mels} "
+              f"mels: max abs err {float(err.max()):.3e} (tolerance 2e-3 "
+              "|plain| + 2e-3 on every bin, the direct DFT route's)")
+        return float(err.max())
+
+    def lib_mel():
+        sp = torch.stft(audio, n_fft, HOP, window=win, center=True,
+                        pad_mode="constant", return_complex=True)
+        return torch.einsum("bft,fm->bmt", sp.real ** 2 + sp.imag ** 2, fb)
+    frames = 1 + audio.shape[1] // HOP
+    nnz = int(torch.count_nonzero(fb))
+    add("mel_spectrogram/global", _limit_entry(
+        "mel_spectrogram/global", f"audio (1, 48000) f32, n_fft {n_fft}, "
+        f"{n_mels} mels",
+        lambda: mel.mel_spectrogram(audio, **mkw),
+        lambda: mel.mel_spectrogram_plain(audio, **mkw), mel_judge,
+        lambda: (frames * (2.5 * n_fft * np.log2(n_fft)
+                           + 3.0 * (n_fft // 2 + 1) + 2.0 * nnz),
+                 nbytes(audio) + 4 * n_mels * frames), F32_PEAK, lib_mel))
+
+    entries = []
+    for key, shapes in out.items():
+        src, rep = LIMIT_SOURCES[key]
+        entries.append(dict(name=key, route="cuda", source=src, replaces=rep,
+                            limits_launches=shapes[0]["launches"],
+                            **{k: shapes[0][k] for k in shapes[0]
+                               if k not in ("shape", "launches")},
+                            shape=shapes[0]["shape"], shapes=shapes))
+    return entries
+
+
+# ---------------------------------------------------------- latent modules
+
+LATENT_TOL = {"f32": 1e-4, "bf16": 5e-2}
+
+
+def _latent_close(label, got, want, tol_name: str) -> float:
+    """|got - want| against max|want|, on the tolerance of ``tol_name``;
+    every value finite."""
+    import torch
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+    check(bool(torch.isfinite(g).all()) and rel <= LATENT_TOL[tol_name],
+          f"latent {label} {tol_name} on the card against the CPU: "
+          f"{rel:.3e} of max|CPU| (tolerance {LATENT_TOL[tol_name]:g}: f32 "
+          "sums in other orders; bf16 one rounding a stage against the "
+          "CPU's f32)")
+    return rel
+
+
+def latent_modules() -> dict:
+    """The "latent modules" phase: every module and function of
+    ``models/extras.py``, ``Gate``, ``OneShot``, ``taylor_softmax``,
+    ``rbf_scores``, ``ChannelLayerNorm``, ``Identity`` and
+    ``peak_normalize`` on CUDA tensors, f32 and bf16, against the same
+    weights on the CPU in f32 (``MyelinatedLayer`` in the noise-free
+    limit and with one set of jump draws given to both devices; its
+    bf16 run read, every value finite, not gated: its importance
+    thresholds may round the other way); ``wideband_freqs`` and
+    ``init_w`` on a card model against the CPU's; then
+    ``extract_features`` with every flag on the 8 tones (the host
+    features: finite, the JAX package's shapes, ms)."""
+    import copy
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from asr_model_tpu_torch.config import Dimensions, ModelConfig
+    from asr_model_tpu_torch.data.features import extract_features
+    from asr_model_tpu_torch.data.tokenizer import setup_tokenizer
+    from asr_model_tpu_torch.models import attention as matt
+    from asr_model_tpu_torch.models import extras, gates, norms, rotary
+    from asr_model_tpu_torch.models import stochastic
+    from asr_model_tpu_torch.models.model import Model, init_w
+    from asr_model_tpu_torch.models.tlayers import reset_all
+    from asr_model_tpu_torch.ops.audio import peak_normalize
+    out: dict = {}
+    gen = torch.Generator().manual_seed(51)
+    cpu = lambda *sh: torch.randn(*sh, generator=gen)
+    d, h, b, t = 512, 4, 4, 33
+    x, xa = cpu(b, t, d), cpu(b, 48, d)
+    mods = {"Curiosity": extras.Curiosity(d, h, device="cpu"),
+            "AdaptiveSpan": extras.AdaptiveSpan(d, h, max_dist=24,
+                                                device="cpu"),
+            "MyelinatedLayer": extras.MyelinatedLayer(d, h, 4,
+                                                      device="cpu"),
+            "Gate": gates.Gate(d, 4, device="cpu"),
+            "OneShot": gates.OneShot(d, h, device="cpu"),
+            "ChannelLayerNorm": norms.ChannelLayerNorm(d, device="cpu"),
+            "Identity": norms.Identity()}
+    for m in mods.values():
+        reset_all(m, gen)
+    with torch.no_grad():
+        mods["Curiosity"].g.copy_(torch.tensor([0.5, -1.0, 0.2, 1.5]))
+        mods["AdaptiveSpan"].span_scale.fill_(0.7)
+    mask = torch.ones(t, t, dtype=torch.bool).triu(1)[None, None]
+    q, k, v = cpu(b, h, t, 64), cpu(b, h, 48, 64), cpu(b, h, 48, 64)
+    draws = torch.rand(4, b, generator=gen)
+    calls = {
+        "create_attention_mask": lambda dev, dt, M: extras
+        .create_attention_mask(b, t, True, (torch.arange(t, device=dev)
+                                            < t - 5)[None].expand(b, t),
+                               device=dev),
+        "calculate_attention": lambda dev, dt, M: extras.calculate_attention(
+            q.to(dev, dt), k.to(dev, dt), v.to(dev, dt), None, 0.7,
+            True)[0],
+        "Curiosity": lambda dev, dt, M: M["Curiosity"](
+            x.to(dev, dt), xa.to(dev, dt), mask.to(dev)),
+        "AdaptiveSpan": lambda dev, dt, M: M["AdaptiveSpan"](
+            x.to(dev, dt))[0],
+        "MyelinatedLayer": lambda dev, dt, M: M["MyelinatedLayer"](
+            x.to(dev, dt)),
+        "Gate": lambda dev, dt, M: M["Gate"](x.to(dev, dt)),
+        "OneShot": lambda dev, dt, M: M["OneShot"](
+            x.to(dev, dt), xa.to(dev, dt), torch.tensor(0.4, device=dev)),
+        "ChannelLayerNorm": lambda dev, dt, M: M["ChannelLayerNorm"](
+            x.to(dev, dt)),
+        "Identity": lambda dev, dt, M: M["Identity"](x.to(dev, dt), 1),
+        "taylor_softmax": lambda dev, dt, M: matt.taylor_softmax(
+            q.to(dev, dt), 3),
+        "rbf_scores": lambda dev, dt, M: matt.rbf_scores(
+            q.to(dev, dt), k.to(dev, dt), 2.0, 0.4),
+        "peak_normalize": lambda dev, dt, M: peak_normalize(
+            x.to(dev, dt) * 0.3),
+    }
+    old_draws = extras.jump_draws
+    try:
+        with torch.no_grad():
+            want = {name: fn("cpu", torch.float32, mods)
+                    for name, fn in calls.items()}
+            extras.jump_draws = lambda g, s, bb, device, dtype: draws.to(
+                device, dtype)
+            with stochastic.mode(gen=torch.Generator().manual_seed(0)):
+                want["MyelinatedLayer jumps"] = mods["MyelinatedLayer"](x)
+            for dt_name, dt in (("f32", torch.float32),
+                                ("bf16", torch.bfloat16)):
+                card = {n: copy.deepcopy(m).to(DEV, dt)
+                        for n, m in mods.items()}
+                for name, fn in calls.items():
+                    got = fn(DEV, dt, card)
+                    assert got.device.type == "cuda"
+                    if name == "create_attention_mask":
+                        check(torch.equal(got.cpu(), want[name]),
+                              "latent create_attention_mask on the card: "
+                              "equal to the CPU's")
+                        continue
+                    if dt_name == "bf16" and name == "MyelinatedLayer":
+                        continue
+                    out[f"{name} {dt_name}"] = _latent_close(
+                        name, got, want[name], dt_name)
+                gen_dev = torch.Generator(device=DEV).manual_seed(0)
+                for name, ws in (("MyelinatedLayer", {}),
+                                 ("MyelinatedLayer jumps", {"gen": gen_dev})):
+                    with stochastic.mode(**ws):
+                        got = card["MyelinatedLayer"](x.to(DEV, dt))
+                    if dt_name == "f32":
+                        out[f"{name} f32"] = _latent_close(
+                            name, got, want[name], "f32")
+                    else:
+                        rel = float((got.float().cpu() - want[name]).abs()
+                                    .max() / want[name].abs().max())
+                        check(bool(torch.isfinite(got).all()),
+                              f"latent {name} bf16 on the card: every value "
+                              f"finite (read: {rel:.3e} of max|CPU f32|, "
+                              "not gated)")
+                        out[f"{name} bf16 (read)"] = rel
+    finally:
+        extras.jump_draws = old_draws
+    small = Dimensions(tokens=256, mels=16, dims=64, head=2, layer=2)
+    m_cpu = Model(small, ModelConfig(), device="cpu")
+    m_dev = Model(small, ModelConfig(), device=DEV)
+    check(init_w(m_cpu) == init_w(m_dev)
+          and np.array_equal(rotary.wideband_freqs(512, 4),
+                             rotary.wideband_freqs(512, 4)),
+          "latent init_w on a card model equal to the CPU model's")
+    del m_cpu, m_dev
+
+    # the host features with every flag on the tones
+    tok = setup_tokenizer(TOKENIZER)
+    audio = tones(BATCH, UTT_SEC)
+    flags = dict(spectrogram=True, pitch=True, waveform=True, harmonics=True,
+                 aperiodics=True, phase=True, pitch_tokens=True)
+    items = [{"audio": {"array": a, "sampling_rate": SR},
+              "transcription": f"tone number {i}"}
+             for i, a in enumerate(audio)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(BATCH) as pool:
+        feats = list(pool.map(lambda it: extract_features(it, tok, **flags),
+                              items))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    frames = 1 + audio.shape[1] // HOP
+    shapes = {"spectrogram": (128, frames), "pitch": (1, frames),
+              "waveform": (1, int(UTT_SEC * (SR // HOP))),
+              "harmonic": (128, frames), "aperiodic": (128, frames),
+              "phase": (frames,)}
+    ok = True
+    for f in feats:
+        ok &= all(f[k].shape == s_ and np.isfinite(f[k]).all()
+                  for k, s_ in shapes.items())
+        ok &= f["pitch_tokens"].shape == (len(f["labels"]) + 1,) \
+            and np.isfinite(f["pitch_tokens"]).all()
+    check(ok, f"extract_features with every flag on the {BATCH} tones: the "
+          f"JAX shapes ({shapes}, pitch_tokens (labels + 1,)), finite, "
+          f"{host_ms:.1f} ms for the {BATCH} utterances ({BATCH} threads)")
+    out["extract_features_all_flags_ms"] = host_ms
     return out
 
 
@@ -2347,7 +2899,7 @@ def train_step0(batch_np, dt_name: str, label: str, extra=None,
 
 
 def train_path(batch_np, dt_name: str, label: str, step0: dict,
-               extra=None, steps: int = 5, timed: int = 2,
+               extra=None, steps: int = 3, timed: int = 2,
                profiler=None):
     """The train step on the flagship (dropout and gumbel draws from a
     seeded generator) after ``train_step0``'s gate (``step0``): step 0,
@@ -2888,7 +3440,7 @@ CHAINED_MOE = dict(chained_blocks=True, moe_experts=8, moe_top_k=2,
 # batch's shape; four chained blocks at the 10 s tones would hold about
 # four times the one block's 18 GiB of f32 activations), the timed
 # steps and the f32 steps after them
-VARIANT_SEC, VARIANT_TIMED, VARIANT_STEPS = 2.55, 1, 3
+VARIANT_SEC, VARIANT_TIMED, VARIANT_STEPS = 2.55, 1, 2
 # the fused kernels the fused variant launches; the MoE MLP never takes
 # the fused MLP (the JAX gate refuses an MoE block)
 CHAINED_MOE_FUSED = ("fused_attn_cached", "fused_attn_full",
@@ -3623,6 +4175,18 @@ def main() -> int:
     parallel_path(paths, rel, batch_np, step0)
     phase_done("parallel")
 
+    # past the kernels' shared-memory plans (the routes), then the latent
+    # modules and the host features
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    kern += check_limits()
+    torch.cuda.empty_cache()
+    phase_done("limits")
+    rel["latent_modules"] = latent_modules()
+    phase_done("latent modules")
+
+    # (a route's launches on every path: 0, no path's shapes reach one)
     for k in kern:
         by_path = {p: r["counts"][k["name"]]["launches"]
                    for p, r in paths.items()}

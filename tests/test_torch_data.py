@@ -96,12 +96,23 @@ def test_extract_features_matches_jax(toks, synth, estimator):
 
 
 def test_unported_features_raise(toks):
-    item = {"audio": {"array": np.zeros(1600, np.float32),
-                      "sampling_rate": 16000}, "transcription": "a"}
-    for flag in ("pitch_tokens", "harmonics", "aperiodics", "phase"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            extract_features(item, tokenizer=toks[0], device="cpu",
-                             **{flag: True})
+    """The four features this test once saw refused (pitch tokens, WORLD
+    harmonics and aperiodics, phase) are ported: each flag alone gives
+    the JAX package's feature under its key, exactly (the same native
+    WORLD source; tests/test_torch_features.py holds them in detail)."""
+    tok, jtok = toks
+    t = np.arange(3200) / 16000
+    wav = (0.5 * np.sin(2 * np.pi * 180 * t)).astype(np.float32)
+    item = {"audio": {"array": wav, "sampling_rate": 16000},
+            "transcription": "a tone"}
+    for flag, key in (("pitch_tokens", "pitch_tokens"),
+                      ("harmonics", "harmonic"), ("aperiodics", "aperiodic"),
+                      ("phase", "phase")):
+        got = extract_features(item, tokenizer=tok, device="cpu",
+                               **{flag: True})
+        want = jextract(item, tokenizer=jtok, **{flag: True})
+        assert set(got) == set(want) == {"labels", key}
+        np.testing.assert_array_equal(got[key], want[key])
 
 
 @pytest.mark.parametrize("pad,tpad,masks", [(None, None, False),

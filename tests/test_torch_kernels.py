@@ -86,12 +86,160 @@ def test_mel_kernel_direct_dft(dev, n_fft, n_mels):
 
 
 def test_mel_kernel_refuses_other_n_fft(dev):
-    """An n_fft whose single frame does not fit in shared memory, an
-    n_fft below 2 and no mels raise."""
+    """An n_fft below 2 and no mels raise (an n_fft whose single frame
+    does not fit in shared memory takes the global route:
+    ``test_mel_kernel_global_route``)."""
     x = torch.zeros(1, 16000, device=dev)
-    for kw in (dict(n_fft=1), dict(n_fft=40000), dict(n_mels=0)):
+    for kw in (dict(n_fft=1), dict(n_mels=0)):
         with pytest.raises(ValueError):
             mel.mel_spectrogram(x, **kw)
+
+
+# ------------------------------- the routes past the shared-memory plans
+
+# n_fft past one frame in shared memory: the first (38,742) at 128 mels,
+# 40,000 at 80; one and two utterances
+@pytest.mark.parametrize("n_fft,n_mels,b", [(38742, 128, 1), (40000, 80, 2)])
+def test_mel_kernel_global_route(dev, n_fft, n_mels, b):
+    g = torch.Generator(device=dev).manual_seed(28)
+    x = torch.randn(b, 24000, device=dev, generator=g)
+    kw = dict(n_fft=n_fft, hop_length=160, n_mels=n_mels)
+    assert mel.launch_plan(b, 24000, n_fft, 160, n_mels)["route"] == "global"
+    before = mel.mel_spectrogram.routes["global"]
+    got = mel.mel_spectrogram(x, **kw)
+    assert mel.mel_spectrogram.routes["global"] - before == 2
+    want = mel.mel_spectrogram_plain(x, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+# head widths past 1024: the first even one past (1026), 1088 and 2048,
+# causal with a fully masked batch row, cross with a prefix mask
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,tq,tk,hd,causal,lens", [
+    (2, 2, 70, 70, 1026, True, [70, 0]),
+    (2, 1, 33, 200, 1088, False, [200, 120]),
+    (1, 2, 100, 100, 2048, True, None)])
+def test_flash_global_route(dev, dtype, b, h, tq, tk, hd, causal, lens):
+    g = torch.Generator(device=dev).manual_seed(29)
+    q, k, v = (torch.randn(b, h, t, hd, device=dev, generator=g).to(dtype)
+               for t in (tq, tk, tk))
+    valid = None if lens is None else (
+        torch.arange(tk, device=dev)[None]
+        < torch.tensor(lens, device=dev)[:, None])
+    assert attention.launch_plan(b, h, tq, tk, hd, dtype)["route"] == \
+        "global"
+    before = attention.flash_attention.routes["global"]
+    got = attention.flash_attention(q, k, v, causal=causal, kv_valid=valid)
+    assert attention.flash_attention.routes["global"] - before == 3
+    want = attention.attention_plain(q.float(), k.float(), v.float(),
+                                     causal=causal, kv_valid=valid)
+    assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+# AbbyNormal's global route through its launch sequence at widths whose
+# cluster plan fits too (the route's kernels in both dtypes, with and
+# without the residual the MLP adds), and past the bf16 plan (59,520)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(33, 512), (8, 4096), (3, 100)])
+def test_abby_global_route_kernels(dev, dtype, n, d):
+    r = _rand(dev, 30, dtype)
+    x, res = r(n, d, sc=2.0), r(n, d)
+    w = tuple(_norm_w(r, d).values())
+    size = abby.window_size(d)
+    want = abby.abby_plain(x, *w, size, 1e-4, 1.0, 0.75)
+    got = torch.empty_like(x)
+    abby.abby_global(x, *w, None, got, size, 1e-4, 1.0, 0.75)
+    assert _rel(got, want) < _tol(dtype)
+    abby.abby_global(x, *w, res, got, size, 1e-4, 1.0, 0.75)
+    want = (res.float() + abby.abby_values(x, *w, size, 1e-4, 1.0, 0.75)
+            ).to(dtype)
+    assert _rel(got, want) < _tol(dtype)
+
+
+def test_abby_global_route_past_the_plan(dev):
+    n, d = 4, 59520
+    assert abby.is_global(d, torch.bfloat16)
+    assert not abby.is_global(59392, torch.bfloat16)
+    r = _rand(dev, 31, torch.bfloat16)
+    x = r(n, d, sc=2.0)
+    w = tuple(_norm_w(r, d).values())
+    size = abby.window_size(d)
+    before = abby.fused_abby.routes["global"]
+    got = abby.fused_abby(x, *w, size, 1e-4, 1.0, 0.75)
+    assert abby.fused_abby.routes["global"] - before == 3
+    want = abby.abby_plain(x, *w, size, 1e-4, 1.0, 0.75)
+    assert _rel(got, want) < _tol(torch.bfloat16)
+
+
+# more than 12 TGate types: the first past (13), 16 and 40, tensor-core
+# linears (bf16, aligned) and CUDA-core ones (f32, D 100)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,nt", [(8 * 9, 512, 13), (33, 256, 16),
+                                    (40, 100, 40), (8, 2304, 16)])
+def test_mlp_kernel_many_types(dev, dtype, n, d, nt):
+    r = _rand(dev, 32, dtype)
+    args = _mlp_args(r, n, d, nt * d, nt)
+    plan = mlp.launch_plan(n, d, nt * d, dtype, nt)
+    assert plan["types"] == "many" and plan["launches"] == 6
+    before = mlp.fused_mlp_residual.routes["types"]
+    got = mlp.fused_mlp_residual(*args)
+    assert mlp.fused_mlp_residual.routes["types"] - before == 6
+    want = mlp.mlp_residual_plain(*args)
+    assert _rel(got, want) < _tol(dtype)
+
+
+# the whole attention calls past head width 1024 (the attention through
+# the global route): D 2048 with one head, D 2176 with two of 1088
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads", [(2048, 1), (2176, 2)])
+def test_attn_calls_global_route(dev, dtype, d, heads):
+    args, kw = _cached_args(dev, dtype, 3, 9, 130, d, True, seed=33,
+                            hd=d // heads)
+    plan = xattn.launch_plan_cached(3, 9, 130, d, dtype, True, 132, heads)
+    assert plan["route"] == "global" and plan["launches"] == 7
+    before = xattn.fused_attn_cached.routes["global"]
+    got = xattn.fused_attn_cached(*args, **kw)
+    assert xattn.fused_attn_cached.routes["global"] - before == 7
+    assert _rel(got, xattn.attn_cached_plain(*args, **kw)) < _tol(dtype)
+    r = _rand(dev, 34, dtype)
+    wq, wkv, wh, wo = _attn_weights(r, d, heads)
+    x = r(3, 17, d, sc=0.5)
+    valid = torch.arange(17, device=dev)[None] < torch.tensor(
+        [[17], [9], [1]], device=dev)
+    fargs = (x, x, valid, _freqs(dev, d, heads, True), wq, wkv, wh, wo)
+    before = xattn.fused_attn_full.routes["global"]
+    got = xattn.fused_attn_full(*fargs, causal=True, **kw)
+    assert xattn.fused_attn_full.routes["global"] - before == 10
+    want = xattn.attn_full_plain(*fargs, causal=True, **kw)
+    assert _rel(got, want) < _tol(dtype)
+
+
+# the MSheath row kernel past its shared memory: D 8448 (the first
+# multiple of 128 past 8,320), both x dtypes, with and without a mask
+@pytest.mark.parametrize("dtype,masked", [(torch.float32, True),
+                                          (torch.bfloat16, False)])
+def test_sheath_kernel_global_route(dev, dtype, masked):
+    from asr_model_tpu_torch.models.sheath import MSheath
+    from asr_model_tpu_torch.models.tlayers import reset_all
+    d = 8448
+    m = MSheath(d, 66, 4, device=dev)
+    reset_all(m, torch.Generator(device=dev).manual_seed(35))
+    w = m.scan_weights()
+    g = torch.Generator(device=dev).manual_seed(36)
+    x = torch.randn(2 * 9, d, device=dev, generator=g).to(dtype)
+    valid = (torch.arange(9, device=dev)[None] < torch.tensor(
+        [[9], [4]], device=dev)) if masked else None
+    assert sheath.launch_plan(18, d, d // 2, m.mem)["route"] == "global"
+    sampled = torch.tensor(2, dtype=torch.int32, device=dev)
+    args = (x, 2, valid, w["mem0"], sampled, w["jump_s"],
+            {k: w[k] for k in sheath.WEIGHT_NAMES}, 4, 0.3)
+    before = sheath.fused_sheath_scan.routes["global"]
+    got, act_g, js_g = sheath.fused_sheath_scan(*args)
+    assert sheath.fused_sheath_scan.routes["global"] - before == 9
+    want, act_w, js_w = sheath.sheath_scan_plain(*args)
+    assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 2e-2)
+    assert act_g.tolist() == act_w.tolist()
+    assert js_g.tolist() == js_w.tolist()
 
 
 # (B, H, Tq, Tk, hd, causal, valid keys per batch row (0: a fully masked

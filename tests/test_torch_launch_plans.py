@@ -495,3 +495,110 @@ def test_attn_wide_key_splits(b, t, tk, heads, want):
     assert ns == want
     kps = -(-(-(-tk // ns)) // 16) * 16
     assert (ns - 1) * kps < tk <= ns * kps
+
+
+# -------------------------- the routes past the shared-memory plans
+
+def test_flash_plan_past_head_width_1024():
+    """Past hd 1024 the global route's three launches and its score
+    matrix; at 1024 the wide kernel's one launch, as before."""
+    for dtype in (torch.float32, torch.bfloat16):
+        p = attention.launch_plan(8, 4, 1001, 1001, 1024, dtype)
+        assert p == {"route": "wide", "launches": 1, "splits": 1}
+        p = attention.launch_plan(8, 1, 1001, 1001, 1026, dtype)
+        assert p["route"] == "global" and p["launches"] == 3
+        assert p["splits"] == 1 and p["scores_bytes"] == 4 * 8 * 1001 * 1001
+    assert attention.launch_plan(8, 4, 65, 1001, 128, torch.bfloat16)[
+        "splits"] == attention.splits(32, 65, 1001, 132, 128)
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.bfloat16, 59392),
+                                         (torch.float32, 92160)])
+def test_abby_plan_past_the_cluster_plan(dtype, limit):
+    """The last multiple of 128 whose staged slices fit keeps the cluster
+    plan; the next takes the global route's three launches."""
+    below = abby.launch_plan(6, limit, dtype)
+    assert "route" not in below and below["smem"] <= SMEM_MAX
+    assert below["cluster"] <= 8 and not abby.is_global(limit, dtype)
+    p = abby.launch_plan(6, limit + 128, dtype)
+    assert p["route"] == "global" and p["launches"] == 3
+    assert p["cluster_smem"] > SMEM_MAX and abby.is_global(limit + 128, dtype)
+    es = torch.empty((), dtype=dtype).element_size()
+    assert p["hidden_bytes"] == 6 * (limit + 128) * es
+    assert p["route_bytes"] == 4 * 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_plan_past_12_types_and_the_norms(dtype):
+    """13 types and more: one launch more (the types), the gates on the
+    CUDA cores; 12 keep the five launches.  Past the norms' cluster plan
+    each norm is three launches."""
+    p12 = mlp.launch_plan(72, 512, 512 * 12, dtype, 12)
+    assert p12["launches"] == 5 and p12["types"] != "many"
+    for nt in (13, 16, 40):
+        p = mlp.launch_plan(72, 512, 512 * nt, dtype, nt)
+        assert p["launches"] == 6 and p["types"] == "many"
+        assert p["gate_cols"] == mlp.COLS and p["gates_smem"] <= SMEM_MAX
+        assert mlp.supports(512, nt)
+    assert mlp.launch_plan(6, 59392, 3 * 59392, torch.bfloat16)[
+        "launches"] == 5
+    p = mlp.launch_plan(6, 59520, 3 * 59520, torch.bfloat16)
+    assert p["launches"] == 9 and p["norm"]["route"] == "global"
+    assert mlp.launch_plan(6, 59520, 3 * 59520, torch.bfloat16, 13)[
+        "launches"] == 10
+
+
+def test_sheath_plan_past_the_row_kernels_shared_memory():
+    """D 8320 (the model's D2 = D / 2, M 64) keeps the row kernel's
+    plan; D 8448, the next multiple of 128, takes the global route: the
+    ring alone in shared memory, each CTA's earlier passes' adapter
+    outputs in device memory."""
+    below = sheath.launch_plan(118, 8320, 4160, 64)
+    assert "route" not in below
+    assert below["smem"] == sheath.smem_bytes(16, 8320, below["passes"]) \
+        <= SMEM_MAX
+    p = sheath.launch_plan(118, 8448, 4224, 64)
+    assert p["route"] == "global" and p["rows"] == 16 and p["cluster"] == 8
+    assert sheath.smem_bytes(16, 8448, p["passes"]) > SMEM_MAX
+    assert p["smem"] == sheath.smem_bytes_global(16) <= SMEM_MAX
+    assert p["aog_bytes"] == 4 * p["tiles"] * 8 * (p["passes"] - 1) * 16 * 72
+    assert _covers(118, p["tiles"], p["rows"])
+
+
+def test_attn_calls_plan_past_the_wide_route():
+    """Head widths past 1024 take the global attention (two launches
+    more, no key split); a D or head width past AbbyNormal's cluster
+    plan two more a norm call; at 1024 the wide route as before."""
+    for dtype in (torch.float32, torch.bfloat16):
+        c = xattn.launch_plan_cached(8, 9, 512, 1024, dtype, True, 132, 1)
+        f = xattn.launch_plan_full(8, 9, 9, 1024, dtype, True, 1)
+        assert c["route"] == f["route"] == "wide"
+        c = xattn.launch_plan_cached(8, 9, 512, 2048, dtype, True, 132, 1)
+        f = xattn.launch_plan_full(8, 9, 9, 2048, dtype, True, 1)
+        assert c["route"] == f["route"] == "global"
+        assert c["attention"] == f["attention"] == "global"
+        assert (c["launches"], f["launches"]) == (7, 10)
+        assert c["splits"] == f["splits"] == 1
+        assert c["scores_bytes"] == 4 * 8 * 9 * 512
+        assert xattn.supports(2048, 1) and xattn.supports(2176, 2)
+    c = xattn.launch_plan_cached(1, 6, 35, 59520, torch.bfloat16, True, 132,
+                                 93)
+    f = xattn.launch_plan_full(1, 2, 2, 59520, torch.bfloat16, True, 93)
+    assert c["route"] == f["route"] == "global"
+    assert c["attention"] == f["attention"] == "wide"
+    assert (c["launches"], f["launches"]) == (7, 12)
+    assert xattn.launch_plan_cached(1, 6, 35, 59392, torch.bfloat16, True,
+                                    132, 58)["route"] == "wide"
+
+
+def test_mel_plan_past_one_frame_in_shared_memory():
+    """n_fft 38,740 keeps the direct DFT's one launch (one frame a
+    block); 38,742 takes the global route's two."""
+    p = mel.launch_plan(1, 48000, 38740, 160, 128)
+    assert p == {"route": "dft", "launches": 1, "frames": 301}
+    assert mel.dft_frames(38740, 160) == 1
+    p = mel.launch_plan(1, 48000, 38742, 160, 128)
+    assert p["route"] == "global" and p["launches"] == 2
+    assert p["frames"] == 301 and p["power_bytes"] == 4 * 301 * 19372
+    assert mel.launch_plan(8, 160000, 1024, 160, 128) == {
+        "route": "fft", "launches": 1, "frames": 1001}

@@ -78,10 +78,11 @@ def test_training_modules_load_no_jax():
 def test_every_kernel_source_is_built():
     names = {p.name for p in build.sources()}
     assert names == {"abby.cu", "flash_attention.cu", "mel.cu", "sheath.cu",
-                     "xattn.cu", "mlp.cu", "router.cu", "dio.cu"}
+                     "xattn.cu", "xattn_wide.cu", "mlp.cu", "router.cu",
+                     "dio.cu"}
     headers = {p.name for p in build.CSRC.glob("*.cuh")}
     assert headers == {"common.cuh", "abby_tail.cuh", "abby_cluster.cuh",
-                       "mma.cuh"}
+                       "mma.cuh", "global_attn.cuh", "xattn.cuh"}
     assert "-gencode" in build.CFLAGS and \
         "arch=compute_90a,code=sm_90a" in build.CFLAGS
     assert len(build.source_hash()) == 16

@@ -20,6 +20,10 @@ gates against the JAX gates.
   each against the JAX package (the Pallas kernel in interpret mode and
   the XLA route), f32 at the bounds above (the AbbyNormal, router and
   tail at atol 2e-5, rtol 1e-4: test_torch_fused.py's).
+* Past the shared-memory plans, at the two limits a config reaches:
+  head width 2048 (the plain flash version and both whole calls at one
+  head of 2048) and 16 TGate types (the residual MLP), each against the
+  JAX package's XLA route, f32 at the bounds above.
 * The gates: on a grid of (D, heads, B, T, Tk, dtype) up to D 4096 and
   head width 512, the port's ``Attention._fused_ok``,
   ``Residual._mlp_fused_ok`` (up to 12 gates) and ``Router._fused_ok``
@@ -287,6 +291,90 @@ def test_fused_attn_hd384_matches_jax(monkeypatch):
     _engaged("fused_attn_full")
     for want in wants:
         np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+# ------------------------------------- past the shared-memory plans
+
+def _xla(monkeypatch, mod, name, fn, *args):
+    """JAX outputs of fn(*args) with the Pallas switch off (XLA)."""
+    monkeypatch.setattr(mod, name, "off")
+    return jax.tree_util.tree_map(np.asarray, jax.jit(fn)(*args))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_flash_hd2048_matches_jax(causal):
+    """The plain version of flash (the global route's oracle) at head
+    width 2048 against the JAX package's sdpa (the XLA route), with a
+    fully masked batch row."""
+    rng = np.random.RandomState(12)
+    q, k, v = (rng.randn(2, 1, t, 2048).astype(np.float32) * 0.1
+               for t in (7, 19, 19))
+    valid = np.arange(19)[None, :] < np.array([[19], [0]])
+    want = np.asarray(jax.jit(lambda q, k, v, m: jam.sdpa(
+        q, k, v, causal=causal, kv_valid=m))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid)))
+    got = kernels.attention.attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal, torch.from_numpy(valid))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_fused_attn_hd2048_matches_jax(monkeypatch):
+    """Both whole calls at one head of 2048 (past the wide route's 1024:
+    the global route's plain versions) against the JAX module's XLA
+    route: the cached call against 20 keys, the full call causal."""
+    jm, v, tm, x, xa = _attn_pair(2048, 1, 2, 20, 13)
+    valid = np.arange(20)[None, :] < np.array([[11], [20]])
+    kv = jax.jit(lambda v, xa: jm.apply(
+        v, xa, method=JAttention.precompute_kv))(v, jnp.asarray(xa))
+    want = _xla(monkeypatch, jam, "_PALLAS_XATTN",
+                lambda v, x, kv, m: jm.apply(v, x, cached_kv=kv, kv_valid=m),
+                v, jnp.asarray(x), kv, jnp.asarray(valid))
+    kernels.reset_counts()
+    got = tm(torch.from_numpy(x), cached_kv=tm.precompute_kv(
+        torch.from_numpy(xa)), kv_valid=torch.from_numpy(valid))
+    _engaged("fused_attn_cached")
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert xattn.launch_plan_cached(2, 2, 20, 2048, torch.bfloat16, True,
+                                    132, 1)["route"] == "global"
+    fvalid = np.array([[True, False], [True, True]])
+    want = _xla(monkeypatch, jam, "_PALLAS_XATTN",
+                lambda v, x, m: jm.apply(v, x, causal=True, kv_valid=m),
+                v, jnp.asarray(x), jnp.asarray(fvalid))
+    kernels.reset_counts()
+    got = tm(torch.from_numpy(x), causal=True,
+             kv_valid=torch.from_numpy(fvalid))
+    _engaged("fused_attn_full")
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_fused_mlp_16_types_matches_jax(monkeypatch):
+    """The residual MLP at 16 TGate types (past the gates' launch's 12:
+    the types route's plain version) against ``Residual._mlp`` at the
+    same ``num_types`` (the XLA route)."""
+    d, nt = 128, 16
+    rng = np.random.RandomState(14)
+    jm = JResidual(dims=d, head=1, layer=2, act="gelu", n_type="AbbyNormal",
+                   num_types=nt)
+    params = jax.device_get(jax.jit(lambda r: jm.init(
+        {"params": r}, jnp.zeros((1, 4, d), jnp.float32)))(
+            jax.random.key(3))["params"])
+    tm = Residual(d, 1, 2, "gelu", "AbbyNormal", num_types=nt,
+                  fused_mlp=True, device="cpu")
+    tm.load_state_dict(from_jax_params(params), strict=True)
+    x = (rng.randn(2, 9, d) * 0.5).astype(np.float32)
+    want = _xla(monkeypatch, jdm, "_PALLAS_MLP",
+                lambda v, x: jm.apply(v, x, method=lambda m, x:
+                                      x + m._mlp(x)),
+                {"params": params}, jnp.asarray(x))
+    kernels.reset_counts()
+    tx = torch.from_numpy(x)
+    assert tm._mlp_fused_ok(tx)
+    got = tm._mlp_residual_fused(tx)
+    _engaged("fused_mlp_residual")
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert mlp.launch_plan(18, d, nt * d, torch.bfloat16, nt)["types"] == \
+        "many"
 
 
 @pytest.mark.parametrize("n_fft", [48, 4097, 8192])

@@ -272,8 +272,9 @@ def test_config_from_json_reads_the_jax_config():
     assert got.dims == Dimensions(**KW)
     assert got.model.streaming and got.model.causal_all is False
     assert got.data.pitch is False and got.data.pitch_estimator == "yin"
-    # the model variants are read since they were ported; the features
-    # the port does not compute are refused
+    # the model variants are read since they were ported, and the WORLD
+    # feature flags (read, written back, inert as in the JAX package);
+    # the pitch-token model path is refused
     for ok in (JConfig(model=JModelConfig(moe_experts=2)),
                JConfig(model=JModelConfig(chained_blocks=True)),
                JConfig(model=JModelConfig(encoder_norm=True)),
@@ -281,10 +282,13 @@ def test_config_from_json_reads_the_jax_config():
                JConfig(model=JModelConfig(msheath_mini_hc=True))):
         got = Config.from_json(ok.to_json())
         assert JConfig.from_json(got.to_json()).model == ok.model
-    for bad in (JConfig(data=JData(pitch_tokens=True)),
-                JConfig(data=JData(harmonics=True))):
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 9"):
-            Config.from_json(bad.to_json())
+    world = JConfig(data=JData(harmonics=True, aperiodics=True, phase=True))
+    got = Config.from_json(world.to_json())
+    assert got.data.harmonics and got.data.aperiodics and got.data.phase
+    back = JConfig.from_json(got.to_json()).data
+    assert (back.harmonics, back.aperiodics, back.phase) == (True,) * 3
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 9"):
+        Config.from_json(JConfig(data=JData(pitch_tokens=True)).to_json())
 
 
 def test_transcriber_needs_cuda_unless_cpu_is_asked(pair):
